@@ -1,0 +1,237 @@
+"""BatchAligner: bucketed many-pair alignment on a CUDA card.
+
+The counterpart of ``smithwaterman_tpu/batch_aligner.py`` and the main path
+every user surface goes through (CLI, clustering, the single-pair
+``Aligner`` on a card).  Its stages:
+
+1. codes: ``SubstitutionMatrix.seq_to_index`` per sequence; pairs with an
+   empty side get the closed-form ``degenerate_result``;
+2. buckets: pairs grouped by ``(bucket_len(n), bucket_len(m))``, buckets in
+   sorted order, each bucket's codes padded into (B, NP) and (B, MP);
+3. flushes: buckets cut into chunks whose pointer bytes fit the budget
+   (``ops/batch.plan_flushes``);
+4. per flush, the fill (kernel K1, ``ops/fill_dp.fill_many``) and the walk
+   (kernel K2, ``ops/device_walk.walk_packed``), one launch each over all
+   of the flush's pairs, leaving only the stats, move counts and packed
+   moves to copy back;
+5. the string rebuild on the host from the 2-bit move streams
+   (``ops/reconstruct.reconstruct_packed``, ``csrc/reconstruct.cpp``).
+
+Results come back in input order and are bit-identical to the single-pair
+``Aligner``.  ``device="cpu"`` runs the same stages with the kernels'
+plain PyTorch versions: the tests' reference path.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .aligner import (
+    AlignResult,
+    _as_seqdata,
+    _perl_compat_seq,
+    default_device,
+    degenerate_result,
+)
+from .config import LOCAL, AlignConfig, bucket_len
+from .matrices import ScoringMatrix, SubstitutionMatrix
+from .ops import batch as batch_ops
+from .ops import device_walk, fill_dp
+from .ops import reconstruct as recon
+
+
+@dataclass
+class _Bucket:
+    np_pad: int
+    mp_pad: int
+    indices: List[int] = field(default_factory=list)  # caller positions
+    codes1: List[np.ndarray] = field(default_factory=list)
+    codes2: List[np.ndarray] = field(default_factory=list)
+
+    def chunk(self) -> batch_ops.Chunk:
+        """The bucket's padded codes and lengths."""
+        count = len(self.indices)
+        n = np.fromiter((len(c) for c in self.codes1), np.int32, count)
+        m = np.fromiter((len(c) for c in self.codes2), np.int32, count)
+        return batch_ops.Chunk(_pack(self.codes1, n, self.np_pad),
+                               _pack(self.codes2, m, self.mp_pad), n, m)
+
+
+def _pack(codes: List[np.ndarray], lens: np.ndarray, width: int):
+    """Rows of ragged codes into a zero-padded (count, width) uint8 array
+    with one fancy-index scatter."""
+    count = len(codes)
+    out = np.zeros((count, width), np.uint8)
+    total = int(lens.sum())
+    if total:
+        starts = np.zeros(count, np.int64)
+        np.cumsum(lens[:-1], out=starts[1:])
+        rows = np.repeat(np.arange(count), lens)
+        cols = np.arange(total) - np.repeat(starts, lens)
+        out[rows, cols] = np.concatenate(codes)
+    return out
+
+
+class BatchAligner:
+    def __init__(
+        self,
+        scoring_matrix: Optional[ScoringMatrix] = None,
+        gap_open: float = 10.0,
+        gap_extend: float = 0.5,
+        mode: int = LOCAL,
+        config: Optional[AlignConfig] = None,
+        device: Optional[str] = None,
+        perl_compat: bool = False,
+    ):
+        if config is None:
+            config = AlignConfig(mode=mode, gap_open=gap_open,
+                                 gap_extend=gap_extend)
+        self.config = config
+        self.scoring_matrix = scoring_matrix or SubstitutionMatrix.blosum62()
+        self.device = torch.device(device or default_device())
+        # replicate the Perl engine's input rewrite (aligner.perl_sanitize)
+        self.perl_compat = perl_compat
+        # opt-in observability: assign a utils.metrics.StatsCollector
+        self.stats = None
+        # wall-time phase breakdown of the last call (seconds):
+        # bucket / dispatch / gather / reconstruct
+        self.phase: Dict[str, float] = {}
+
+    @property
+    def mode(self) -> int:
+        return self.config.mode
+
+    # ------------------------------------------------------------------
+    def align_pairs(
+        self, pairs: Sequence[Tuple], retain_all: bool = True
+    ) -> List[AlignResult]:
+        return self._run(pairs, retain_all=retain_all, score_only=False)
+
+    def score_pairs(self, pairs: Sequence[Tuple]) -> np.ndarray:
+        res = self._run(pairs, retain_all=True, score_only=True)
+        return np.asarray([r.score for r in res], dtype=np.float32)
+
+    # ------------------------------------------------------------------
+    def _table_on_device(self) -> torch.Tensor:
+        table = np.asarray(self.scoring_matrix.table, np.float32)
+        if table.shape[0] > 255:
+            raise NotImplementedError(
+                f"{table.shape[0]} symbols do not fit the uint8 codes")
+        return torch.from_numpy(table.copy()).to(self.device)
+
+    def _run(self, pairs: Sequence[Tuple], retain_all: bool,
+             score_only: bool) -> List[AlignResult]:
+        sm = self.scoring_matrix
+        if not hasattr(sm, "table"):
+            raise ValueError(
+                "BatchAligner needs a letter-indexed scoring matrix; "
+                "position-specific matrices are per-pair — use Aligner"
+            )
+        ph = self.phase = {"bucket": 0.0, "dispatch": 0.0, "gather": 0.0,
+                           "reconstruct": 0.0}
+        t_run0 = t0 = time.time()
+        og, eg = self.config.og, self.config.eg
+        results: List[Optional[AlignResult]] = [None] * len(pairs)
+        seqs: List[Tuple] = []
+        buckets: Dict[Tuple[int, int], _Bucket] = {}
+        for idx, (a, b) in enumerate(pairs):
+            s1, s2 = _as_seqdata(a), _as_seqdata(b)
+            if self.perl_compat:
+                s1, s2 = _perl_compat_seq(s1), _perl_compat_seq(s2)
+            seqs.append((s1, s2))
+            c1 = sm.seq_to_index(s1.seq)
+            c2 = sm.seq_to_index(s2.seq)
+            if len(c1) == 0 or len(c2) == 0:
+                results[idx] = degenerate_result(
+                    s1.seq, s2.seq, self.mode, og, eg, retain_all, score_only
+                )
+                continue
+            key = (bucket_len(len(c1), self.config.buckets),
+                   bucket_len(len(c2), self.config.buckets))
+            bk = buckets.get(key)
+            if bk is None:
+                bk = buckets[key] = _Bucket(*key)
+            bk.indices.append(idx)
+            bk.codes1.append(c1)
+            bk.codes2.append(c2)
+        order = sorted(buckets.values(), key=lambda b: (b.np_pad, b.mp_pad))
+        table = self._table_on_device() if order else None
+        flushes = batch_ops.plan_flushes(
+            [bk.chunk() for bk in order], batch_ops.tb_budget(), score_only)
+        # caller positions of each pair, in flush order
+        positions = [i for bk in order for i in bk.indices]
+        ph["bucket"] = time.time() - t0
+
+        lo = 0
+        for chunks in flushes:
+            B = sum(ch.shape[0] for ch in chunks)
+            pos = positions[lo:lo + B]
+            self._flush(chunks, pos, table, seqs, results, retain_all,
+                        score_only)
+            lo += B
+        if self.stats is not None:
+            self._record(order)
+            # non-overlapped engine wall: the throughput denominator
+            self.stats.run_seconds += time.time() - t_run0
+        return results  # type: ignore[return-value]
+
+    def _flush(self, chunks, pos, table, seqs, results, retain_all,
+               score_only) -> None:
+        """Fill and walk one flush on the device, then rebuild on the host."""
+        ph = self.phase
+        t0 = time.time()
+        og, eg = self.config.og, self.config.eg
+        filled = fill_dp.fill_many(table, chunks, mode=self.mode, og=og,
+                                   eg=eg, score_only=score_only)
+        if not score_only:
+            L = max(device_walk.max_path_len(NP, MP)
+                    for _, NP, MP in filled.shapes)
+            cnt_d, mv_d = device_walk.walk_packed(
+                filled.tb, filled.desc, filled.stats, mode=self.mode, L=L)
+        ph["dispatch"] += time.time() - t0
+        t0 = time.time()
+        st = filled.stats.cpu().numpy()
+        if not score_only:
+            cnt = cnt_d.cpu().numpy()
+            mv = mv_d.cpu().numpy()
+        ph["gather"] += time.time() - t0
+        t0 = time.time()
+        if self.mode == LOCAL:
+            scores = np.maximum(st[:, 0], 0.0)
+        else:
+            scores = st[:, 3:6].max(axis=1)
+        if score_only:
+            for k, idx in enumerate(pos):
+                results[idx] = AlignResult("", "", float(scores[k]))
+            ph["reconstruct"] += time.time() - t0
+            return
+        if self.mode == LOCAL:
+            hit = st[:, 0] > 0.0
+            i0 = np.where(hit, st[:, 1], 0).astype(np.int32)
+            j0 = np.where(hit, st[:, 2], 0).astype(np.int32)
+        else:
+            i0 = np.concatenate([ch.n for ch in chunks])
+            j0 = np.concatenate([ch.m for ch in chunks])
+        res = recon.reconstruct_packed(
+            [seqs[i][0].seq for i in pos], [seqs[i][1].seq for i in pos],
+            mv, cnt, i0, j0, scores, self.mode, retain_all,
+        )
+        for k, idx in enumerate(pos):
+            results[idx] = res[k]
+        ph["reconstruct"] += time.time() - t0
+
+    def _record(self, order: List[_Bucket]) -> None:
+        for bk in order:
+            count = len(bk.indices)
+            n = np.fromiter((len(c) for c in bk.codes1), np.int64, count)
+            m = np.fromiter((len(c) for c in bk.codes2), np.int64, count)
+            bs = self.stats.bucket(bk.np_pad, bk.mp_pad)
+            bs.pairs += count
+            bs.padded_pairs += count
+            bs.true_cells += int(np.sum(n * m))
+            bs.padded_cells += count * bk.np_pad * bk.mp_pad

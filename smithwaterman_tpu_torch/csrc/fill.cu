@@ -1,0 +1,112 @@
+// K1: the batched three-state affine DP fill, one thread per pair.
+//
+// Replaces: smithwaterman_tpu/ops/pallas_dp.py _kernel (:197) as called by
+// fill_tiled (:705), traceback and score-only variants, together with the
+// dense score precompute ops/batch.py scores_tiled (:39) that fed it.
+//
+// What bounds it on an H100: the per-cell dependency latency.  Within a
+// pair, cell (i, j) needs (i, j-1) (the X state), so a pair is a serial
+// chain of n*m cells of a few dependent f32 compares and adds each; the
+// pointer byte written per cell (1 B) and the row carry (12 B read and
+// written per cell, L1/L2 resident) are far below the card's bandwidth.
+//
+// What the design does about it: pairs are the parallel axis.  Each
+// thread runs one pair's sequential recurrence (sw_cell.cuh, the same
+// code the host twin checks), so there is no prefix scan and no
+// cross-thread reduction: the LOCAL argmax is the sequential strict-`>`
+// first maximum by construction.  Blocks are one warp, so a batch's warps
+// spread over all SMs; pairs of one length bucket sit in neighbouring
+// lanes, so a warp's lanes step through similar row lengths, and the
+// pointer bytes and carries keep pairs innermost so a warp's stores to
+// one cell coalesce.  The substitution score comes from a shared-memory
+// copy of the (K, K) table, so the dense score tensor is never built.
+// One launch covers every bucket-chunk of a flush through per-pair
+// descriptors (sw_cell.cuh Desc).  Latency is hidden only across the
+// pairs in flight: a batch of a few thousand pairs leaves most of each SM
+// idle, and intra-pair parallelism is later work.  (A hand-written
+// one-column-ahead prefetch in fill_pair faulted with an illegal address
+// in the optimized non-LOCAL score-only build, not under -G; the plain
+// loop the compiler unrolls itself is right in every specialization.)
+#include <cuda_runtime.h>
+
+#include "sw_cell.cuh"
+
+namespace {
+
+constexpr int kThreads = 32;
+
+template <int MODE, bool TB>
+__global__ void __launch_bounds__(kThreads)
+    fill_kernel(const float* __restrict__ table, int K,
+                const uint8_t* __restrict__ codes1,
+                const uint8_t* __restrict__ codes2,
+                const int64_t* __restrict__ desc, int64_t B, uint8_t* tb,
+                float* carry, float* stats, float og, float eg) {
+  extern __shared__ float tab[];
+  for (int t = threadIdx.x; t < K * K; t += blockDim.x) tab[t] = table[t];
+  __syncthreads();
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int64_t* d = desc + b * sw::DESC_W;
+  sw::fill_pair<MODE, TB>(tab, K, codes1 + d[sw::D_OFF1],
+                          codes2 + d[sw::D_OFF2], (int)d[sw::D_N],
+                          (int)d[sw::D_M], TB ? tb + d[sw::D_TB] : nullptr,
+                          d[sw::D_RS], d[sw::D_CS], carry + d[sw::D_CARRY],
+                          3 * d[sw::D_CS], og, eg, stats + b * sw::STATS_W);
+}
+
+template <int MODE, bool TB>
+void launch(const float* table, int K, const uint8_t* codes1,
+            const uint8_t* codes2, const int64_t* desc, int64_t B,
+            uint8_t* tb, float* carry, float* stats, float og, float eg,
+            cudaStream_t stream) {
+  const unsigned grid = (unsigned)((B + kThreads - 1) / kThreads);
+  const size_t smem = (size_t)K * K * sizeof(float);
+  fill_kernel<MODE, TB><<<grid, kThreads, smem, stream>>>(
+      table, K, codes1, codes2, desc, B, tb, carry, stats, og, eg);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K1 on `stream` over B pairs described by desc (B, 8) int64.
+// table: (K, K) f32, K <= 64; codes: flat uint8 buffers; tb: uint8 pool
+// (ignored when traceback == 0); carry: f32 scratch; stats: (B, 8) f32.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+int sw_fill_launch(int mode, int traceback, const float* table, int K,
+                   const uint8_t* codes1, const uint8_t* codes2,
+                   const int64_t* desc, int64_t B, uint8_t* tb,
+                   float* carry, float* stats, float og, float eg,
+                   void* stream) {
+  if (B <= 0 || K <= 0 || K > 64) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == sw::LOCAL) {
+    if (traceback)
+      launch<sw::LOCAL, true>(table, K, codes1, codes2, desc, B, tb, carry,
+                              stats, og, eg, st);
+    else
+      launch<sw::LOCAL, false>(table, K, codes1, codes2, desc, B, tb, carry,
+                               stats, og, eg, st);
+  } else if (mode == sw::GLOCAL) {
+    if (traceback)
+      launch<sw::GLOCAL, true>(table, K, codes1, codes2, desc, B, tb, carry,
+                               stats, og, eg, st);
+    else
+      launch<sw::GLOCAL, false>(table, K, codes1, codes2, desc, B, tb,
+                                carry, stats, og, eg, st);
+  } else if (mode == sw::GLOBAL) {
+    if (traceback)
+      launch<sw::GLOBAL, true>(table, K, codes1, codes2, desc, B, tb, carry,
+                               stats, og, eg, st);
+    else
+      launch<sw::GLOBAL, false>(table, K, codes1, codes2, desc, B, tb,
+                                carry, stats, og, eg, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

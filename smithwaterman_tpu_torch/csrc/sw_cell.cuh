@@ -1,0 +1,214 @@
+// Per-cell rules of the three-state affine DP fill, written once.
+//
+// nvcc compiles this header into the fill kernel (fill.cu); g++ compiles
+// it into the host twin (cell_twin.cpp), which the tier-1 tests hold
+// against the JAX package's exact oracle (smithwaterman_tpu/ops/scan_dp.py).
+// So the tie-break cascades checked on a CPU are the ones the card runs.
+//
+// Semantics are scan_dp.fill's (bit-exact, tie-breaks included), run as
+// the reference's sequential recurrence: row by row, column by column.
+//   * M from (i-1, j-1): max(M, X, Y) + s, ties M >= X >= Y.
+//   * Y (gap in seq2) from (i-1, j); X (gap in seq1) from (i, j-1).
+//     LOCAL breaks the extend-vs-open ties with strict `>` for the extend,
+//     the other modes with `>=` (scan_dp.py:131-147, :180-191).
+//   * GLOCAL: gaps are free (the start penalties so = se = 0) along the
+//     last row for X and the last column for Y.
+//   * Boundary: (0,0) is (0,-1,-1); row 0 and column 0 carry the sentinel
+//     10*og + 10*eg on the states a gap chain cannot be in.
+//   * LOCAL clamps all three states at 0 and marks a zero state's pointer
+//     CELL_STOP.
+// The sequential X recurrence X[j] = max(G[j-1], X[j-1] + pe) equals
+// scan_dp's max-plus prefix exactly when every partial sum is exact in
+// f32, which quarter-integer penalties guarantee (config.AlignConfig
+// warns otherwise).  Build with no FMA contraction (nvcc --fmad=false,
+// g++ -ffp-contract=off): a fused multiply-add rounds once where the
+// reference rounds twice, and one ulp can flip a tie.
+#pragma once
+
+#include <cstdint>
+
+#if defined(__CUDACC__)
+#define SW_HD __host__ __device__ __forceinline__
+#else
+#define SW_HD inline
+#endif
+
+namespace sw {
+
+constexpr int GLOBAL = 0;
+constexpr int GLOCAL = 1;
+constexpr int LOCAL = 2;
+
+constexpr int MATCH = 0;
+constexpr int GAPINX = 1;  // gap in seq1: consumes j
+constexpr int GAPINY = 2;  // gap in seq2: consumes i
+constexpr int STOP = 3;
+
+constexpr float NEG = -3.0e38f;
+
+// stats row per pair: [best, best_i, best_j, finalM, finalX, finalY, 0, 0]
+// (the Pallas kernel's contract, smithwaterman_tpu/ops/pallas_dp.py:105)
+constexpr int STATS_W = 8;
+
+// per-pair descriptor row (int64), shared by the fill and the walk
+enum Desc {
+  D_OFF1 = 0,   // offset of seq1's codes in the flat codes1 buffer
+  D_OFF2 = 1,   // offset of seq2's codes in the flat codes2 buffer
+  D_N = 2,      // true length of seq1
+  D_M = 3,      // true length of seq2
+  D_TB = 4,     // offset of cell (1,1)'s pointer byte in the tb pool
+  D_CS = 5,     // tb stride between columns j and j+1 (bytes)
+  D_RS = 6,     // tb stride between rows i and i+1 (bytes)
+  D_CARRY = 7,  // offset of the pair's (M,X,Y) row carry, in floats
+  DESC_W = 8,
+};
+
+struct Cell {
+  float m, x, y;
+};
+
+SW_HD float mx(float a, float b) { return a >= b ? a : b; }
+
+// One interior cell (i, j).  d, u, l are the (M, X, Y) values at the
+// diagonal (i-1, j-1), up (i-1, j) and left (i, j-1) cells; po/pe are
+// the row's X penalties and qo/qe the column's Y penalties (both equal
+// og/eg except on GLOCAL's free last row / column).  Writes the cell's
+// values to *out and returns its packed pointer byte: predecessor state
+// of M in bits 0-1, of X in bits 2-3, of Y in bits 4-5.
+template <int MODE>
+SW_HD uint32_t cell(float s, Cell d, Cell u, Cell l, float og, float eg,
+                    float po, float pe, float qo, float qe, Cell* out) {
+  // M: from (i-1, j-1); tie order M >= X >= Y
+  uint32_t pm = (d.m >= d.x) ? ((d.m >= d.y) ? MATCH : GAPINY)
+                             : ((d.x >= d.y) ? GAPINX : GAPINY);
+  float vm = mx(mx(d.m, d.x), d.y) + s;
+
+  // Y: from (i-1, j)
+  float vy;
+  uint32_t py;
+  if (MODE == LOCAL) {
+    const bool c1 = u.m + og >= u.y + eg;
+    const bool c2 = u.m > u.x;
+    const bool c3 = u.y + eg > u.x + og;
+    vy = c1 ? (c2 ? u.m + og : u.x + og) : (c3 ? u.y + eg : u.x + og);
+    py = c1 ? (c2 ? MATCH : GAPINX) : (c3 ? GAPINY : GAPINX);
+  } else {
+    const bool c1 = u.m + qo > u.y + qe;
+    const bool c2 = u.m >= u.x;
+    const bool c3 = u.y + qe >= u.x + qo;
+    vy = mx(mx(u.m + qo, u.y + qe), u.x + qo);
+    py = c1 ? (c2 ? MATCH : GAPINX) : (c3 ? GAPINY : GAPINX);
+  }
+  if (MODE == LOCAL) {
+    vm = mx(vm, 0.0f);
+    vy = mx(vy, 0.0f);
+  }
+
+  // X: from (i, j-1), the left cell's final (clamped) values
+  float vx = mx(mx(l.m, l.y) + po, l.x + pe);
+  bool d1, d2, d3;
+  if (MODE == LOCAL) {
+    d1 = l.m + og >= l.x + eg;
+    d2 = l.m > l.y;
+    d3 = l.x + eg > l.y + og;
+  } else {
+    d1 = l.m + po > l.x + pe;
+    d2 = l.m >= l.y;
+    d3 = l.x + pe >= l.y + po;
+  }
+  uint32_t px = d1 ? (d2 ? MATCH : GAPINY) : (d3 ? GAPINX : GAPINY);
+  if (MODE == LOCAL) {
+    vx = mx(vx, 0.0f);
+    if (vm == 0.0f) pm = STOP;
+    if (vx == 0.0f) px = STOP;
+    if (vy == 0.0f) py = STOP;
+  }
+  out->m = vm;
+  out->x = vx;
+  out->y = vy;
+  return pm | (px << 2) | (py << 4);
+}
+
+// Fill one pair, row by row, in the kernel's loop order.
+//   tab:   (K, K) substitution table (shared memory on the card)
+//   c1/c2: the pair's codes (n and m of them)
+//   tb:    pointer byte of cell (i, j) at tb[(i-1)*tb_rs + (j-1)*tb_cs]
+//          (only when TB; only cells i <= n, j <= m are written)
+//   carry: the previous row's (M, X, Y) at column j at
+//          carry[(j-1)*carry_cs + {0,1,2}] (scratch, m entries)
+//   stats: STATS_W floats.  LOCAL: [best, best_i, best_j] (best_i/best_j
+//          only with TB, as in the Pallas contract), the first maximum of
+//          M in i-major, j-minor order under a strict `>`.  Otherwise the
+//          final cell's (M, X, Y) in slots 3-5.
+template <int MODE, bool TB>
+SW_HD void fill_pair(const float* tab, int K, const uint8_t* c1,
+                     const uint8_t* c2, int n, int m, uint8_t* tb,
+                     int64_t tb_rs, int64_t tb_cs, float* carry,
+                     int64_t carry_cs, float og, float eg, float* stats) {
+  const float so = MODE == GLOBAL ? og : 0.0f;
+  const float se = MODE == GLOBAL ? eg : 0.0f;
+  const float sent = 10.0f * og + 10.0f * eg;
+
+  // boundary row i == 0, j = 1..m
+  for (int j = 1; j <= m; ++j) {
+    const float lsc = (float)j * se + (so - se);
+    float* cj = carry + (int64_t)(j - 1) * carry_cs;
+    cj[0] = lsc + sent;
+    cj[1] = lsc;
+    cj[2] = lsc + sent;
+  }
+
+  float best = NEG;
+  int best_i = 0, best_j = 0;
+  Cell fin = {0.0f, 0.0f, 0.0f};
+  Cell diag0 = {0.0f, -1.0f, -1.0f};  // the origin (0, 0)
+  for (int i = 1; i <= n; ++i) {
+    const float lsc_i = (float)i * se + (so - se);
+    Cell left = {lsc_i + sent, lsc_i + sent, lsc_i};  // (i, 0)
+    Cell diag = diag0;                                // (i-1, 0)
+    diag0 = left;
+    const bool last_row = MODE != LOCAL && i == n;
+    const float po = last_row ? so : og;
+    const float pe = last_row ? se : eg;
+    const float* trow = tab + (int64_t)c1[i - 1] * K;
+    uint8_t* tbrow = TB ? tb + (int64_t)(i - 1) * tb_rs : nullptr;
+    float* cj = carry;
+    for (int j = 1; j <= m; ++j, cj += carry_cs) {
+      const Cell up = {cj[0], cj[1], cj[2]};
+      const float s = trow[c2[j - 1]];
+      const bool last_col = MODE != LOCAL && j == m;
+      const float qo = last_col ? so : og;
+      const float qe = last_col ? se : eg;
+      Cell v;
+      const uint32_t p = cell<MODE>(s, diag, up, left, og, eg, po, pe, qo,
+                                    qe, &v);
+      cj[0] = v.m;
+      cj[1] = v.x;
+      cj[2] = v.y;
+      if (TB) tbrow[(int64_t)(j - 1) * tb_cs] = (uint8_t)p;
+      if (MODE == LOCAL && v.m > best) {
+        best = v.m;
+        best_i = i;
+        best_j = j;
+      }
+      diag = up;
+      left = v;
+    }
+    if (last_row) fin = left;
+  }
+
+  for (int k = 0; k < STATS_W; ++k) stats[k] = 0.0f;
+  if (MODE == LOCAL) {
+    stats[0] = best;
+    if (TB) {
+      stats[1] = (float)best_i;
+      stats[2] = (float)best_j;
+    }
+  } else {
+    stats[3] = fin.m;
+    stats[4] = fin.x;
+    stats[5] = fin.y;
+  }
+}
+
+}  // namespace sw

@@ -1,0 +1,101 @@
+"""Batch layout on the host: score gathers and pointer-budget chunking.
+
+The counterpart of ``smithwaterman_tpu/ops/batch.py``.  In the JAX package
+a bucket's dense substitution scores were built on the device
+(``scores_tiled``) and streamed into the Pallas fill; the GPU fill kernel
+instead looks each score up in a shared-memory copy of the table, so the
+dense scores exist only in the plain reference path (:func:`scores`).
+
+What stays is the memory plan: a traceback fill keeps one pointer byte per
+padded cell of each pair on the device until its walk has run, so pairs
+are cut into chunks whose pointer bytes fit a budget (``SWTPU_TB_HBM_BYTES``,
+default 4 GiB, the JAX package's setting) and chunks are filled and walked
+together while their sum fits it (:func:`plan_flushes`).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterable, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+DEFAULT_TB_BUDGET = 4 << 30
+
+
+def tb_budget() -> int:
+    """Pointer bytes one flush may hold on the device."""
+    return int(os.environ.get("SWTPU_TB_HBM_BYTES", str(DEFAULT_TB_BUDGET)))
+
+
+def is_integer_table(table: np.ndarray) -> bool:
+    return bool(
+        np.all(table == np.round(table))
+        and np.all(np.abs(table) <= 127)
+    )
+
+
+def scores(table: torch.Tensor, codes1: torch.Tensor,
+           codes2: torch.Tensor) -> torch.Tensor:
+    """Dense substitution scores ``table[c1][..., c2]``: (B, NP, MP) f32
+    from codes (B, NP) and (B, MP).  An exact gather for integer and
+    non-integer tables alike.  Padded positions score whatever their
+    (zero) codes give; every consumer masks cells past (n, m)."""
+    prof = table[codes1.long()]                          # (B, NP, K)
+    B, NP, _ = prof.shape
+    idx = codes2.long()[:, None, :].expand(B, NP, codes2.shape[1])
+    return torch.gather(prof, 2, idx)
+
+
+class Chunk(NamedTuple):
+    """Pairs of one bucket filled together: padded codes (B, NP) and
+    (B, MP) uint8 and true lengths (B,) int32, host numpy arrays."""
+
+    codes1: np.ndarray
+    codes2: np.ndarray
+    n: np.ndarray
+    m: np.ndarray
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return (self.codes1.shape[0], self.codes1.shape[1],
+                self.codes2.shape[1])
+
+
+def plan_flushes(chunks: Iterable[Chunk], budget: int,
+                 score_only: bool) -> List[List[Chunk]]:
+    """Split bucket chunks so each piece's pointer array fits ``budget``,
+    then group pieces into flushes whose pointers fit it together (input
+    order kept).  Score-only fills keep no pointers: one flush.
+
+    A single pair whose pointer array alone exceeds the budget raises
+    ``NotImplementedError``: it needs the checkpointed long-sequence path
+    (ROADMAP item 7), which the port does not have yet."""
+    chunks = list(chunks)
+    if score_only:
+        return [chunks] if chunks else []
+    flushes: List[List[Chunk]] = []
+    cur: List[Chunk] = []
+    cur_bytes = 0
+    for ch in chunks:
+        B, NP, MP = ch.shape
+        per_pair = NP * MP
+        if per_pair > budget:
+            raise NotImplementedError(
+                f"a {NP}x{MP} pair needs {per_pair} pointer bytes, more than "
+                f"the {budget}-byte budget (SWTPU_TB_HBM_BYTES); long "
+                "sequences need the checkpointed fill (ROADMAP item 7, "
+                "ops/longseq.py), which the port does not have yet")
+        step = budget // per_pair
+        for lo in range(0, B, step):
+            piece = Chunk(*(a[lo:lo + step] for a in ch))
+            nbytes = piece.shape[0] * per_pair
+            if cur and cur_bytes + nbytes > budget:
+                flushes.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(piece)
+            cur_bytes += nbytes
+    if cur:
+        flushes.append(cur)
+    return flushes

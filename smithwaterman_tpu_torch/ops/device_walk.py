@@ -1,0 +1,155 @@
+"""The traceback walk on the device: kernel K2's wrapper and its plain
+PyTorch version.
+
+Replaces ``smithwaterman_tpu/ops/device_walk.py`` ``walk_bundle_pooled``,
+a ``lax.while_loop`` that walks every pair of many bucket-chunks in
+lockstep.  The pointer bytes never leave the device; what comes back is
+two bits per step:
+
+* ``cnt`` (B,) int32, the number of moves of each pair;
+* ``moves`` (ceil(L/4), B) uint8: move ``t`` of pair ``k`` is
+  ``(moves[t >> 2, k] >> ((t & 3) * 2)) & 3``, valid for ``t < cnt[k]``,
+  in walk order (``t = 0`` is the path's END cell); every other bit is 0.
+
+That is ``walk_bundle_pooled``'s exact contract, which
+``csrc/reconstruct.cpp`` consumes unchanged.  Non-LOCAL walks stop at the
+first boundary cell; the rebuild synthesizes the terminal-gap tail.
+
+On CUDA tensors :func:`walk_packed` launches K2 (``csrc/walk.cu``) once
+per flush; on CPU tensors it runs :func:`walk_packed_ref`, a lockstep
+loop of tensor operations that mirrors ``device_walk.py:281-311``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..config import CELL_GAPINX, CELL_GAPINY, CELL_MATCH, CELL_STOP, LOCAL
+from .fill_dp import D_CS, D_M, D_N, D_RS, D_TB
+
+# K2 launches made through walk_packed (a plain count, read by chip_smoke.py)
+LAUNCHES = 0
+
+
+def max_path_len(np_pad: int, mp_pad: int) -> int:
+    """Walk-buffer row count for a bucket: the longest possible path."""
+    return np_pad + mp_pad + 2
+
+
+def _walk_starts(stats: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                mode: int):
+    """Per-pair start cell, start state and already-done mask
+    (``device_walk._walk_starts``): LOCAL starts at the argmax in M and a
+    pair with best <= 0 is done at once; otherwise the walk starts at
+    (n, m) in the first maximum of the final (M, X, Y)."""
+    B = stats.shape[0]
+    dev = stats.device
+    if mode == LOCAL:
+        done0 = stats[:, 0] <= 0.0
+        i0 = torch.where(done0, 0, stats[:, 1].to(torch.int64))
+        j0 = torch.where(done0, 0, stats[:, 2].to(torch.int64))
+        s0 = torch.full((B,), CELL_MATCH, dtype=torch.int64, device=dev)
+    else:
+        i0 = n.to(torch.int64)
+        j0 = m.to(torch.int64)
+        s0 = torch.argmax(stats[:, 3:6], dim=1)   # first max
+        done0 = torch.zeros((B,), dtype=torch.bool, device=dev)
+    return i0, j0, s0, done0
+
+
+def walk_packed_ref(tb: torch.Tensor, desc: torch.Tensor,
+                    stats: torch.Tensor, *, mode: int, L: int):
+    """Plain lockstep walk of every pair on the tensors' device: one
+    iteration of tensor operations per step, as the JAX loop body."""
+    dev = tb.device
+    B = desc.shape[0]
+    local = mode == LOCAL
+    base, cs, rs = desc[:, D_TB], desc[:, D_CS], desc[:, D_RS]
+    i, j, s, done = _walk_starts(stats, desc[:, D_N], desc[:, D_M], mode)
+    Lp = -(-L // 4) * 4
+    out = torch.zeros((Lp, B), dtype=torch.int64, device=dev)
+    cnt = torch.zeros((B,), dtype=torch.int32, device=dev)
+    step = 0
+    while step < L and not bool(done.all()):
+        # normalize_boundary_state (ops/traceback.py)
+        s = torch.where((j == 0) & (i > 0), CELL_GAPINY,
+                        torch.where((i == 0) & (j > 0), CELL_GAPINX, s))
+        interior = (i >= 1) & (j >= 1)
+        off = base + (i - 1).clamp_min(0) * rs + (j - 1).clamp_min(0) * cs
+        ptr = tb[off].to(torch.int64)
+        prev_in = (ptr >> (2 * s)) & 3
+        # _boundary_prev closed form
+        bstate = torch.where((i == 0) & (j == 0), CELL_MATCH,
+                             torch.where(i == 0, CELL_GAPINX, CELL_GAPINY))
+        if local:
+            bstate = torch.where(s == bstate, CELL_STOP, bstate)
+        prev = torch.where(interior, prev_in, bstate)
+        stop = (prev == CELL_STOP) if local else torch.zeros_like(done)
+        emit = ~done & ~stop
+        ni = torch.where(emit & (s != CELL_GAPINX), i - 1, i)
+        nj = torch.where(emit & (s != CELL_GAPINY), j - 1, j)
+        out[step] = torch.where(emit, s, 0)
+        cnt += emit.to(torch.int32)
+        # boundary short-circuit: the terminal-gap tail is synthesized by
+        # the rebuild
+        done = done | stop | (ni == 0) | (nj == 0)
+        s = torch.where(emit, prev, s)
+        i, j = ni, nj
+        step += 1
+    r = out.view(Lp // 4, 4, B)
+    moves = r[:, 0] | (r[:, 1] << 2) | (r[:, 2] << 4) | (r[:, 3] << 6)
+    return cnt, moves.to(torch.uint8)
+
+
+def walk_packed(tb: torch.Tensor, desc: torch.Tensor, stats: torch.Tensor,
+                *, mode: int, L: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Walk every pair of a fill (``fill_dp.Filled``'s tb pool, desc and
+    stats).  CUDA: one launch of K2.  CPU: :func:`walk_packed_ref`.  Any
+    other device raises."""
+    global LAUNCHES
+    dev = tb.device
+    if dev.type == "cpu":
+        return walk_packed_ref(tb, desc, stats, mode=mode, L=L)
+    if dev.type != "cuda":
+        raise ValueError(f"no walk for device {dev}")
+    from . import kernels
+
+    B = desc.shape[0]
+    cnt = torch.empty((B,), dtype=torch.int32, device=dev)
+    moves = torch.zeros((-(-L // 4), B), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return cnt, moves
+    kernels.walk(tb, desc, stats, cnt, moves, local=mode == LOCAL, L=L)
+    LAUNCHES += 1
+    return cnt, moves
+
+
+def unpack_moves(mv_col: np.ndarray, c: int) -> np.ndarray:
+    """(L4,) packed byte column -> (c,) uint8 states, walk order."""
+    b = mv_col[: (c + 3) // 4]
+    s = np.empty(b.shape[0] * 4, np.uint8)
+    s[0::4] = b & 3
+    s[1::4] = (b >> 2) & 3
+    s[2::4] = (b >> 4) & 3
+    s[3::4] = (b >> 6) & 3
+    return s[:c]
+
+
+def moves_to_path(moves: np.ndarray, cnt: np.ndarray, i0: int, j0: int,
+                  k: int):
+    """Replay pair ``k``'s packed move column into left-to-right aligned
+    index lists (the numpy counterpart of csrc/reconstruct.cpp)."""
+    c = int(cnt[k])
+    if c == 0:
+        return [], []
+    s = np.asarray(unpack_moves(moves[:, k], c), np.int64)
+    di = (s != CELL_GAPINX).astype(np.int64)
+    dj = (s != CELL_GAPINY).astype(np.int64)
+    ib = i0 - np.concatenate([[0], np.cumsum(di[:-1])])
+    jb = j0 - np.concatenate([[0], np.cumsum(dj[:-1])])
+    r1 = np.where(s == CELL_GAPINX, -1, ib - 1)
+    r2 = np.where(s == CELL_GAPINY, -1, jb - 1)
+    return r1[::-1].tolist(), r2[::-1].tolist()

@@ -1,0 +1,203 @@
+"""The DP fill: kernel K1's wrapper and its plain PyTorch version.
+
+Replaces ``smithwaterman_tpu/ops/pallas_dp.py`` ``fill_tiled`` (kernel
+body ``_kernel``) with the dense score precompute of ``ops/batch.py``.
+
+One call fills every chunk of a flush (:func:`fill_many`).  Its outputs:
+
+* ``tb``: one flat uint8 pool holding each chunk's pointer bytes as a
+  ``(NP, MP, B)`` array (pairs innermost, so a warp's stores to one cell
+  coalesce); the byte of DP cell ``(i, j)``, ``1 <= i <= n``,
+  ``1 <= j <= m``, holds the predecessor state of M in bits 0-1, of X in
+  bits 2-3 and of Y in bits 4-5 (``CELL_STOP`` = 3 at LOCAL zeros).
+  Only each pair's ``[:n, :m]`` bytes are defined.
+* ``stats`` (B, 8) f32, the Pallas contract (``pallas_dp.py:105``):
+  LOCAL ``[best, best_i, best_j, 0, ...]`` with the first maximum in
+  i-major, j-minor order (best_i, best_j zero for score-only fills);
+  GLOBAL/GLOCAL ``[0, 0, 0, finalM, finalX, finalY, 0, 0]``.
+* ``desc`` (B, 8) int64 per-pair descriptors (``csrc/sw_cell.cuh`` Desc),
+  which the walk (``device_walk``) reads too.
+
+On CUDA tensors :func:`fill_many` launches K1 (``csrc/fill.cu``) once; on
+CPU tensors it runs :func:`fill_ref`, the plain version built on the
+exact oracle ``ops/scan_dp.py``.  There is no other route.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import LOCAL
+from . import batch, scan_dp
+
+STATS_W = 8
+# per-pair descriptor columns (int64), the csrc/sw_cell.cuh Desc enum
+D_OFF1, D_OFF2, D_N, D_M, D_TB, D_CS, D_RS, D_CARRY = range(8)
+DESC_W = 8
+
+# K1 launches made through fill_many (a plain count, read by chip_smoke.py)
+LAUNCHES = 0
+
+
+@dataclass
+class Filled:
+    """The result of one pooled fill (see the module docstring)."""
+
+    tb: Optional[torch.Tensor]     # flat uint8 pool, None when score-only
+    stats: torch.Tensor            # (B, 8) f32
+    desc: torch.Tensor             # (B, 8) int64, on the fill's device
+    shapes: List[Tuple[int, int, int]]  # per chunk (B, NP, MP)
+    tb_base: List[int]             # per chunk offset into the pool
+
+    def tb_view(self, c: int) -> torch.Tensor:
+        """Chunk ``c``'s pointers as a (NP, MP, B) view of the pool."""
+        B, NP, MP = self.shapes[c]
+        lo = self.tb_base[c]
+        return self.tb[lo:lo + NP * MP * B].view(NP, MP, B)
+
+
+def layout(chunks: Sequence[batch.Chunk]):
+    """Per-pair descriptors for the pairs of ``chunks``, in order.
+
+    Returns ``(desc (B, 8) int64 numpy, tb_base, tb_bytes, carry_floats)``.
+    Pair k of a chunk of shape (B, NP, MP): codes at ``c1_base + k*NP`` /
+    ``c2_base + k*MP`` of the flat code buffers; cell (i, j) pointer at
+    ``tb_base + k + (i-1)*MP*B + (j-1)*B``; row carry (M, X, Y) of column
+    j at ``carry_base + 3k + (j-1)*3B`` floats."""
+    rows = []
+    tb_base = []
+    c1 = c2 = tb = carry = 0
+    for ch in chunks:
+        B, NP, MP = ch.shape
+        k = np.arange(B, dtype=np.int64)
+        d = np.empty((B, DESC_W), np.int64)
+        d[:, D_OFF1] = c1 + k * NP
+        d[:, D_OFF2] = c2 + k * MP
+        d[:, D_N] = ch.n
+        d[:, D_M] = ch.m
+        d[:, D_TB] = tb + k
+        d[:, D_CS] = B
+        d[:, D_RS] = MP * B
+        d[:, D_CARRY] = carry + 3 * k
+        rows.append(d)
+        tb_base.append(tb)
+        c1 += B * NP
+        c2 += B * MP
+        tb += NP * MP * B
+        carry += 3 * MP * B
+    desc = (np.concatenate(rows) if rows
+            else np.zeros((0, DESC_W), np.int64))
+    return desc, tb_base, tb, carry
+
+
+def fill_ref(table: torch.Tensor, codes1: torch.Tensor, codes2: torch.Tensor,
+             n: torch.Tensor, m: torch.Tensor, *, mode: int, og: float,
+             eg: float, score_only: bool = False):
+    """Plain PyTorch fill of one chunk on the tensors' device: the dense
+    score gather plus ``scan_dp.fill``.  Returns ``(tb (NP, MP, B) uint8
+    or None, stats (B, 8) f32)`` in K1's contract."""
+    S = batch.scores(table, codes1, codes2)
+    r = scan_dp.fill(S, n, m, og, eg, mode, with_traceback=not score_only)
+    B = codes1.shape[0]
+    stats = torch.zeros((B, STATS_W), dtype=torch.float32, device=S.device)
+    if mode == LOCAL:
+        stats[:, 0] = r.best
+        if not score_only:
+            stats[:, 1] = r.best_i.to(torch.float32)
+            stats[:, 2] = r.best_j.to(torch.float32)
+    else:
+        stats[:, 3:6] = r.final
+    tb = None if score_only else r.tb[:, 1:, 1:].permute(1, 2, 0).contiguous()
+    return tb, stats
+
+
+def _validate(chunks: Sequence[batch.Chunk], K: int) -> None:
+    for ch in chunks:
+        B, NP, MP = ch.shape
+        for name, a, dt in (("codes1", ch.codes1, np.uint8),
+                            ("codes2", ch.codes2, np.uint8),
+                            ("n", ch.n, np.int32), ("m", ch.m, np.int32)):
+            if a.dtype != dt:
+                raise ValueError(f"{name} has dtype {a.dtype}, expected {dt}")
+        if ch.codes2.shape[0] != B or ch.n.shape != (B,) or \
+                ch.m.shape != (B,):
+            raise ValueError("chunk arrays disagree on the pair count")
+        if B and (ch.n.min() < 1 or ch.m.min() < 1 or ch.n.max() > NP
+                  or ch.m.max() > MP):
+            raise ValueError(
+                f"lengths must lie in 1..{NP} and 1..{MP} for a "
+                f"{NP}x{MP} chunk")
+        # K1 looks scores up in a shared-memory copy of the table, where a
+        # larger code would read past it
+        if B and max(ch.codes1.max(), ch.codes2.max()) >= K:
+            raise ValueError(f"codes must lie below the table's {K} symbols")
+
+
+def _alloc(chunks, table: torch.Tensor, score_only: bool):
+    dev = table.device
+    _validate(chunks, table.shape[0])
+    desc_np, tb_base, tb_bytes, carry_floats = layout(chunks)
+    tb = (None if score_only
+          else torch.empty(max(tb_bytes, 1), dtype=torch.uint8, device=dev))
+    stats = torch.empty((desc_np.shape[0], STATS_W), dtype=torch.float32,
+                        device=dev)
+    out = Filled(tb, stats, torch.from_numpy(desc_np).to(dev),
+                 [ch.shape for ch in chunks], tb_base)
+    return out, carry_floats
+
+
+def fill_many_ref(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
+                  mode: int, og: float, eg: float,
+                  score_only: bool = False) -> Filled:
+    """The plain version of :func:`fill_many`: :func:`fill_ref` per chunk,
+    on ``table``'s device, into the same pool layout."""
+    dev = table.device
+    table = table.to(torch.float32)
+    out, _ = _alloc(chunks, table, score_only)
+    lo = 0
+    for c, ch in enumerate(chunks):
+        B = ch.shape[0]
+        tbc, st = fill_ref(
+            table, *(torch.from_numpy(a).to(dev) for a in ch), mode=mode,
+            og=og, eg=eg, score_only=score_only)
+        out.stats[lo:lo + B] = st
+        if tbc is not None:
+            out.tb_view(c).copy_(tbc)
+        lo += B
+    return out
+
+
+def fill_many(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
+              mode: int, og: float, eg: float,
+              score_only: bool = False) -> Filled:
+    """Fill every chunk of a flush on ``table``'s device.
+
+    CUDA: one launch of K1 over all pairs (codes uploaded as two flat
+    buffers, the per-pair descriptors as one (B, 8) array).  CPU: the
+    plain version, :func:`fill_many_ref`.  Any other device raises."""
+    global LAUNCHES
+    dev = table.device
+    if dev.type == "cpu":
+        return fill_many_ref(table, chunks, mode=mode, og=og, eg=eg,
+                             score_only=score_only)
+    if dev.type != "cuda":
+        raise ValueError(f"no fill for device {dev}")
+    from . import kernels
+
+    out, carry_floats = _alloc(chunks, table, score_only)
+    if out.desc.shape[0] == 0:
+        return out
+    codes1 = torch.from_numpy(np.concatenate(
+        [ch.codes1.ravel() for ch in chunks])).to(dev)
+    codes2 = torch.from_numpy(np.concatenate(
+        [ch.codes2.ravel() for ch in chunks])).to(dev)
+    carry = torch.empty(carry_floats, dtype=torch.float32, device=dev)
+    kernels.fill(table.to(torch.float32).contiguous(), codes1, codes2,
+                 out.desc, out.tb, carry, out.stats, mode=mode,
+                 traceback=not score_only, og=og, eg=eg)
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,140 @@
+"""Build and load the native host libraries with ctypes.
+
+Two libraries, each compiled with g++ on first use into the package's
+``_build/`` directory (listed in ``.gitignore``):
+
+* the host library: the repo-root ``csrc/traceback.cpp``, ``csrc/fasta.cpp``
+  and ``csrc/reconstruct.cpp``, shared with the JAX package (which builds
+  its own copy through ``csrc/Makefile``; this module does not use it);
+* the cell twin: ``csrc/cell_twin.cpp`` of this package, which runs the
+  GPU kernels' own headers (``sw_cell.cuh``, ``sw_walk.cuh``) on the host
+  so the tier-1 tests check the code the card runs.
+
+A library's file name carries a hash of its compiler command and sources,
+so an edited source is rebuilt and concurrent processes (test workers)
+never load a half-written file: each writes a private temporary and
+renames it into place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from typing import List, Sequence
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPO_DIR = os.path.dirname(PKG_DIR)
+CSRC = os.path.join(PKG_DIR, "csrc")
+SHARED_CSRC = os.path.join(REPO_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+
+HOST_SOURCES = tuple(
+    os.path.join(SHARED_CSRC, f)
+    for f in ("traceback.cpp", "fasta.cpp", "reconstruct.cpp")
+)
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+# the twin must round every f32 operation as the card does (nvcc
+# --fmad=false): no contraction into fused multiply-adds
+TWIN_FLAGS = GXX_FLAGS + ("-ffp-contract=off",)
+
+_LIBS: dict = {}
+
+
+def build_shared(name: str, cmd: Sequence[str], sources: Sequence[str],
+                 deps: Sequence[str] = ()) -> str:
+    """Compile ``sources`` (plus header ``deps``, hashed but not passed)
+    with ``cmd`` into ``_build/lib<name>-<hash>.so``; return its path.
+    The compiler's output is kept beside it in ``<path>.log``.  Raises
+    ``RuntimeError`` with that output on failure."""
+    h = hashlib.sha256(" ".join(cmd).encode())
+    for path in list(sources) + list(deps):
+        with open(path, "rb") as f:
+            h.update(path.encode() + b"\0" + f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run(
+        list(cmd) + ["-o", tmp] + list(sources),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {name} failed:\n{proc.stdout}")
+    with open(out + ".log", "w") as f:  # the compiler's report, kept
+        f.write(proc.stdout)
+    os.replace(tmp, out)
+    return out
+
+
+def headers() -> List[str]:
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")
+    )
+
+
+def host_lib() -> ctypes.CDLL:
+    """The shared host library with every entry point the port calls
+    bound (argtypes set explicitly: ctypes would pass Python ints as
+    32-bit values and cut pointers)."""
+    lib = _LIBS.get("host")
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(build_shared("swhost", ("g++",) + GXX_FLAGS,
+                                   HOST_SOURCES))
+    i64 = ctypes.c_int64
+    pi64 = ctypes.POINTER(i64)
+    pu8 = ctypes.POINTER(ctypes.c_uint8)
+    pi32 = ctypes.POINTER(ctypes.c_int32)
+    for fn in (lib.sw_traceback, lib.sw_traceback_tiled):
+        fn.restype = i64
+        fn.argtypes = [pu8, i64, i64, i64, i64, i64, pi64, pi64, i64]
+    lib.sw_reconstruct_moves.restype = i64
+    lib.sw_reconstruct_moves.argtypes = [
+        pu8, i64, i64,          # moves, row_stride, n_rows
+        pi32, pi32, pi32,       # cnt, i0, j0
+        pu8, pi64, pu8, pi64,   # seq1, off1, seq2, off2
+        i64, i64, i64,          # count, local, retain
+        pu8, pu8, pi64,         # out1, out2, outoff
+        pi64, pi64,             # outlen, spans
+    ]
+    p = ctypes.POINTER
+    lib.sw_fasta_parse.restype = ctypes.c_void_p
+    lib.sw_fasta_parse.argtypes = [ctypes.c_char_p, i64, p(i64)]
+    lib.sw_fasta_record.restype = None
+    lib.sw_fasta_record.argtypes = [
+        ctypes.c_void_p, i64,
+        p(ctypes.c_char_p), p(i64),
+        p(ctypes.c_char_p), p(i64),
+        p(ctypes.c_char_p), p(i64),
+    ]
+    lib.sw_fasta_n_warnings.restype = i64
+    lib.sw_fasta_n_warnings.argtypes = [ctypes.c_void_p]
+    lib.sw_fasta_warning_pos.restype = i64
+    lib.sw_fasta_warning_pos.argtypes = [ctypes.c_void_p, i64]
+    lib.sw_fasta_free.restype = None
+    lib.sw_fasta_free.argtypes = [ctypes.c_void_p]
+    _LIBS["host"] = lib
+    return lib
+
+
+def twin_lib() -> ctypes.CDLL:
+    """The host twin of the GPU kernels (csrc/cell_twin.cpp)."""
+    lib = _LIBS.get("twin")
+    if lib is not None:
+        return lib
+    src = os.path.join(CSRC, "cell_twin.cpp")
+    lib = ctypes.CDLL(build_shared("swtwin", ("g++",) + TWIN_FLAGS, [src],
+                                   headers()))
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+    lib.sw_twin_fill.restype = i32
+    lib.sw_twin_fill.argtypes = [
+        i32, i32, vp, i32, vp, vp, vp, i64, vp, vp, vp, f32, f32,
+    ]
+    lib.sw_twin_walk.restype = i32
+    lib.sw_twin_walk.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp]
+    _LIBS["twin"] = lib
+    return lib

@@ -1,0 +1,44 @@
+"""Carry state across from the JAX package.
+
+The system has no weights: its state is the scoring table, the gap
+penalties, the mode and the bucket ladder.  :func:`from_jax_state` builds
+the port's objects from that state given as numpy arrays and plain values
+(what ``smithwaterman_tpu``'s ``SubstitutionMatrix`` and ``AlignConfig``
+hold), so both packages compute the same thing from one source.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+
+from ..config import AlignConfig
+from ..matrices import SubstitutionMatrix
+
+
+def from_jax_state(
+    table: np.ndarray,
+    alphabet: Sequence[str],
+    gap_open: float,
+    gap_extend: float,
+    mode: int,
+    buckets: Sequence[int],
+) -> Tuple[SubstitutionMatrix, AlignConfig]:
+    """``(SubstitutionMatrix, AlignConfig)`` of the port from the JAX
+    package's state: a (K, K) table, its K symbols in index order (a string
+    or a list), the positive penalties, the mode and the bucket ladder."""
+    letters = list(alphabet)
+    table = np.array(table, dtype=np.float32)
+    if table.shape != (len(letters), len(letters)):
+        raise ValueError(
+            f"table {table.shape} does not match {len(letters)} symbols")
+    sm = SubstitutionMatrix(
+        letters=letters,
+        table=table,
+        letter_to_index={c: i for i, c in enumerate(letters)},
+    )
+    cfg = AlignConfig(mode=int(mode), gap_open=float(gap_open),
+                      gap_extend=float(gap_extend),
+                      buckets=tuple(int(b) for b in buckets))
+    return sm, cfg

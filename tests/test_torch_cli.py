@@ -1,0 +1,91 @@
+"""The port's CLI against the JAX package's, byte for byte.
+
+Both CLIs run in this process on the same small FASTA files (pairs,
+``-list`` with ``-out``, ``-cluster``); their stdout and output files must
+be identical bytes.  The port runs on the CPU here.
+"""
+
+import os
+
+import pytest
+
+from smithwaterman_tpu import cli as jcli
+from smithwaterman_tpu_torch import cli
+
+FA1 = ">q1 first\nHEAGAWGHEEKLMNPQRSTVWY\n>q2\nMKVLAAGIVGLLLAAQPAMA\n>q3\nW\n"
+FA2 = ">t1 target\nPAWHEAEKLMNQRST\n>t2\nMKVLAAGIVALLAQPAMAGG\n"
+CLUSTER = (
+    ">a one\nMKVLAAGIVGLLLAAQPAMAKKLL\n>b\nMKVLAAGIVGLLLAAQPAMAKKL\n"
+    ">c\nMKVLAAGIVGLLLAAQPAMAKKLL\n>d\nWWWWHHHHPPPPCCCC\n"
+    ">e\nMKVLSAGIVGLLLAAQPAMAKKLL\n>f\nWWWWHHHHPPPPCCC\n>g\nQQQQ\n"
+)
+
+
+@pytest.fixture
+def files(tmp_path):
+    f1 = tmp_path / "a.fas"
+    f2 = tmp_path / "b.fas"
+    f1.write_text(FA1)
+    f2.write_text(FA2)
+    return tmp_path, str(f1), str(f2)
+
+
+def _run(main, argv, capsys):
+    main(argv)
+    out = capsys.readouterr()
+    return out.out
+
+
+@pytest.mark.parametrize("flag", ["-local", "-glocal", "-global"])
+def test_pairs_output_identical(files, capsys, flag):
+    _, f1, f2 = files
+    ours = _run(cli.main, [flag, f1, f2], capsys)
+    theirs = _run(jcli.main, [flag, f1, f2], capsys)
+    assert ours == theirs
+    assert ours.count("#score:") == 6
+
+
+def test_list_and_out_identical(files, capsys):
+    tmp, f1, f2 = files
+    lst = tmp / "list.txt"
+    lst.write_text(f"{f1}\t{f2}\n{f2} {f1}\n")
+    _run(cli.main, ["-glocal", "-list", str(lst), "-out",
+                    str(tmp / "ours.txt")], capsys)
+    _run(jcli.main, ["-glocal", "-list", str(lst), "-out",
+                     str(tmp / "theirs.txt")], capsys)
+    assert (tmp / "ours.txt").read_bytes() == (tmp / "theirs.txt").read_bytes()
+
+
+@pytest.mark.parametrize("flag", ["-local", "-global"])
+def test_cluster_identical(tmp_path, capsys, flag):
+    inp = tmp_path / "in.fas"
+    inp.write_text(CLUSTER)
+    ours = str(tmp_path / "ours.fas")
+    theirs = str(tmp_path / "theirs.fas")
+    out_ours = _run(cli.main, ["-cluster", flag, "-identity", "0.9", "-out",
+                               ours, str(inp)], capsys)
+    out_theirs = _run(jcli.main, ["-cluster", flag, "-identity", "0.9",
+                                  "-out", theirs, str(inp)], capsys)
+    assert out_ours == out_theirs
+    for suffix in ("", ".clstr"):
+        with open(ours + suffix, "rb") as a, open(theirs + suffix, "rb") as b:
+            assert a.read() == b.read()
+    assert os.path.getsize(ours + ".clstr") > 0
+
+
+def test_stats_and_band(files, capsys):
+    _, f1, f2 = files
+    cli.main(["-stats", f1, f2])
+    err = capsys.readouterr().err
+    assert '"pairs": 6' in err
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        cli.main(["-band", "64", f1, f2])
+
+
+def test_usage_and_parse_errors(capsys):
+    with pytest.raises(SystemExit):
+        cli.main(["only-one"])
+    assert "usage" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.AlignmentOptions.parse(["-bogus", "a", "b"])
+    assert cli.format_score(54.5) == jcli.format_score(54.5) == "54.5"

@@ -1,0 +1,184 @@
+"""The CUDA kernels against their plain PyTorch versions, on a card.
+
+These tests need an NVIDIA card (marker ``gpu``) and skip without one;
+whether a card is present is decided inside the fixture, never at import.
+On the card: ``python -m pytest tests/test_torch_gpu.py -q``.  Tolerance:
+exact equality of pointer bytes, stats, move counts, moves and strings.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from smithwaterman_tpu_torch import GLOBAL, GLOCAL, LOCAL, BatchAligner
+from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
+from smithwaterman_tpu_torch.ops import batch, device_walk, fill_dp
+
+pytestmark = pytest.mark.gpu
+MODES = [LOCAL, GLOCAL, GLOBAL]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _chunks(seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for B, NP, MP in ((37, 128, 256), (5, 64, 64)):
+        c1 = rng.integers(0, 20, size=(B, NP)).astype(np.uint8)
+        c2 = rng.integers(0, 20, size=(B, MP)).astype(np.uint8)
+        n = rng.integers(1, NP + 1, size=B).astype(np.int32)
+        m = rng.integers(1, MP + 1, size=B).astype(np.int32)
+        n[0], m[0] = 1, MP
+        c2[1, :40] = c1[1, 10:50]
+        out.append(batch.Chunk(c1, c2, n, m))
+    return out
+
+
+@pytest.mark.parametrize("score_only", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_fill_kernel_matches_plain(cuda, mode, score_only):
+    chunks = _chunks(mode)
+    tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
+    for og, eg in ((-10.0, -0.5), (0.0, 0.0)):
+        got = fill_dp.fill_many(tab, chunks, mode=mode, og=og, eg=eg,
+                                score_only=score_only)
+        ref = fill_dp.fill_many_ref(tab, chunks, mode=mode, og=og, eg=eg,
+                                    score_only=score_only)
+        torch.cuda.synchronize()
+        assert torch.equal(got.stats, ref.stats)
+        if score_only:
+            continue
+        for c, ch in enumerate(chunks):
+            for b in range(ch.shape[0]):
+                n, m = int(ch.n[b]), int(ch.m[b])
+                assert torch.equal(got.tb_view(c)[:n, :m, b],
+                                   ref.tb_view(c)[:n, :m, b])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_walk_kernel_matches_plain(cuda, mode):
+    chunks = _chunks(10 + mode)
+    tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
+    got = fill_dp.fill_many(tab, chunks, mode=mode, og=-10.0, eg=-0.5)
+    L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in got.shapes)
+    cnt, mv = device_walk.walk_packed(got.tb, got.desc, got.stats,
+                                      mode=mode, L=L)
+    rcnt, rmv = device_walk.walk_packed_ref(got.tb, got.desc, got.stats,
+                                            mode=mode, L=L)
+    assert torch.equal(cnt, rcnt) and torch.equal(mv, rmv)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_batch_cuda_matches_cpu(cuda, mode):
+    rng = np.random.default_rng(mode)
+    letters = np.array(list("ARNDCQEGHILKMFPSTWYV"))
+    pairs = [("".join(rng.choice(letters, int(rng.integers(1, 300)))),
+              "".join(rng.choice(letters, int(rng.integers(1, 300)))))
+             for _ in range(40)] + [("", "ACD")]
+    before = (fill_dp.LAUNCHES, device_walk.LAUNCHES)
+    got = BatchAligner(mode=mode, device="cuda").align_pairs(pairs)
+    assert fill_dp.LAUNCHES > before[0] and device_walk.LAUNCHES > before[1]
+    want = BatchAligner(mode=mode, device="cpu").align_pairs(pairs)
+    assert [(r.aligned1, r.aligned2, r.score, r.start1, r.end2)
+            for r in got] == [(r.aligned1, r.aligned2, r.score, r.start1,
+                               r.end2) for r in want]
+
+
+GUARD = 4096   # canary bytes on each side of a fenced output
+CANARY = 0xA5
+
+
+def _fenced(nbytes, dtype, dev, inner=CANARY):
+    """``nbytes`` of ``dtype`` inside an arena with GUARD canary bytes on
+    each side; returns (arena, view)."""
+    arena = torch.full((nbytes + 2 * GUARD,), CANARY, dtype=torch.uint8,
+                       device=dev)
+    arena[GUARD:GUARD + nbytes] = inner
+    return arena, arena[GUARD:GUARD + nbytes].view(dtype)
+
+
+@pytest.mark.parametrize("score_only", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_kernels_write_only_their_outputs(cuda, mode, score_only):
+    """K1 and K2 launched on outputs fenced by canary bytes: every canary
+    stays intact and the outputs equal the wrappers' on the same inputs."""
+    from smithwaterman_tpu_torch.ops import kernels
+
+    chunks = _chunks(20 + mode)
+    tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
+    args = dict(mode=mode, og=-10.0, eg=-0.5)
+    want = fill_dp.fill_many(tab, chunks, score_only=score_only, **args)
+    _, _, tb_bytes, carry_floats = fill_dp.layout(chunks)
+    B = want.desc.shape[0]
+    codes1, codes2 = (torch.from_numpy(np.concatenate(
+        [getattr(ch, f).ravel() for ch in chunks])).to(cuda)
+        for f in ("codes1", "codes2"))
+    arenas = {}
+    tb = None
+    if not score_only:
+        arenas["tb"], tb = _fenced(tb_bytes, torch.uint8, cuda)
+    arenas["carry"], carry = _fenced(4 * carry_floats, torch.float32, cuda)
+    arenas["stats"], stats = _fenced(4 * 8 * B, torch.float32, cuda)
+    stats = stats.view(B, 8)
+    kernels.fill(tab, codes1, codes2, want.desc, tb, carry, stats,
+                 traceback=not score_only, **args)
+    if not score_only:
+        L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in want.shapes)
+        L4 = -(-L // 4)
+        arenas["cnt"], cnt = _fenced(4 * B, torch.int32, cuda)
+        arenas["moves"], moves = _fenced(L4 * B, torch.uint8, cuda, inner=0)
+        moves = moves.view(L4, B)
+        kernels.walk(tb, want.desc, stats, cnt, moves, local=mode == LOCAL,
+                     L=L)
+    torch.cuda.synchronize()
+    for name, arena in arenas.items():
+        assert bool((arena[:GUARD] == CANARY).all()), name
+        assert bool((arena[-GUARD:] == CANARY).all()), name
+    assert torch.equal(stats, want.stats)
+    if score_only:
+        return
+    got = fill_dp.Filled(tb, stats, want.desc, want.shapes, want.tb_base)
+    for c, ch in enumerate(chunks):
+        for b in range(ch.shape[0]):
+            n, m = int(ch.n[b]), int(ch.m[b])
+            assert torch.equal(got.tb_view(c)[:n, :m, b],
+                               want.tb_view(c)[:n, :m, b])
+    wcnt, wmv = device_walk.walk_packed(want.tb, want.desc, want.stats,
+                                        mode=mode, L=L)
+    assert torch.equal(cnt, wcnt) and torch.equal(moves, wmv)
+
+
+def test_fill_rejects_codes_past_the_table(cuda):
+    chunks = _chunks(4)
+    chunks[0].codes2[2, 0] = 24
+    tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
+    with pytest.raises(ValueError, match="below the table"):
+        fill_dp.fill_many(tab, chunks, mode=LOCAL, og=-10.0, eg=-0.5)
+
+
+def test_fill_kernel_rejects_wide_table(cuda):
+    chunks = _chunks(3)
+    wide = torch.zeros((65, 65), device=cuda)
+    with pytest.raises(NotImplementedError):
+        fill_dp.fill_many(wide, chunks, mode=LOCAL, og=-10.0, eg=-0.5)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_aligner_cuda_matches_cpu(cuda, mode):
+    """Whole pairs go through the kernels, partial regions through the
+    oracle on the card; both must equal the CPU path."""
+    from smithwaterman_tpu_torch import Aligner
+
+    s1, s2 = "HEAGAWGHEEKLMNPQRSTVW", "PAWHEAEKLMQQRSW"
+    gpu = Aligner(mode=mode, device="cuda")
+    cpu = Aligner(mode=mode, device="cpu")
+    for args in ((s1, s2, True, None), (s1, s2, True, (9, 7))):
+        g, c = gpu.align_partial(*args), cpu.align_partial(*args)
+        assert (g.aligned1, g.aligned2, g.score) == (c.aligned1, c.aligned2,
+                                                     c.score)
+    assert gpu.score(s1, s2) == cpu.score(s1, s2)
