@@ -5,8 +5,9 @@ Run from the repository root: ``python3 chip_smoke.py``.  Imports nothing of
 JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
 
 1. the card (``nvidia-smi`` name and power limit) and the software versions;
-2. the builds: the two hand-written CUDA kernels (``nvcc``) and the shared
-   host library (``g++``), from the checkout's sources, with build seconds;
+2. the builds: the hand-written CUDA kernels (``nvcc``, one process per
+   source, started together) and the shared host library (``g++``), from
+   the checkout's sources, with build seconds;
 3. K1 (the fill kernel) against its plain PyTorch version on the card:
    all three modes, traceback and score-only, ragged lengths down to 1,
    one 3685 x 3685 pair, a non-integer table and og = ge = 0.  Every
@@ -21,12 +22,33 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    each kernel runs at the main path's shapes (the same pairs, bucketed
    alike, every chunk in one launch) beside its plain version on the same
    inputs: every pair's pointer bytes and stats, every move count and
-   move byte must be equal, and both are timed.
+   move byte must be equal, and both are timed;
+6. the long-sequence kernels K3 (checkpointed fill), K4 (band refill) and
+   K5 (segment walk) against their plain versions: 8 ragged pairs up to
+   2048 x 2048 (lengths down to 1, one pair with tied maxima), all three
+   modes, the default band height C and C = 64.  Stats, checkpoints,
+   every band pointer byte, walk state, move count and move byte must be
+   equal;
+7. the long route against the ordinary one: 16 protein pairs of 1500..4000
+   residues a side through ``BatchAligner(device="cuda",
+   longseq_cells=1)`` and ``BatchAligner(device="cuda")``, every field of
+   every result equal, in all three modes;
+8. the long route at a real size: 4 DNA pairs of 70,000 bp a side (each
+   partner a mutated copy: 5 % substitutions, an indel of 1..20 every
+   2000 positions), EDNAFULL's match/mismatch values (5 / -4) on ACGT,
+   go = 10, ge = 0.5, default pointer budget, in all three modes.  Only
+   K3, K4 and K5 may launch; each alignment re-scored from its strings
+   must equal its score, GLOBAL and GLOCAL alignments must consume every
+   residue and LOCAL ones reach 90 % identity.  Then K3, K4 and K5 run at
+   these shapes beside their plain versions, equal and timed.
 
 The last two stdout lines are the kernels' JSON record and the result
-line; its ``max_abs_err`` is that main-path comparison's.  Any failure
-raises and exits non-zero without a result line; so does a machine
-without CUDA.
+line; each kernel's ``max_abs_err`` is its comparison at its main path's
+shapes (phase 5 for K1 and K2, phase 8 for K3-K5), its ``launches`` the
+count from that path's run, and ``bound_ms`` the least time the card could
+take for the same work on this run's inputs (the larger of its f32
+operations at 67 TFLOP/s and its bytes at 3.35 TB/s).  Any failure raises
+and exits non-zero without a result line; so does a machine without CUDA.
 """
 
 import json
@@ -42,6 +64,20 @@ LMIN, LMAX = 150, 700
 LETTERS = "ARNDCQEGHILKMFPSTWYV"
 CHECKED = 64
 LONGEST = 3685  # the reference suite's longest sequence
+DNA_PAIRS, DNA_LEN = 4, 70000
+# an H100 SXM's published peaks (f32 outside the tensor cores, HBM3)
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# f32 operations (adds, compares, maxima) one cell of sw_cell.cuh's cell()
+# executes, common subexpressions counted once: M 5 (2 compares for its
+# pointer, 2 maxima, 1 add), Y 8 (3 adds, 3 compares, 2 maxima; LOCAL 6:
+# its value is selected, not maximised), X 9 (4 for the value, 2 adds and
+# 3 compares for the pointer).  LOCAL adds 3 clamps at 0, 3 tests for a
+# zero state and the running-best compare.
+CELL_FLOPS = {0: 22, 1: 22, 2: 27}  # GLOBAL, GLOCAL, LOCAL
+# integer operations of one walk step (state normalisation, address,
+# shift, compares, moves), counted at the f32 rate for want of a
+# published integer one
+STEP_OPS = 12
 
 
 def fail(msg: str) -> None:
@@ -60,6 +96,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], stdout=subprocess.PIPE, text=True, check=True,
+        timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def main_path_pairs():
     """The main path's input: PAIRS protein pairs, each side's length
     uniform in LMIN..LMAX, from ``numpy.random.default_rng(SEED)``."""
@@ -75,6 +119,66 @@ def main_path_pairs():
     return [(seq(f"a{i}"), seq(f"b{i}")) for i in range(PAIRS)]
 
 
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations' and the bytes'
+    time at the card's peak rates."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def make_dna_pair(n, rng, sub_rate=0.05, indel_every=2000, indel_max=20):
+    """A random ACGT sequence of n bases and a mutated copy of it, as
+    ``scripts/giant_pair_check.py`` ``make_pair`` builds protein pairs."""
+    s1 = rng.integers(0, 4, size=n)
+    out = []
+    i = 0
+    next_indel = indel_every
+    while i < n:
+        if i >= next_indel:
+            next_indel += indel_every
+            k = int(rng.integers(1, indel_max + 1))
+            if rng.integers(0, 2):  # insertion into s2
+                out.extend(rng.integers(0, 4, size=k).tolist())
+            else:  # deletion from s2
+                i += k
+                continue
+        c = int(s1[i])
+        if rng.random() < sub_rate:
+            c = int(rng.integers(0, 4))
+        out.append(c)
+        i += 1
+    return "".join("ACGT"[c] for c in s1), "".join("ACGT"[c] for c in out)
+
+
+def rescore(a1: str, a2: str, sm, og: float, eg: float, mode: int,
+            local: int, glocal: int) -> float:
+    """The score of an alignment under the mode's affine gap model: a gap
+    run costs og + (len - 1) * eg (og, eg the negative penalties), a run
+    of the other gap kind right after it opens anew; GLOCAL's terminal gap
+    runs are free.  LOCAL strings are trimmed to their aligned core."""
+    cols = [(x, y) for x, y in zip(a1, a2)]
+    if mode == local:
+        while cols and "-" in cols[0]:
+            cols.pop(0)
+        while cols and "-" in cols[-1]:
+            cols.pop()
+    pair = [k for k, (x, y) in enumerate(cols) if x != "-" and y != "-"]
+    first, last = (pair[0], pair[-1]) if pair else (len(cols), -1)
+    score, prev = 0.0, None
+    for k, (x, y) in enumerate(cols):
+        if x != "-" and y != "-":
+            score += sm.get_score(sm.index_of(x), sm.index_of(y))
+            prev = None
+            continue
+        kind = "x" if x == "-" else "y"
+        if not (mode == glocal and (k < first or k > last)):
+            score += eg if prev == kind else og
+        prev = kind
+    return score
+
+
 def main() -> int:
     import torch
 
@@ -87,7 +191,8 @@ def main() -> int:
     from smithwaterman_tpu_torch.config import bucket_len
     from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
     from smithwaterman_tpu_torch.ops import (batch, device_walk, fill_dp,
-                                             kernels, native)
+                                             kernels, longseq, native)
+    from smithwaterman_tpu_torch.utils.calc_score import recalc_score
 
     dev = torch.device("cuda:0")
     modes = [(LOCAL, "local"), (GLOCAL, "glocal"), (GLOBAL, "global")]
@@ -293,6 +398,7 @@ def main() -> int:
 
     main_err = {"K1": 0.0, "K2": 0.0}
     times = {}
+    walk_steps = {}
     fill_dp.fill_many_ref(tab, chunks[:1], mode=LOCAL, og=-10.0, eg=-0.5)
     for mode, mname in modes:
         args = dict(mode=mode, og=-10.0, eg=-0.5)
@@ -319,6 +425,7 @@ def main() -> int:
                  f"from the plain walk (max error {werr})")
         main_err["K1"] = max(main_err["K1"], err)
         main_err["K2"] = max(main_err["K2"], werr)
+        walk_steps[mname] = int(out[0].sum())
         times[mname] = (k1_ms, k1_plain_ms, k2_ms, k2_plain_ms)
         say(f"phase 5 kernels {mname} at the main path's shapes ({PAIRS} "
             f"pairs, {len(chunks)} chunks, L={L}) on {card}: every pointer "
@@ -327,20 +434,345 @@ def main() -> int:
             f"ms vs plain {k2_plain_ms:.3f} ms")
         del got, out, rout
     k1_ms, k1_plain_ms, k2_ms, k2_plain_ms = times["local"]
-
-    kernels_line = {"kernels": [
+    # bounds of the LOCAL flush timed above: K1 reads the codes and writes
+    # one pointer byte per true cell and a stats row per pair; K2 reads one
+    # pointer byte per step and writes the packed moves, counts and reads
+    # the stats
+    lens = [(len(a.seq), len(b.seq)) for a, b in pairs]
+    code_bytes = sum(x + y for x, y in lens)
+    k1_bound = bound(CELL_FLOPS[LOCAL] * cells,
+                     cells + code_bytes + 32 * PAIRS)
+    steps = walk_steps["local"]
+    k2_bound = bound(STEP_OPS * steps, steps + steps / 4 + 36 * PAIRS)
+    records = [
         {"name": "K1 fill", "route": "cuda",
          "source": "smithwaterman_tpu_torch/csrc/fill.cu",
          "replaces": "smithwaterman_tpu/ops/pallas_dp.py:197",
          "launches": launches["K1"], "max_abs_err": main_err["K1"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "K2 walk", "route": "cuda",
          "source": "smithwaterman_tpu_torch/csrc/walk.cu",
          "replaces": "smithwaterman_tpu/ops/device_walk.py:220",
          "launches": launches["K2"], "max_abs_err": main_err["K2"],
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-    ]}
-    say(json.dumps(kernels_line))
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+    ]
+    del chunks, masks
+
+    # ---- phase 6: K3, K4, K5 against their plain versions
+    def event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    def ckpt_err(got, ref, n, m, C):
+        """Largest |difference| of stats and of checkpoint values inside
+        every pair's true region (rows (k+1)*C <= n, columns < m)."""
+        (st, ck), (rst, rck) = got, ref
+        err = float((st - rst).abs().max())
+        for b in range(len(n)):
+            k, mb = int(n[b]) // C, int(m[b])
+            for a, r in zip(ck, rck):
+                if k:
+                    err = max(err, float((a[b, :k, :mb] - r[b, :k, :mb])
+                                         .abs().max()))
+        return err
+
+    def band_err(band, rband, n, m, C, MP, sk):
+        """Largest |difference| of two bands' pointer bytes in [:n, :m]."""
+        got, ref = (longseq.band_view(x, C, MP) for x in (band, rband))
+        err = 0.0
+        for b in range(len(n)):
+            rows = min(max(int(n[b]) - sk * C, 0), C)
+            if rows:
+                d = got[b, :rows, :int(m[b])].int() - \
+                    ref[b, :rows, :int(m[b])].int()
+                err = max(err, float(d.abs().max()))
+        return err
+
+    def state_err(a, b):
+        return max(float((x.long() - y.long()).abs().max())
+                   for x, y in zip(a, b))
+
+    rng6 = np.random.default_rng(SEED + 6)
+    B6, NP6 = 8, 2048
+    c1 = rng6.integers(0, 20, size=(B6, NP6)).astype(np.uint8)
+    c2 = rng6.integers(0, 20, size=(B6, NP6)).astype(np.uint8)
+    n6 = rng6.integers(1, NP6 + 1, size=B6).astype(np.int32)
+    m6 = rng6.integers(1, NP6 + 1, size=B6).astype(np.int32)
+    n6[:3], m6[:3] = (1, NP6, NP6), (NP6, 1, NP6)
+    motif = c1[3, :100].copy()  # repeated down seq1: tied LOCAL maxima
+    for r in range(200, 1500, 260):
+        c1[3, r:r + 100] = motif
+    c2[3, 400:500] = motif
+    n6[3], m6[3] = 1600, 1100
+    c2[4, 100:1000] = c1[4, 300:1200]  # a long shared stretch
+    ch6 = batch.Chunk(c1, c2, n6, m6)
+    t1, t2, tn, tm = (torch.from_numpy(a).to(dev) for a in ch6)
+    tab = torch.from_numpy(blosum).to(dev)
+    p6 = {"K3": [0.0, 0.0], "K4": [0.0, 0.0], "K5": [0.0, 0.0]}
+    for mode, mname in modes:
+        for C in (longseq.DEFAULT_CKPT_ROWS, 64):
+            args = dict(mode=mode, og=-10.0, eg=-0.5, C=C)
+            ms, got = event_ms(lambda: longseq.fill_checkpointed(
+                tab, t1, t2, tn, tm, **args))
+            pms, ref = event_ms(lambda: longseq.fill_checkpointed_ref(
+                tab, t1, t2, tn, tm, **args))
+            p6["K3"][0] += ms
+            p6["K3"][1] += pms
+            if ckpt_err(got, ref, n6, m6, C) != 0.0:
+                fail(f"K3 {mname} C={C}: differs from the plain fill")
+            st, ck = got
+            L = 2 * NP6 + 2
+            walk = longseq.walk_start(st, tn, tm, mode)
+            rwalk = walk.clone()
+            cnt = torch.zeros(B6, dtype=torch.int32, device=dev)
+            rcnt = cnt.clone()
+            mv = torch.zeros((-(-L // 4), B6), dtype=torch.uint8, device=dev)
+            rmv = mv.clone()
+            band = torch.zeros((B6, longseq.band_bytes(C, NP6)),
+                               dtype=torch.uint8, device=dev)
+            rband = band.clone()
+            for sk in range(longseq.n_ckpts(NP6, C) - 1, -1, -1):
+                ms, _ = event_ms(lambda: longseq.fill_band(
+                    tab, t1, t2, tn, tm, ck, band, sk=sk, **args))
+                pms, _ = event_ms(lambda: longseq.fill_band_ref(
+                    tab, t1, t2, tn, tm, ck, rband, sk=sk, **args))
+                p6["K4"][0] += ms
+                p6["K4"][1] += pms
+                if band_err(band, rband, n6, m6, C, NP6, sk) != 0.0:
+                    fail(f"K4 {mname} C={C} band {sk}: differs from the "
+                         "plain refill")
+                kw = dict(sk=sk, C=C, MP=NP6, L=L, local=mode == LOCAL)
+                ms, _ = event_ms(lambda: longseq.walk_segments(
+                    band, walk, cnt, mv, **kw))
+                pms, _ = event_ms(lambda: longseq.walk_segments_ref(
+                    band, rwalk, rcnt, rmv, **kw))
+                p6["K5"][0] += ms
+                p6["K5"][1] += pms
+                if state_err((walk, cnt, mv), (rwalk, rcnt, rmv)) != 0.0:
+                    fail(f"K5 {mname} C={C} band {sk}: differs from the "
+                         "plain walk")
+            if not bool((walk[:, 3] == 1).all()) or int(cnt.max()) == 0:
+                fail(f"long route {mname} C={C}: a walk did not finish")
+    say("phase 6 K3/K4/K5: 3 modes x C in "
+        f"({longseq.DEFAULT_CKPT_ROWS}, 64), {B6} pairs up to "
+        f"{NP6}x{NP6}: stats, checkpoints, band bytes, walk states, counts "
+        "and moves equal to the plain versions; summed ms kernel / plain: "
+        + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in p6.items()))
+    del got, ref, band, rband
+
+    # ---- phase 7: the long route against the ordinary route
+    rng7 = np.random.default_rng(SEED + 7)
+    letters = np.array(list(LETTERS))
+
+    def prot(k):
+        return "".join(rng7.choice(letters, k))
+
+    pairs7 = []
+    for k in range(16):
+        a = prot(int(rng7.integers(1500, 4001)))
+        b = prot(int(rng7.integers(1500, 4001)))
+        if k % 2 == 0:  # a shared stretch: a long local alignment
+            b = b[:300] + a[500:1400] + b[1200:]
+        pairs7.append((a, b))
+    for mode, mname in modes:
+        longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
+        t0 = time.perf_counter()
+        got = BatchAligner(mode=mode, device="cuda",
+                           longseq_cells=1).align_pairs(pairs7)
+        t_long = time.perf_counter() - t0
+        if min(longseq.LAUNCHES.values()) == 0:
+            fail(f"phase 7 {mname}: the long route did not run "
+                 f"{longseq.LAUNCHES}")
+        t0 = time.perf_counter()
+        want = BatchAligner(mode=mode, device="cuda").align_pairs(pairs7)
+        t_ord = time.perf_counter() - t0
+        for k, (g, w) in enumerate(zip(got, want)):
+            if (g.aligned1, g.aligned2, g.score, g.start1, g.end1, g.start2,
+                    g.end2) != (w.aligned1, w.aligned2, w.score, w.start1,
+                                w.end1, w.start2, w.end2):
+                fail(f"phase 7 {mname} pair {k}: long route differs")
+        say(f"phase 7 {mname}: 16 pairs of 1500..4000 a side, long route "
+            f"{t_long:.3f} s (launches {json.dumps(longseq.LAUNCHES)}) vs "
+            f"ordinary {t_ord:.3f} s: every field equal")
+
+    # ---- phase 8: the long route at a real size
+    rng8 = np.random.default_rng(SEED)
+    pairs8 = [make_dna_pair(DNA_LEN, rng8) for _ in range(DNA_PAIRS)]
+    dna = SubstitutionMatrix.match_mismatch(5.0, -4.0)
+    cells8 = sum(len(a) * len(b) for a, b in pairs8)
+    full_tb = sum(bucket_len(len(a)) * bucket_len(len(b)) for a, b in pairs8)
+    lengths = [(len(a), len(b)) for a, b in pairs8]
+    run8 = {}
+    for mode, mname in modes:
+        fill_dp.LAUNCHES = 0
+        device_walk.LAUNCHES = 0
+        longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
+        torch.cuda.reset_peak_memory_stats()
+        eng = BatchAligner(scoring_matrix=dna, gap_open=10.0, gap_extend=0.5,
+                           mode=mode, device="cuda")
+        t0 = time.perf_counter()
+        res = eng.align_pairs(pairs8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES,
+                  **longseq.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        if counts["K1"] or counts["K2"] or not all(
+                counts[k] for k in ("K3", "K4", "K5")):
+            fail(f"phase 8 {mname}: launches {counts}")
+        run8[mname] = counts
+        og, eg = eng.config.og, eng.config.eg
+        for k, (r, (a, b)) in enumerate(zip(res, pairs8)):
+            if not np.isfinite(r.score):
+                fail(f"phase 8 {mname} pair {k}: score {r.score}")
+            s = rescore(r.aligned1, r.aligned2, dna, og, eg, mode, LOCAL,
+                        GLOCAL)
+            if s != r.score:
+                fail(f"phase 8 {mname} pair {k}: re-scored {s}, reported "
+                     f"{r.score}")
+            if mode != LOCAL:
+                if (r.aligned1.replace("-", ""), r.aligned2.replace("-", "")
+                        ) != (a, b):
+                    fail(f"phase 8 {mname} pair {k}: residues lost")
+                continue
+            core = [(x, y) for x, y in zip(r.aligned1, r.aligned2)]
+            while core and "-" in core[0]:
+                core.pop(0)
+            while core and "-" in core[-1]:
+                core.pop()
+            t1s = "".join(x for x, _ in core)
+            t2s = "".join(y for _, y in core)
+            rc = recalc_score(t1s, t2s, dna, -og, -eg)
+            ident = sum(x == y for x, y in core) / max(len(core), 1)
+            if rc != r.score or ident < 0.9:
+                fail(f"phase 8 local pair {k}: recalc_score {rc} vs "
+                     f"{r.score}, identity {ident:.4f}")
+        say(f"phase 8 {mname}: {DNA_PAIRS} DNA pairs {lengths}, long route "
+            f"wall {wall:.3f} s, {cells8 / wall / 1e9:.4f} Gcells/s over "
+            f"{cells8} true cells, peak device memory {peak / 1e9:.3f} GB "
+            f"(one pair's full pointer matrix would need "
+            f"{full_tb / DNA_PAIRS / 1e9:.3f} GB, all {DNA_PAIRS} "
+            f"{full_tb / 1e9:.3f} GB); "
+            f"launches {json.dumps(counts)}; every alignment re-scores to "
+            f"its score; on {card}")
+
+    # K3, K4, K5 at phase 8's shapes beside their plain versions: K3 in
+    # LOCAL (the argmax over every band), K4 and K5 in GLOBAL on the first
+    # full band the walks cross (every walk starts at (n, m))
+    sm8 = dna
+    bk8 = {}
+    for a, b in pairs8:
+        key = (bucket_len(len(a)), bucket_len(len(b)))
+        bk = bk8.setdefault(key, _Bucket(*key))
+        bk.indices.append(len(bk.indices))
+        bk.codes1.append(sm8.seq_to_index(a))
+        bk.codes2.append(sm8.seq_to_index(b))
+    if len(bk8) != 1:
+        fail(f"phase 8 pairs fell into {len(bk8)} buckets")
+    ch8 = next(iter(bk8.values())).chunk()
+    B8, NP8, MP8 = ch8.shape
+    u1, u2, un, um = (torch.from_numpy(a).to(dev) for a in ch8)
+    tab8 = torch.from_numpy(np.asarray(sm8.table, np.float32)).to(dev)
+    C = longseq.DEFAULT_CKPT_ROWS
+    args = dict(mode=LOCAL, og=-10.0, eg=-0.5, C=C)
+    # a warm launch, which lasts seconds: the SM clock is read while it runs
+    longseq.fill_checkpointed(tab8, u1, u2, un, um, **args)
+    clock_mhz = sm_clock_mhz()
+    k3_ms, got = event_ms(lambda: longseq.fill_checkpointed(
+        tab8, u1, u2, un, um, **args))
+    k3_plain_ms, ref = event_ms(lambda: longseq.fill_checkpointed_ref(
+        tab8, u1, u2, un, um, **args))
+    k3_err = ckpt_err(got, ref, ch8.n, ch8.m, C)
+    if k3_err != 0.0:
+        fail(f"K3 at phase 8's shapes: max error {k3_err}")
+    del ref
+    ck_rows = sum((int(x) // C) * int(y) for x, y in zip(ch8.n, ch8.m))
+    k3_bound = bound(CELL_FLOPS[LOCAL] * cells8,
+                     sum(x + y for x, y in lengths) + 12 * ck_rows + 32 * B8)
+    args = dict(mode=GLOBAL, og=-10.0, eg=-0.5, C=C)
+    st, ck = longseq.fill_checkpointed(tab8, u1, u2, un, um, **args)
+    L8 = NP8 + MP8 + 2
+    walk = longseq.walk_start(st, un, um, GLOBAL)
+    cnt = torch.zeros(B8, dtype=torch.int32, device=dev)
+    mv = torch.zeros((-(-L8 // 4), B8), dtype=torch.uint8, device=dev)
+    band = torch.empty((B8, longseq.band_bytes(C, MP8)), dtype=torch.uint8,
+                       device=dev)
+    top = longseq.n_ckpts(NP8, C) - 1
+    sk = top
+    while sk * C + C > int(ch8.n.min()):  # walk down to the first full band
+        longseq.fill_band(tab8, u1, u2, un, um, ck, band, sk=sk, **args)
+        longseq.walk_segments(band, walk, cnt, mv, sk=sk, C=C, MP=MP8, L=L8,
+                              local=False)
+        sk -= 1
+    k4_ms, _ = event_ms(lambda: longseq.fill_band(
+        tab8, u1, u2, un, um, ck, band, sk=sk, **args))
+    rband = torch.zeros_like(band)
+    k4_plain_ms, _ = event_ms(lambda: longseq.fill_band_ref(
+        tab8, u1, u2, un, um, ck, rband, sk=sk, **args))
+    k4_err = band_err(band, rband, ch8.n, ch8.m, C, MP8, sk)
+    if k4_err != 0.0:
+        fail(f"K4 at phase 8's shapes, band {sk}: max error {k4_err}")
+    band_cells = sum(min(C, int(x) - sk * C) * int(y)
+                     for x, y in zip(ch8.n, ch8.m))
+    k4_bound = bound(CELL_FLOPS[GLOBAL] * band_cells,
+                     band_cells + 12 * int(ch8.m.sum())
+                     + B8 * C + int(ch8.m.sum()))
+    rwalk, rcnt, rmv = walk.clone(), cnt.clone(), mv.clone()
+    cnt0 = int(cnt.sum())
+    kw = dict(sk=sk, C=C, MP=MP8, L=L8, local=False)
+    k5_ms, _ = event_ms(lambda: longseq.walk_segments(band, walk, cnt, mv,
+                                                      **kw))
+    k5_plain_ms, _ = event_ms(lambda: longseq.walk_segments_ref(
+        band, rwalk, rcnt, rmv, **kw))
+    k5_err = state_err((walk, cnt, mv), (rwalk, rcnt, rmv))
+    if k5_err != 0.0:
+        fail(f"K5 at phase 8's shapes, band {sk}: max error {k5_err}")
+    steps = int(cnt.sum()) - cnt0
+    k5_bound = bound(STEP_OPS * steps, steps + steps / 4 + 20 * B8)
+    # wavefront steps of the slowest block (sw_band.cuh band_steps: m + rows
+    # - 1 a band) and SM cycles per step at the clock read during K3
+    k3_steps = max(-(-int(x) // C) * (int(y) - 1) + int(x)
+                   for x, y in zip(ch8.n, ch8.m))
+    k4_steps = max(int(y) + min(C, int(x) - sk * C) - 1
+                   for x, y in zip(ch8.n, ch8.m))
+    say(f"phase 8 kernels at the long route's shapes ({B8} pairs, "
+        f"{NP8}x{MP8}, C={C}) on {card}: K3 (LOCAL) {k3_ms:.3f} ms vs plain "
+        f"{k3_plain_ms:.3f} ms, bound {k3_bound[0]:.4f} ms; K4 (GLOBAL, band "
+        f"{sk}) {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms, bound "
+        f"{k4_bound[0]:.6f} ms; K5 (band {sk}, {steps} steps) {k5_ms:.3f} "
+        f"ms vs plain {k5_plain_ms:.3f} ms, bound {k5_bound[0]:.6f} ms; "
+        "all equal to the plain versions; SM clock during K3 "
+        f"{clock_mhz:.0f} MHz: K3 {k3_steps} steps, "
+        f"{k3_ms * 1e3 * clock_mhz / k3_steps:.1f} cycles a step; K4 "
+        f"{k4_steps} steps, {k4_ms * 1e3 * clock_mhz / k4_steps:.1f} cycles "
+        "a step")
+    launches8 = {k: sum(run8[mn][k] for _, mn in modes)
+                 for k in ("K3", "K4", "K5")}
+    for name, src, repl, k, err, ms, pms, bd in (
+            ("K3 checkpointed fill", "longseq_fill.cu",
+             "smithwaterman_tpu/ops/pallas_dp.py:890", "K3", k3_err, k3_ms,
+             k3_plain_ms, k3_bound),
+            ("K4 band refill", "longseq_fill.cu",
+             "smithwaterman_tpu/ops/pallas_dp.py:958", "K4", k4_err, k4_ms,
+             k4_plain_ms, k4_bound),
+            ("K5 segment walk", "seg_walk.cu",
+             "smithwaterman_tpu/ops/longseq.py:277", "K5", k5_err, k5_ms,
+             k5_plain_ms, k5_bound)):
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"smithwaterman_tpu_torch/csrc/{src}",
+            "replaces": repl, "launches": launches8[k], "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": bd[0],
+            "bound_by": bd[1], "library_ms": None})
+    say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

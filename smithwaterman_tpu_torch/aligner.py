@@ -35,9 +35,22 @@ from .ops import scan_dp, traceback
 
 
 def default_device() -> str:
-    """``cuda`` when a card is visible, else ``cpu`` (the counterpart of
-    ``batch_aligner.default_backend`` in the JAX package)."""
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The device an engine runs on when the caller names none: the card.
+    The CPU runs only when asked for (``device="cpu"``)."""
+    return "cuda"
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device: ``device`` as given, else :func:`default_device`,
+    which raises ``RuntimeError`` when no card is visible rather than run
+    on the CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is visible; pass device=\"cpu\" to run on "
+                "the CPU")
+        device = default_device()
+    return torch.device(device)
 
 
 @dataclass
@@ -203,7 +216,7 @@ class Aligner:
         self.scoring_matrix = scoring_matrix or SubstitutionMatrix.blosum62()
         # replicate the Perl engine's input rewrite (perl_sanitize)
         self.perl_compat = perl_compat
-        self.device = torch.device(device or default_device())
+        self.device = resolve_device(device)
         self._batch = None  # lazy GPU-kernel delegate (see align_partial)
 
     # ------------------------------------------------------------------

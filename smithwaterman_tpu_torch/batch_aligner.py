@@ -9,17 +9,22 @@ every user surface goes through (CLI, clustering, the single-pair
 2. buckets: pairs grouped by ``(bucket_len(n), bucket_len(m))``, buckets in
    sorted order, each bucket's codes padded into (B, NP) and (B, MP);
 3. flushes: buckets cut into chunks whose pointer bytes fit the budget
-   (``ops/batch.plan_flushes``);
+   (``ops/batch.plan_flushes``); a bucket whose single pair's pointers
+   exceed it (or, with ``longseq_cells``, whose padded cells reach that
+   count) takes the long-sequence route instead;
 4. per flush, the fill (kernel K1, ``ops/fill_dp.fill_many``) and the walk
    (kernel K2, ``ops/device_walk.walk_packed``), one launch each over all
    of the flush's pairs, leaving only the stats, move counts and packed
-   moves to copy back;
+   moves to copy back; on the long route, the checkpointed fill (K3) and
+   per band the refill (K4) and segment walk (K5),
+   ``ops/longseq.align_long_packed``, with the same outputs;
 5. the string rebuild on the host from the 2-bit move streams
    (``ops/reconstruct.reconstruct_packed``, ``csrc/reconstruct.cpp``).
 
 Results come back in input order and are bit-identical to the single-pair
 ``Aligner``.  ``device="cpu"`` runs the same stages with the kernels'
-plain PyTorch versions: the tests' reference path.
+plain PyTorch versions: the tests' reference path.  Without a device the
+engine runs on the card, and raises where there is none.
 """
 
 from __future__ import annotations
@@ -35,13 +40,13 @@ from .aligner import (
     AlignResult,
     _as_seqdata,
     _perl_compat_seq,
-    default_device,
     degenerate_result,
+    resolve_device,
 )
 from .config import LOCAL, AlignConfig, bucket_len
 from .matrices import ScoringMatrix, SubstitutionMatrix
 from .ops import batch as batch_ops
-from .ops import device_walk, fill_dp
+from .ops import device_walk, fill_dp, longseq
 from .ops import reconstruct as recon
 
 
@@ -87,13 +92,18 @@ class BatchAligner:
         config: Optional[AlignConfig] = None,
         device: Optional[str] = None,
         perl_compat: bool = False,
+        longseq_cells: Optional[int] = None,
     ):
         if config is None:
             config = AlignConfig(mode=mode, gap_open=gap_open,
                                  gap_extend=gap_extend)
         self.config = config
         self.scoring_matrix = scoring_matrix or SubstitutionMatrix.blosum62()
-        self.device = torch.device(device or default_device())
+        self.device = resolve_device(device)
+        # buckets with at least this many padded cells take the
+        # long-sequence route (ops/longseq.py) for alignments; None: only
+        # buckets whose single pair's pointers exceed SWTPU_TB_HBM_BYTES
+        self.longseq_cells = longseq_cells
         # replicate the Perl engine's input rewrite (aligner.perl_sanitize)
         self.perl_compat = perl_compat
         # opt-in observability: assign a utils.metrics.StatsCollector
@@ -162,16 +172,17 @@ class BatchAligner:
         order = sorted(buckets.values(), key=lambda b: (b.np_pad, b.mp_pad))
         table = self._table_on_device() if order else None
         flushes = batch_ops.plan_flushes(
-            [bk.chunk() for bk in order], batch_ops.tb_budget(), score_only)
+            [bk.chunk() for bk in order], batch_ops.tb_budget(), score_only,
+            long_cells=self.longseq_cells)
         # caller positions of each pair, in flush order
         positions = [i for bk in order for i in bk.indices]
         ph["bucket"] = time.time() - t0
 
         lo = 0
-        for chunks in flushes:
-            B = sum(ch.shape[0] for ch in chunks)
+        for fl in flushes:
+            B = sum(ch.shape[0] for ch in fl.chunks)
             pos = positions[lo:lo + B]
-            self._flush(chunks, pos, table, seqs, results, retain_all,
+            self._flush(fl, pos, table, seqs, results, retain_all,
                         score_only)
             lo += B
         if self.stats is not None:
@@ -180,22 +191,30 @@ class BatchAligner:
             self.stats.run_seconds += time.time() - t_run0
         return results  # type: ignore[return-value]
 
-    def _flush(self, chunks, pos, table, seqs, results, retain_all,
+    def _flush(self, flush, pos, table, seqs, results, retain_all,
                score_only) -> None:
         """Fill and walk one flush on the device, then rebuild on the host."""
         ph = self.phase
         t0 = time.time()
         og, eg = self.config.og, self.config.eg
-        filled = fill_dp.fill_many(table, chunks, mode=self.mode, og=og,
-                                   eg=eg, score_only=score_only)
-        if not score_only:
-            L = max(device_walk.max_path_len(NP, MP)
-                    for _, NP, MP in filled.shapes)
-            cnt_d, mv_d = device_walk.walk_packed(
-                filled.tb, filled.desc, filled.stats, mode=self.mode, L=L)
+        chunks = flush.chunks
+        if flush.long:
+            (chunk,) = chunks
+            stats_d, cnt_d, mv_d = longseq.align_long_packed(
+                table, chunk, mode=self.mode, og=og, eg=eg)
+        else:
+            filled = fill_dp.fill_many(table, chunks, mode=self.mode, og=og,
+                                       eg=eg, score_only=score_only)
+            stats_d = filled.stats
+            if not score_only:
+                L = max(device_walk.max_path_len(NP, MP)
+                        for _, NP, MP in filled.shapes)
+                cnt_d, mv_d = device_walk.walk_packed(
+                    filled.tb, filled.desc, filled.stats, mode=self.mode,
+                    L=L)
         ph["dispatch"] += time.time() - t0
         t0 = time.time()
-        st = filled.stats.cpu().numpy()
+        st = stats_d.cpu().numpy()
         if not score_only:
             cnt = cnt_d.cpu().numpy()
             mv = mv_d.cpu().numpy()

@@ -241,7 +241,10 @@ def run_pairfiles(opts: AlignmentOptions, engine: BatchAligner) -> None:
             out.close()
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def main(argv: Optional[List[str]] = None, device: Optional[str] = None
+         ) -> None:
+    """Run the CLI on ``argv``; the engine runs on ``device`` (default: the
+    card, see ``aligner.resolve_device``)."""
     args = list(sys.argv[1:] if argv is None else argv)
     if len(args) < 2:
         sys.stderr.write(USAGE + "\n")
@@ -253,6 +256,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         gap_extend=opts.gap_extend,
         mode=opts.alignment_type,
         perl_compat=opts.perl_compat,
+        device=device,
     )
     if opts.stats:
         from .utils.metrics import StatsCollector

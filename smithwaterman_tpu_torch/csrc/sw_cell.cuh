@@ -69,6 +69,23 @@ struct Cell {
 
 SW_HD float mx(float a, float b) { return a >= b ? a : b; }
 
+// The boundary cells in closed form.  so/se are the start penalties (og/eg
+// in GLOBAL, 0 otherwise) and sent = 10*og + 10*eg the sentinel on the
+// states a gap chain along the boundary cannot be in.
+// (0, j), j >= 1: the chain along row 0 lives in X.
+SW_HD Cell row0_cell(int j, float so, float se, float sent) {
+  const float lsc = (float)j * se + (so - se);
+  return {lsc + sent, lsc, lsc + sent};
+}
+
+// (i, 0): the origin (0, -1, -1) for i == 0, else the chain down column 0
+// in Y.
+SW_HD Cell col0_cell(int i, float so, float se, float sent) {
+  if (i == 0) return {0.0f, -1.0f, -1.0f};
+  const float lsc = (float)i * se + (so - se);
+  return {lsc + sent, lsc + sent, lsc};
+}
+
 // One interior cell (i, j).  d, u, l are the (M, X, Y) values at the
 // diagonal (i-1, j-1), up (i-1, j) and left (i, j-1) cells; po/pe are
 // the row's X penalties and qo/qe the column's Y penalties (both equal
@@ -151,22 +168,19 @@ SW_HD void fill_pair(const float* tab, int K, const uint8_t* c1,
 
   // boundary row i == 0, j = 1..m
   for (int j = 1; j <= m; ++j) {
-    const float lsc = (float)j * se + (so - se);
+    const Cell b = row0_cell(j, so, se, sent);
     float* cj = carry + (int64_t)(j - 1) * carry_cs;
-    cj[0] = lsc + sent;
-    cj[1] = lsc;
-    cj[2] = lsc + sent;
+    cj[0] = b.m;
+    cj[1] = b.x;
+    cj[2] = b.y;
   }
 
   float best = NEG;
   int best_i = 0, best_j = 0;
   Cell fin = {0.0f, 0.0f, 0.0f};
-  Cell diag0 = {0.0f, -1.0f, -1.0f};  // the origin (0, 0)
   for (int i = 1; i <= n; ++i) {
-    const float lsc_i = (float)i * se + (so - se);
-    Cell left = {lsc_i + sent, lsc_i + sent, lsc_i};  // (i, 0)
-    Cell diag = diag0;                                // (i-1, 0)
-    diag0 = left;
+    Cell left = col0_cell(i, so, se, sent);      // (i, 0)
+    Cell diag = col0_cell(i - 1, so, se, sent);  // (i-1, 0)
     const bool last_row = MODE != LOCAL && i == n;
     const float po = last_row ? so : og;
     const float pe = last_row ? se : eg;

@@ -79,4 +79,60 @@ SW_HD int32_t walk_pair(bool local, const uint8_t* tb, int64_t tb_rs,
   return cnt;
 }
 
+// One band's share of a long-sequence walk (kernel K5, seg_walk.cu).
+// Semantics are smithwaterman_tpu/ops/longseq.py _packed_walk_segments'
+// loop body w_body (:359-388), step for step.  Unlike walk_pair, the walk
+// does not stop at the first boundary cell: it follows the boundary down to
+// (0, 0), so the stream is complete.
+//   w:     the pair's walk state {i, j, s, done}, read and written back;
+//   cnt:   its move count so far, read and written back;
+//   band:  the band's pointer bytes, cell (i, j) for base < i <= base + C
+//          at band[(i - 1 - base) * rs + (j - 1) * cs];
+//   moves: byte t of the pair's packed moves at moves[t * mv_stride], of
+//          L4 bytes (zeroed before the first band; a byte the last band
+//          left part-filled is read back).
+// The pair steps while it is not done and needs this band (i > base) or
+// stands on a DP boundary (i == 0 or j == 0), at most L + 8 steps.
+SW_HD void walk_segment(bool local, const uint8_t* band, int64_t rs,
+                        int64_t cs, int base, int64_t L, int32_t* w,
+                        int32_t* cnt_io, uint8_t* moves, int64_t mv_stride,
+                        int64_t L4) {
+  int i = w[0], j = w[1], s = w[2];
+  bool done = w[3] != 0;
+  int32_t cnt = *cnt_io;
+  uint32_t acc = (cnt & 3) ? moves[(int64_t)(cnt >> 2) * mv_stride] : 0u;
+  for (int64_t it = 0; it < L + 8; ++it) {
+    if (done || !(i > base || i == 0 || j == 0)) break;
+    s = normalize_boundary_state(i, j, s);
+    int prev;
+    if (i >= 1 && j >= 1) {
+      prev = (band[(int64_t)(i - 1 - base) * rs + (int64_t)(j - 1) * cs] >>
+              (2 * s)) & 3;
+    } else {
+      prev = boundary_prev(i, j, s, local);
+    }
+    if (local && prev == STOP) {
+      done = true;
+      break;
+    }
+    acc |= (uint32_t)s << (2 * (cnt & 3));
+    if ((cnt & 3) == 3) {
+      if ((cnt >> 2) < L4) moves[(int64_t)(cnt >> 2) * mv_stride] = (uint8_t)acc;
+      acc = 0;
+    }
+    ++cnt;
+    if (s != GAPINX) --i;
+    if (s != GAPINY) --j;
+    s = prev;
+    done = i == 0 && j == 0;
+  }
+  if ((cnt & 3) && (cnt >> 2) < L4)
+    moves[(int64_t)(cnt >> 2) * mv_stride] = (uint8_t)acc;
+  w[0] = i;
+  w[1] = j;
+  w[2] = s;
+  w[3] = done ? 1 : 0;
+  *cnt_io = cnt;
+}
+
 }  // namespace sw

@@ -10,13 +10,15 @@ What stays is the memory plan: a traceback fill keeps one pointer byte per
 padded cell of each pair on the device until its walk has run, so pairs
 are cut into chunks whose pointer bytes fit a budget (``SWTPU_TB_HBM_BYTES``,
 default 4 GiB, the JAX package's setting) and chunks are filled and walked
-together while their sum fits it (:func:`plan_flushes`).
+together while their sum fits it (:func:`plan_flushes`).  A pair whose
+pointers alone exceed the budget takes the long-sequence route
+(``ops/longseq.py``) instead.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, List, NamedTuple, Tuple
+from typing import Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,39 +65,56 @@ class Chunk(NamedTuple):
                 self.codes2.shape[1])
 
 
-def plan_flushes(chunks: Iterable[Chunk], budget: int,
-                 score_only: bool) -> List[List[Chunk]]:
+class Flush(NamedTuple):
+    """Chunks filled and walked together; ``long``: one chunk that takes the
+    long-sequence route (``ops/longseq.align_long_packed``)."""
+
+    chunks: List[Chunk]
+    long: bool = False
+
+
+def plan_flushes(chunks: Iterable[Chunk], budget: int, score_only: bool,
+                 long_cells: Optional[int] = None) -> List[Flush]:
     """Split bucket chunks so each piece's pointer array fits ``budget``,
     then group pieces into flushes whose pointers fit it together (input
     order kept).  Score-only fills keep no pointers: one flush.
 
-    A single pair whose pointer array alone exceeds the budget raises
-    ``NotImplementedError``: it needs the checkpointed long-sequence path
-    (ROADMAP item 7), which the port does not have yet."""
+    A chunk whose single pair's pointers exceed the budget, or whose NP*MP
+    is at least ``long_cells`` (the JAX package's ``longseq_cells``), takes
+    the long-sequence route: pieces of as many pairs as fit the budget at
+    ``longseq.pair_bytes(NP, MP)`` device bytes each, one flush apiece.  The
+    JAX package counts a whole tile group of pairs against the budget, the
+    port one pair; both routes are exact, so the results do not depend on
+    which one runs."""
+    from . import longseq  # it builds on this module's Chunk
+
     chunks = list(chunks)
     if score_only:
-        return [chunks] if chunks else []
-    flushes: List[List[Chunk]] = []
+        return [Flush(chunks)] if chunks else []
+    flushes: List[Flush] = []
     cur: List[Chunk] = []
     cur_bytes = 0
     for ch in chunks:
         B, NP, MP = ch.shape
         per_pair = NP * MP
-        if per_pair > budget:
-            raise NotImplementedError(
-                f"a {NP}x{MP} pair needs {per_pair} pointer bytes, more than "
-                f"the {budget}-byte budget (SWTPU_TB_HBM_BYTES); long "
-                "sequences need the checkpointed fill (ROADMAP item 7, "
-                "ops/longseq.py), which the port does not have yet")
+        if per_pair > budget or (long_cells is not None
+                                 and per_pair >= long_cells):
+            if cur:
+                flushes.append(Flush(cur))
+                cur, cur_bytes = [], 0
+            step = max(1, budget // longseq.pair_bytes(NP, MP))
+            flushes += [Flush([Chunk(*(a[lo:lo + step] for a in ch))], True)
+                        for lo in range(0, B, step)]
+            continue
         step = budget // per_pair
         for lo in range(0, B, step):
             piece = Chunk(*(a[lo:lo + step] for a in ch))
             nbytes = piece.shape[0] * per_pair
             if cur and cur_bytes + nbytes > budget:
-                flushes.append(cur)
+                flushes.append(Flush(cur))
                 cur, cur_bytes = [], 0
             cur.append(piece)
             cur_bytes += nbytes
     if cur:
-        flushes.append(cur)
+        flushes.append(Flush(cur))
     return flushes

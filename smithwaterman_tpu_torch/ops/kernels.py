@@ -1,15 +1,19 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-``csrc/fill.cu`` (K1) and ``csrc/walk.cu`` (K2) are compiled on first use
-with ``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain
-C interface under the package's ``_build/`` directory, and loaded with
-ctypes.  No PyTorch header is compiled, so the build takes seconds.
+``csrc/fill.cu`` (K1), ``csrc/walk.cu`` (K2), ``csrc/longseq_fill.cu``
+(K3, K4) and ``csrc/seg_walk.cu`` (K5) are compiled on first use with
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per source, all
+started together, and linked into one shared library with a plain C
+interface under the package's ``_build/`` directory, loaded with ctypes.
+No PyTorch header is compiled, so the build takes seconds.
 
-Every launch goes through :func:`fill` or :func:`walk`, which check the
-tensors the kernel takes, pass each pointer and the current stream as
-``c_void_p``, and raise when the C entry point reports a CUDA error.  The
-callers (``ops/fill_dp.py``, ``ops/device_walk.py``) count launches.
-This module imports nothing CUDA-specific until a kernel is built.
+Every launch goes through one wrapper here (:func:`fill`, :func:`walk`,
+:func:`ckpt_fill`, :func:`band_fill`, :func:`seg_walk`), which checks the
+tensors the kernel takes, passes each pointer and the current stream as
+``c_void_p``, and raises when the C entry point reports a CUDA error.  The
+callers (``ops/fill_dp.py``, ``ops/device_walk.py``, ``ops/longseq.py``)
+count launches.  This module imports nothing CUDA-specific until a kernel
+is built.
 """
 
 from __future__ import annotations
@@ -24,20 +28,25 @@ import torch
 from . import native
 
 KERNEL_SOURCES = tuple(
-    os.path.join(native.CSRC, f) for f in ("fill.cu", "walk.cu")
+    os.path.join(native.CSRC, f)
+    for f in ("fill.cu", "walk.cu", "longseq_fill.cu", "seg_walk.cu")
 )
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH + (
+    "-std=c++17", "-O3",
     # exact f32: a fused multiply-add or a reordered sum can flip a tie
     # and with it an alignment string
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
+    # registers, shared memory and spills per kernel, into the build log
+    "-Xptxas", "-v",
+)
+LINK_FLAGS = ARCH + (
+    "-shared",
     # link the CUDA runtime as a shared library: the loader then hands the
     # kernels the libcudart PyTorch already loaded, so both share one
     # runtime (the static default would put a second one in the process)
     "-cudart", "shared",
-    # registers, shared memory and spills per kernel, into the build log
-    "-Xptxas", "-v",
 )
 MAX_K = 64  # the table lives in shared memory: K*K f32 (csrc/fill.cu)
 
@@ -64,7 +73,8 @@ def build() -> str:
     # where the toolkit's libcudart is, should PyTorch not have loaded one
     rpath = os.path.join(os.path.dirname(os.path.dirname(nvcc)), "lib64")
     return native.build_shared(
-        "swkernels", (nvcc,) + NVCC_FLAGS + ("-Xlinker", f"-rpath,{rpath}"),
+        "swkernels", (nvcc,) + COMPILE_FLAGS,
+        (nvcc,) + LINK_FLAGS + ("-Xlinker", f"-rpath,{rpath}"),
         KERNEL_SOURCES, native.headers(),
     )
 
@@ -83,6 +93,20 @@ def lib() -> ctypes.CDLL:
     ]
     so.sw_walk_launch.restype = i32
     so.sw_walk_launch.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp, vp]
+    so.sw_ckpt_fill_launch.restype = i32
+    so.sw_ckpt_fill_launch.argtypes = [
+        i32, vp, i32, vp, vp, vp, vp, i64, i64, i64, i32, vp, vp, vp, vp,
+        f32, f32, vp,
+    ]
+    so.sw_band_fill_launch.restype = i32
+    so.sw_band_fill_launch.argtypes = [
+        i32, vp, i32, vp, vp, vp, vp, i64, i64, i64, i32, i32, vp, vp, vp,
+        vp, f32, f32, vp,
+    ]
+    so.sw_seg_walk_launch.restype = i32
+    so.sw_seg_walk_launch.argtypes = [
+        i32, vp, i64, i64, i32, i32, i64, vp, vp, vp, vp,
+    ]
     _LIB = so
     return so
 
@@ -111,11 +135,7 @@ def fill(table, codes1, codes2, desc, tb, carry, stats, *, mode: int,
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, got {dev}")
-    K = table.shape[0]
-    if table.dim() != 2 or table.shape[1] != K or not 1 <= K <= MAX_K:
-        raise NotImplementedError(
-            f"K1 takes a square table of at most {MAX_K} symbols, got "
-            f"{tuple(table.shape)}")
+    K = _check_table(table, "K1")
     B = desc.shape[0]
     _check(table, "table", torch.float32, dev)
     _check(codes1, "codes1", torch.uint8, dev)
@@ -155,3 +175,94 @@ def walk(tb, desc, stats, cnt, moves, *, local: bool, L: int) -> None:
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K2 (walk)")
+
+
+def _check_table(table: torch.Tensor, what: str) -> int:
+    K = table.shape[0]
+    if table.dim() != 2 or table.shape[1] != K or not 1 <= K <= MAX_K:
+        raise NotImplementedError(
+            f"{what} takes a square table of at most {MAX_K} symbols, got "
+            f"{tuple(table.shape)}")
+    return K
+
+
+def _check_pairs(table, codes1, codes2, n, m, C: int, what: str):
+    """The long-sequence kernels' common inputs; returns (K, B, NP, MP)."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors, got {dev}")
+    K = _check_table(table, what)
+    if not (32 <= C <= 512 and C & (C - 1) == 0):
+        raise NotImplementedError(
+            f"{what} runs C threads a block: C must be a power of two in "
+            f"32..512, got {C}")
+    B, NP = codes1.shape
+    MP = codes2.shape[1]
+    _check(table, "table", torch.float32, dev)
+    _check(codes1, "codes1", torch.uint8, dev, (B, NP))
+    _check(codes2, "codes2", torch.uint8, dev, (B, MP))
+    _check(n, "n", torch.int32, dev, (B,))
+    _check(m, "m", torch.int32, dev, (B,))
+    return K, B, NP, MP
+
+
+def ckpt_fill(table, codes1, codes2, n, m, ckm, ckx, cky, stats, *,
+              mode: int, C: int, og: float, eg: float) -> None:
+    """Launch K3 (csrc/longseq_fill.cu) on the current stream; see
+    ops/longseq.fill_checkpointed."""
+    K, B, NP, MP = _check_pairs(table, codes1, codes2, n, m, C, "K3")
+    dev = table.device
+    for name, t in (("ckm", ckm), ("ckx", ckx), ("cky", cky)):
+        _check(t, name, torch.float32, dev, (B, -(-NP // C), MP))
+    _check(stats, "stats", torch.float32, dev, (B, 8))
+    with torch.cuda.device(dev):
+        rc = lib().sw_ckpt_fill_launch(
+            int(mode), table.data_ptr(), K, codes1.data_ptr(),
+            codes2.data_ptr(), n.data_ptr(), m.data_ptr(), B, NP, MP, int(C),
+            ckm.data_ptr(), ckx.data_ptr(), cky.data_ptr(), stats.data_ptr(),
+            float(og), float(eg), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "K3 (checkpointed fill)")
+
+
+def band_fill(table, codes1, codes2, n, m, ckm, ckx, cky, band, *,
+              mode: int, C: int, sk: int, og: float, eg: float) -> None:
+    """Launch K4 (csrc/longseq_fill.cu) on the current stream; see
+    ops/longseq.fill_band."""
+    K, B, NP, MP = _check_pairs(table, codes1, codes2, n, m, C, "K4")
+    dev = table.device
+    for name, t in (("ckm", ckm), ("ckx", ckx), ("cky", cky)):
+        _check(t, name, torch.float32, dev, (B, -(-NP // C), MP))
+    _check(band, "band", torch.uint8, dev, (B, (C + MP) * C))
+    if not 0 <= sk < -(-NP // C):
+        raise ValueError(f"band {sk} outside 0..{-(-NP // C) - 1}")
+    with torch.cuda.device(dev):
+        rc = lib().sw_band_fill_launch(
+            int(mode), table.data_ptr(), K, codes1.data_ptr(),
+            codes2.data_ptr(), n.data_ptr(), m.data_ptr(), B, NP, MP, int(C),
+            int(sk), ckm.data_ptr(), ckx.data_ptr(), cky.data_ptr(),
+            band.data_ptr(), float(og), float(eg),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "K4 (band refill)")
+
+
+def seg_walk(band, walk, cnt, moves, *, local: bool, C: int, sk: int,
+             MP: int, L: int) -> None:
+    """Launch K5 (csrc/seg_walk.cu) on the current stream; see
+    ops/longseq.walk_segments."""
+    dev = band.device
+    if dev.type != "cuda":
+        raise ValueError(f"K5 runs on CUDA tensors, got {dev}")
+    B = walk.shape[0]
+    _check(band, "band", torch.uint8, dev, (B, (C + MP) * C))
+    _check(walk, "walk", torch.int32, dev, (B, 4))
+    _check(cnt, "cnt", torch.int32, dev, (B,))
+    _check(moves, "moves", torch.uint8, dev, (-(-L // 4), B))
+    with torch.cuda.device(dev):
+        rc = lib().sw_seg_walk_launch(
+            1 if local else 0, band.data_ptr(), B, int(MP), int(C), int(sk),
+            int(L), walk.data_ptr(), cnt.data_ptr(), moves.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "K5 (segment walk)")

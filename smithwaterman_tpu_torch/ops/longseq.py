@@ -1,0 +1,321 @@
+"""The long-sequence route: checkpointed fill, band refill, segment walk.
+
+The counterpart of ``smithwaterman_tpu/ops/longseq.py``
+(``align_long_packed``).  A pair whose pointer matrix would not fit the
+device (``ops/batch.plan_flushes``) is aligned in two passes that keep
+only O(n/C * m) floats and O(C * m) pointer bytes:
+
+1. :func:`fill_checkpointed` (kernel K3): a score-only fill that keeps the
+   (M, X, Y) row after every C-th row (checkpoint k holds the row after
+   global row (k+1)*C) and the stats row, with the LOCAL argmax;
+2. per band sk = n_segs-1 .. 0, top band last, :func:`fill_band` (kernel
+   K4) refills rows sk*C+1 .. sk*C+C of every pair with rows there,
+   seeded from checkpoint sk-1 (row 0's closed form for sk == 0), and
+   :func:`walk_segments` (kernel K5) steps each pair's walk through the
+   band.  The walk state (i, j, state, done) and the move count stay on
+   the device between bands.
+
+The refill replays the same cell rules from the same carries, so the
+pointer bytes, and with them the path, are those of the single-pass fill.
+The output is ``walk_bundle_pooled``'s packed contract (``ops/device_walk``)
+except that a non-LOCAL walk follows the boundary down to (0, 0), as the
+JAX route's does; ``ops/reconstruct.reconstruct_packed`` takes both.
+
+Each wrapper launches its kernel on CUDA tensors and runs its plain
+PyTorch version (``*_ref``) on CPU tensors; any other device raises.
+``C`` is the card's own choice (:data:`DEFAULT_CKPT_ROWS`, the kernels'
+threads per block); the results do not depend on it, only the checkpoint
+arrays do.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import (CELL_GAPINX, CELL_GAPINY, CELL_MATCH, CELL_STOP,
+                      GLOBAL, LOCAL)
+from . import batch
+from .device_walk import _walk_starts
+from .fill_dp import STATS_W
+from .scan_dp import fill as scan_fill
+
+# rows per band and per checkpoint: K3 and K4 run one thread per row
+DEFAULT_CKPT_ROWS = 256
+
+# launches made through the wrappers below (plain counts, read by
+# chip_smoke.py)
+LAUNCHES = {"K3": 0, "K4": 0, "K5": 0}
+
+Ckpts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def n_ckpts(NP: int, C: int) -> int:
+    """Bands (and checkpoint rows) of an NP-row bucket."""
+    return -(-NP // C)
+
+
+def band_bytes(C: int, MP: int) -> int:
+    """Pointer bytes of one pair's band (``csrc/sw_band.cuh``)."""
+    return (C + MP) * C
+
+
+def pair_bytes(NP: int, MP: int, C: int = DEFAULT_CKPT_ROWS) -> int:
+    """Device bytes the route holds per pair: checkpoints and one band."""
+    return 12 * n_ckpts(NP, C) * MP + band_bytes(C, MP)
+
+
+def band_view(band: torch.Tensor, C: int, MP: int) -> torch.Tensor:
+    """The skewed band buffer (B, (C + MP) * C) as (B, C, MP): element
+    [b, r, c] is the pointer byte of cell (sk*C + r + 1, c + 1)."""
+    B = band.shape[0]
+    return band.as_strided((B, C, MP), (band.stride(0), C + 1, C),
+                           band.storage_offset())
+
+
+def row0_carries(B: int, mp: int, mode: int, og: float, eg: float
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Closed-form boundary-row carries (j = 1..mp), matching the fill's
+    un-seeded start (rs:100-108)."""
+    so, se = (og, eg) if mode == GLOBAL else (0.0, 0.0)
+    sent = 10.0 * og + 10.0 * eg
+    jf1 = np.arange(1, mp + 1, dtype=np.float32)
+    lsc = jf1 * se + (so - se)
+    m0 = np.broadcast_to(lsc + sent, (B, mp)).astype(np.float32)
+    x0 = np.broadcast_to(lsc, (B, mp)).astype(np.float32)
+    y0 = np.broadcast_to(lsc + sent, (B, mp)).astype(np.float32)
+    return m0.copy(), x0.copy(), y0.copy()
+
+
+def _device(table: torch.Tensor) -> str:
+    dev = table.device.type
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"no long-sequence route for device {table.device}")
+    return dev
+
+
+# ---------------------------------------------------------------- K3
+def fill_checkpointed_ref(table, codes1, codes2, n, m, *, mode: int,
+                          og: float, eg: float, C: int
+                          ) -> Tuple[torch.Tensor, Ckpts]:
+    """Plain version of :func:`fill_checkpointed`: ``scan_dp.fill`` one
+    band of C rows at a time, each seeded with the last one's carries."""
+    dev = table.device
+    B, NP = codes1.shape
+    MP = codes2.shape[1]
+    nck = n_ckpts(NP, C)
+    ck = tuple(torch.zeros((B, nck, MP), dtype=torch.float32, device=dev)
+               for _ in range(3))
+    n64 = n.to(torch.int64)
+    best = torch.full((B,), -3.0e38, dtype=torch.float32, device=dev)
+    best_i = torch.zeros((B,), dtype=torch.int64, device=dev)
+    best_j = torch.zeros((B,), dtype=torch.int64, device=dev)
+    final = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    seed = None
+    for kb in range(nck):
+        lo = kb * C
+        S = batch.scores(table, codes1[:, lo:lo + C], codes2)
+        r = scan_fill(S, n, m, og, eg, mode, with_traceback=False, i0=lo,
+                      seed=seed)
+        seed = r.carry
+        if lo + C <= NP:
+            for a, v in zip(ck, seed):
+                a[:, kb] = v
+        # bands run in row order, so a strict `>` keeps the first maximum
+        up = r.best > best
+        best = torch.where(up, r.best, best)
+        best_i = torch.where(up, r.best_i.to(torch.int64), best_i)
+        best_j = torch.where(up, r.best_j.to(torch.int64), best_j)
+        here = ((n64 > lo) & (n64 <= lo + C))[:, None]
+        final = torch.where(here, r.final, final)
+    stats = torch.zeros((B, STATS_W), dtype=torch.float32, device=dev)
+    if mode == LOCAL:
+        stats[:, 0] = best
+        stats[:, 1] = best_i.to(torch.float32)
+        stats[:, 2] = best_j.to(torch.float32)
+    else:
+        stats[:, 3:6] = final
+    return stats, ck
+
+
+def fill_checkpointed(table, codes1, codes2, n, m, *, mode: int, og: float,
+                      eg: float, C: int) -> Tuple[torch.Tensor, Ckpts]:
+    """Score-only fill of B pairs that keeps every C-th row.
+
+    ``codes1`` (B, NP) / ``codes2`` (B, MP) uint8 and ``n``, ``m`` (B,)
+    int32 on ``table``'s device.  Returns ``stats`` (B, 8) f32 (LOCAL
+    ``[best, best_i, best_j, 0...]``, else ``[0, 0, 0, finalM, finalX,
+    finalY, 0, 0]``) and the checkpoints ``(ckm, ckx, cky)``, each
+    (B, ceil(NP/C), MP) f32: row k is the (M, X, Y) row after global row
+    (k+1)*C, defined at columns < m for (k+1)*C <= n.  CUDA: one launch
+    of K3.  CPU: :func:`fill_checkpointed_ref`."""
+    if _device(table) == "cpu":
+        return fill_checkpointed_ref(table, codes1, codes2, n, m, mode=mode,
+                                     og=og, eg=eg, C=C)
+    from . import kernels
+
+    dev = table.device
+    B, NP = codes1.shape
+    MP = codes2.shape[1]
+    ck = tuple(torch.empty((B, n_ckpts(NP, C), MP), dtype=torch.float32,
+                           device=dev) for _ in range(3))
+    stats = torch.empty((B, STATS_W), dtype=torch.float32, device=dev)
+    kernels.ckpt_fill(table, codes1, codes2, n, m, *ck, stats, mode=mode,
+                      C=C, og=og, eg=eg)
+    LAUNCHES["K3"] += 1
+    return stats, ck
+
+
+# ---------------------------------------------------------------- K4
+def fill_band_ref(table, codes1, codes2, n, m, ck: Ckpts, band, *, sk: int,
+                  mode: int, og: float, eg: float, C: int) -> None:
+    """Plain version of :func:`fill_band`: ``scan_dp.fill`` over the band's
+    rows from its seed (:func:`row0_carries` for band 0)."""
+    B, NP = codes1.shape
+    MP = codes2.shape[1]
+    lo = sk * C
+    S = batch.scores(table, codes1[:, lo:lo + C], codes2)
+    if sk == 0:
+        seed = tuple(torch.from_numpy(a).to(table.device)
+                     for a in row0_carries(B, MP, mode, og, eg))
+    else:
+        seed = tuple(a[:, sk - 1] for a in ck)
+    r = scan_fill(S, n, m, og, eg, mode, with_traceback=True, i0=lo,
+                  seed=seed)
+    rows = S.shape[1]
+    band_view(band, C, MP)[:, :rows].copy_(r.tb[:, 1:, 1:])
+
+
+def fill_band(table, codes1, codes2, n, m, ck: Ckpts, band, *, sk: int,
+              mode: int, og: float, eg: float, C: int) -> None:
+    """Refill band ``sk`` (rows sk*C+1 .. sk*C+C) of every pair into
+    ``band`` (B, (C + MP) * C) uint8 (:func:`band_view` reads it): the
+    pointer bytes of the single-pass fill inside each pair's [:n, :m].
+    CUDA: one launch of K4.  CPU: :func:`fill_band_ref`."""
+    if _device(table) == "cpu":
+        fill_band_ref(table, codes1, codes2, n, m, ck, band, sk=sk,
+                      mode=mode, og=og, eg=eg, C=C)
+        return
+    from . import kernels
+
+    kernels.band_fill(table, codes1, codes2, n, m, *ck, band, mode=mode, C=C,
+                      sk=sk, og=og, eg=eg)
+    LAUNCHES["K4"] += 1
+
+
+# ---------------------------------------------------------------- K5
+def walk_start(stats: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+               mode: int) -> torch.Tensor:
+    """The walk state (B, 4) int32 ``{i, j, state, done}`` at the path's
+    end cell (``device_walk._walk_starts``)."""
+    i, j, s, done = _walk_starts(stats, n, m, mode)
+    return torch.stack([i, j, s, done.to(torch.int64)],
+                       dim=1).to(torch.int32).contiguous()
+
+
+def walk_segments_ref(band, walk, cnt, moves, *, sk: int, C: int, MP: int,
+                      L: int, local: bool) -> None:
+    """Plain version of :func:`walk_segments`: the JAX loop body
+    (``longseq.py:359-388``) as tensor operations, one iteration per
+    lockstep step, until no pair is active or L + 8 steps."""
+    dev = band.device
+    B = walk.shape[0]
+    base = sk * C
+    bidx = torch.arange(B, device=dev)
+    flat = band.view(-1)
+    stride = band.stride(0)
+    i, j, s = (walk[:, q].to(torch.int64) for q in range(3))
+    done = walk[:, 3] != 0
+    c = cnt.to(torch.int64)
+    L4 = moves.shape[0]
+
+    def active(i, j, done):
+        return ~done & ((i > base) | (i == 0) | (j == 0))
+
+    act = active(i, j, done)
+    it = 0
+    while it < L + 8 and bool(act.any()):
+        s = torch.where((j == 0) & (i > 0), CELL_GAPINY,
+                        torch.where((i == 0) & (j > 0), CELL_GAPINX, s))
+        interior = (i >= 1) & (j >= 1)
+        r = (i - 1 - base).clamp(0, C - 1)
+        col = (j - 1).clamp(0, MP - 1)
+        ptr = flat[bidx * stride + (r + col) * C + r].to(torch.int64)
+        prev_in = (ptr >> (2 * s)) & 3
+        bstate = torch.where((i == 0) & (j == 0), CELL_MATCH,
+                             torch.where(i == 0, CELL_GAPINX, CELL_GAPINY))
+        if local:
+            bstate = torch.where(s == bstate, CELL_STOP, bstate)
+        prev = torch.where(interior, prev_in, bstate)
+        stop = (prev == CELL_STOP) if local else torch.zeros_like(done)
+        emit = act & ~stop
+        # one byte per pair, OR-ed with zero where the pair emits nothing
+        row = (c >> 2).clamp(max=L4 - 1)
+        bits = torch.where(emit & ((c >> 2) < L4), s << (2 * (c & 3)), 0)
+        moves[row, bidx] |= bits.to(torch.uint8)
+        ni = torch.where(emit & (s != CELL_GAPINX), i - 1, i)
+        nj = torch.where(emit & (s != CELL_GAPINY), j - 1, j)
+        s = torch.where(emit, prev, s)
+        done = done | (act & stop) | (emit & (ni == 0) & (nj == 0))
+        c = c + emit.to(torch.int64)
+        i, j = ni, nj
+        act = active(i, j, done)
+        it += 1
+    walk.copy_(torch.stack([i, j, s, done.to(torch.int64)], dim=1))
+    cnt.copy_(c)
+
+
+def walk_segments(band, walk, cnt, moves, *, sk: int, C: int, MP: int,
+                  L: int, local: bool) -> None:
+    """Step every pair's walk through band ``sk`` (``band`` from
+    :func:`fill_band`), in place: ``walk`` (B, 4) and ``cnt`` (B,) int32,
+    ``moves`` (ceil(L/4), B) uint8 packed as ``ops/device_walk``'s (zeroed
+    before the first band).  CUDA: one launch of K5.  CPU:
+    :func:`walk_segments_ref`."""
+    if band.device.type == "cpu":
+        walk_segments_ref(band, walk, cnt, moves, sk=sk, C=C, MP=MP, L=L,
+                          local=local)
+        return
+    if band.device.type != "cuda":
+        raise ValueError(f"no segment walk for device {band.device}")
+    from . import kernels
+
+    kernels.seg_walk(band, walk, cnt, moves, local=local, C=C, sk=sk, MP=MP,
+                     L=L)
+    LAUNCHES["K5"] += 1
+
+
+# ---------------------------------------------------------------- route
+def align_long_packed(table: torch.Tensor, chunk: batch.Chunk, *, mode: int,
+                      og: float, eg: float, ckpt_rows: Optional[int] = None):
+    """Checkpointed fill and on-device segment walks for one bucket chunk.
+
+    ``chunk``: padded codes (B, NP) / (B, MP) and true lengths, host numpy
+    (``ops/batch.Chunk``).  Runs on ``table``'s device and returns device
+    tensors ``(stats (B, 8) f32, cnt (B,) int32, moves (ceil(L/4), B)
+    uint8)`` with ``L = NP + MP + 2``: the JAX ``align_long_packed``
+    contract, for ``ops/reconstruct.reconstruct_packed``.  One K3 launch,
+    then one K4 and one K5 launch per band."""
+    dev = table.device
+    _device(table)
+    C = ckpt_rows or DEFAULT_CKPT_ROWS
+    table = table.to(torch.float32).contiguous()
+    codes1, codes2, n, m = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                            for a in chunk)
+    B, NP = codes1.shape
+    MP = codes2.shape[1]
+    L = NP + MP + 2
+    args = dict(mode=mode, og=og, eg=eg, C=C)
+    stats, ck = fill_checkpointed(table, codes1, codes2, n, m, **args)
+    walk = walk_start(stats, n, m, mode)
+    cnt = torch.zeros((B,), dtype=torch.int32, device=dev)
+    moves = torch.zeros((-(-L // 4), B), dtype=torch.uint8, device=dev)
+    band = torch.empty((B, band_bytes(C, MP)), dtype=torch.uint8,
+                       device=dev)
+    for sk in range(n_ckpts(NP, C) - 1, -1, -1):
+        fill_band(table, codes1, codes2, n, m, ck, band, sk=sk, **args)
+        walk_segments(band, walk, cnt, moves, sk=sk, C=C, MP=MP, L=L,
+                      local=mode == LOCAL)
+    return stats, cnt, moves

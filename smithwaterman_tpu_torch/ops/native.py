@@ -10,10 +10,12 @@ Two libraries, each compiled with g++ on first use into the package's
   GPU kernels' own headers (``sw_cell.cuh``, ``sw_walk.cuh``) on the host
   so the tier-1 tests check the code the card runs.
 
-A library's file name carries a hash of its compiler command and sources,
-so an edited source is rebuilt and concurrent processes (test workers)
-never load a half-written file: each writes a private temporary and
-renames it into place.
+Every library (these two and the CUDA kernels of ``ops/kernels.py``) is
+built by :func:`build_shared`: one compiler process per source, all
+started together, then one link.  A library's file name carries a hash of
+its compiler commands and sources, so an edited source is rebuilt and
+concurrent processes (test workers) never load a half-written file: each
+writes a private temporary and renames it into place.
 """
 
 from __future__ import annotations
@@ -34,21 +36,26 @@ HOST_SOURCES = tuple(
     os.path.join(SHARED_CSRC, f)
     for f in ("traceback.cpp", "fasta.cpp", "reconstruct.cpp")
 )
-GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17")
 # the twin must round every f32 operation as the card does (nvcc
 # --fmad=false): no contraction into fused multiply-adds
 TWIN_FLAGS = GXX_FLAGS + ("-ffp-contract=off",)
+GXX_LINK = ("g++", "-shared")
 
 _LIBS: dict = {}
 
 
-def build_shared(name: str, cmd: Sequence[str], sources: Sequence[str],
+def build_shared(name: str, compile_cmd: Sequence[str],
+                 link_cmd: Sequence[str], sources: Sequence[str],
                  deps: Sequence[str] = ()) -> str:
-    """Compile ``sources`` (plus header ``deps``, hashed but not passed)
-    with ``cmd`` into ``_build/lib<name>-<hash>.so``; return its path.
-    The compiler's output is kept beside it in ``<path>.log``.  Raises
+    """Build ``_build/lib<name>-<hash>.so`` from ``sources`` (plus header
+    ``deps``, hashed but not passed) and return its path: each source is
+    compiled to an object by its own ``compile_cmd -c`` process, all
+    started together, then ``link_cmd`` links the objects.  The compilers'
+    output is kept beside the library in ``<path>.log``.  Raises
     ``RuntimeError`` with that output on failure."""
-    h = hashlib.sha256(" ".join(cmd).encode())
+    h = hashlib.sha256(" ".join(compile_cmd).encode() + b"\0" +
+                       " ".join(link_cmd).encode())
     for path in list(sources) + list(deps):
         with open(path, "rb") as f:
             h.update(path.encode() + b"\0" + f.read())
@@ -57,14 +64,27 @@ def build_shared(name: str, cmd: Sequence[str], sources: Sequence[str],
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    objs = [f"{tmp}.{k}.o" for k in range(len(sources))]
+    procs = [
+        subprocess.Popen(list(compile_cmd) + ["-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    report = [proc.communicate()[0] for proc in procs]
+    if any(proc.returncode for proc in procs):
+        raise RuntimeError(f"building {name} failed:\n" + "".join(report))
     proc = subprocess.run(
-        list(cmd) + ["-o", tmp] + list(sources),
+        list(link_cmd) + ["-o", tmp] + objs,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
+    report.append(proc.stdout)
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f"building {name} failed:\n{proc.stdout}")
+        raise RuntimeError(f"building {name} failed:\n" + "".join(report))
     with open(out + ".log", "w") as f:  # the compiler's report, kept
-        f.write(proc.stdout)
+        f.write("".join(report))
     os.replace(tmp, out)
     return out
 
@@ -82,7 +102,7 @@ def host_lib() -> ctypes.CDLL:
     lib = _LIBS.get("host")
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(build_shared("swhost", ("g++",) + GXX_FLAGS,
+    lib = ctypes.CDLL(build_shared("swhost", ("g++",) + GXX_FLAGS, GXX_LINK,
                                    HOST_SOURCES))
     i64 = ctypes.c_int64
     pi64 = ctypes.POINTER(i64)
@@ -126,8 +146,8 @@ def twin_lib() -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = os.path.join(CSRC, "cell_twin.cpp")
-    lib = ctypes.CDLL(build_shared("swtwin", ("g++",) + TWIN_FLAGS, [src],
-                                   headers()))
+    lib = ctypes.CDLL(build_shared("swtwin", ("g++",) + TWIN_FLAGS, GXX_LINK,
+                                   [src], headers()))
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
     lib.sw_twin_fill.restype = i32
@@ -136,5 +156,19 @@ def twin_lib() -> ctypes.CDLL:
     ]
     lib.sw_twin_walk.restype = i32
     lib.sw_twin_walk.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp]
+    lib.sw_twin_ckpt_fill.restype = i32
+    lib.sw_twin_ckpt_fill.argtypes = [
+        i32, vp, i32, vp, vp, vp, vp, i64, i64, i64, i32, vp, vp, vp, vp,
+        f32, f32,
+    ]
+    lib.sw_twin_band_fill.restype = i32
+    lib.sw_twin_band_fill.argtypes = [
+        i32, vp, i32, vp, vp, vp, vp, i64, i64, i64, i32, i32, vp, vp, vp,
+        vp, f32, f32,
+    ]
+    lib.sw_twin_seg_walk.restype = i32
+    lib.sw_twin_seg_walk.argtypes = [
+        i32, vp, i64, i64, i32, i32, i64, vp, vp, vp,
+    ]
     _LIBS["twin"] = lib
     return lib

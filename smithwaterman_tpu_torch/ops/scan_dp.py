@@ -18,7 +18,7 @@ module's docstring for the rule-by-rule citations).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +34,8 @@ class FillResult(NamedTuple):
     best_j: torch.Tensor       # (B,) local: argmax col within that row
     final: torch.Tensor        # (B, 3) global/glocal: (M, X, Y) at (n, m)
     final_state: torch.Tensor  # (B,) global/glocal: argmax state (first)
+    # (M, X, Y) of the last row filled at columns 1..mpad, each (B, mpad)
+    carry: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
 
 def _shift_right(v: torch.Tensor) -> torch.Tensor:
@@ -42,17 +44,27 @@ def _shift_right(v: torch.Tensor) -> torch.Tensor:
 
 
 def fill(S: torch.Tensor, n: torch.Tensor, m: torch.Tensor, og: float,
-         eg: float, mode: int, with_traceback: bool = True) -> FillResult:
+         eg: float, mode: int, with_traceback: bool = True, *, i0: int = 0,
+         seed: Optional[Tuple[torch.Tensor, torch.Tensor,
+                              torch.Tensor]] = None) -> FillResult:
     """Fill the DP over padded dense score matrices.
 
     Args:
-      S: (B, npad, mpad) float32, S[b, i-1, j-1] = score of pairing
-         seq1[i-1] with seq2[j-1]; the padded region is arbitrary.
-      n, m: (B,) true lengths, 1 <= n <= npad, 1 <= m <= mpad.
+      S: (B, npad, mpad) float32, S[b, r, j-1] = score of pairing
+         seq1[i0 + r] with seq2[j-1]; the padded region is arbitrary.
+      n, m: (B,) true lengths, 1 <= n, 1 <= m <= mpad.
       og, eg: negative gap open/extend penalties (rounded to f32).
       mode: GLOBAL / GLOCAL / LOCAL.
+      i0, seed: a band refill (the long-sequence route, ops/longseq.py):
+         S holds global rows i0+1 .. i0+npad, and seed the (M, X, Y) of
+         row i0 at columns 1..mpad (each (B, mpad)); without a seed, row
+         i0 == 0 is the closed-form boundary row.  Every rule that depends
+         on the row (column 0, GLOCAL's free last row, the LOCAL argmax)
+         uses the global i.
     Returns a :class:`FillResult` whose tb covers the boundary row and
-    column (``(B, 1, 1)`` zeros when ``with_traceback`` is False).
+    column (``(B, 1, 1)`` zeros when ``with_traceback`` is False; with a
+    seed, tb's row 0 is zeros).  LOCAL best / best_i / best_j are the first
+    maximum over the filled rows i <= n (best = NEG when none is).
     """
     dev = S.device
     f32 = torch.float32
@@ -75,21 +87,37 @@ def fill(S: torch.Tensor, n: torch.Tensor, m: torch.Tensor, og: float,
     j0 = jvec == 0
     u8 = torch.uint8
 
-    # ---- boundary row i == 0 and the origin (rs:88-108)
-    lsc = jf * se + (so - se)
-    Mp = torch.where(j0, zero, lsc + sent).expand(B, -1)
-    minus1 = torch.tensor(-1.0, device=dev)
-    Xp = torch.where(j0, minus1, lsc).expand(B, -1)
-    Yp = torch.where(j0, minus1, lsc + sent).expand(B, -1)
-    # prev: the origin points to M, the rest of row 0 to X
-    prev0 = (~j0).to(torch.int64).expand(B, -1)
-    pm0 = px0 = py0 = prev0
-    if mode == LOCAL:
-        pm0 = torch.where(Mp == 0.0, CELL_STOP, prev0)
-        px0 = torch.where(Xp == 0.0, CELL_STOP, prev0)
-        py0 = torch.where(Yp == 0.0, CELL_STOP, prev0)
-    tb_rows = [(pm0 | (px0 << 2) | (py0 << 4)).to(u8)] if with_traceback \
-        else None
+    if seed is None:
+        if i0 != 0:
+            raise ValueError("a fill starting below row 0 needs a seed")
+        # ---- boundary row i == 0 and the origin (rs:88-108)
+        lsc = jf * se + (so - se)
+        Mp = torch.where(j0, zero, lsc + sent).expand(B, -1)
+        minus1 = torch.tensor(-1.0, device=dev)
+        Xp = torch.where(j0, minus1, lsc).expand(B, -1)
+        Yp = torch.where(j0, minus1, lsc + sent).expand(B, -1)
+        # prev: the origin points to M, the rest of row 0 to X
+        prev0 = (~j0).to(torch.int64).expand(B, -1)
+        pm0 = px0 = py0 = prev0
+        if mode == LOCAL:
+            pm0 = torch.where(Mp == 0.0, CELL_STOP, prev0)
+            px0 = torch.where(Xp == 0.0, CELL_STOP, prev0)
+            py0 = torch.where(Yp == 0.0, CELL_STOP, prev0)
+        row0 = (pm0 | (px0 << 2) | (py0 << 4)).to(u8)
+    else:
+        # ---- row i0 from the seed; its column 0 is the origin (i0 == 0)
+        # or the closed-form (i0, 0) of the chain down column 0
+        if i0 == 0:
+            c0 = [torch.tensor(v, dtype=f32, device=dev)
+                  for v in (0.0, -1.0, -1.0)]
+        else:
+            lsc0 = torch.tensor(float(i0), dtype=f32, device=dev) * se + \
+                (so - se)
+            c0 = [lsc0 + sent, lsc0 + sent, lsc0]
+        Mp, Xp, Yp = (torch.cat([c.expand(B, 1), v.to(f32)], dim=1)
+                      for c, v in zip(c0, seed))
+        row0 = torch.zeros((B, mpad + 1), dtype=u8, device=dev)
+    tb_rows = [row0] if with_traceback else None
 
     # Y's last-column switch (glocal; rs:169-170)
     if mode == LOCAL:
@@ -107,8 +135,8 @@ def fill(S: torch.Tensor, n: torch.Tensor, m: torch.Tensor, og: float,
     rowarg = []
     final = torch.zeros((B, 3), dtype=f32, device=dev)
 
-    for i in range(1, npad + 1):
-        srow = Spad[:, i - 1, :]
+    for i in range(i0 + 1, i0 + npad + 1):
+        srow = Spad[:, i - i0 - 1, :]
         fi = torch.tensor(float(i), dtype=f32, device=dev)
 
         # ---- M: from (i-1, j-1); tie order M >= X >= Y (rs:139-158)
@@ -209,11 +237,12 @@ def fill(S: torch.Tensor, n: torch.Tensor, m: torch.Tensor, og: float,
     # (rs:282-295: only the M state competes)
     rm = torch.stack(rowmax, dim=1)                     # (B, npad)
     ra = torch.stack(rowarg, dim=1)
-    ivec = torch.arange(1, npad + 1, device=dev)[None, :]
+    ivec = torch.arange(i0 + 1, i0 + npad + 1, device=dev)[None, :]
     rm = torch.where(ivec <= n[:, None], rm, NEG)
     bi = torch.argmax(rm, dim=1)
     best = rm.gather(1, bi[:, None])[:, 0]
     best_j = ra.gather(1, bi[:, None])[:, 0].to(torch.int32)
     final_state = torch.argmax(final, dim=1).to(torch.int32)
-    return FillResult(tb, best, (bi + 1).to(torch.int32), best_j, final,
-                      final_state)
+    return FillResult(tb, best, (bi + 1 + i0).to(torch.int32), best_j,
+                      final, final_state,
+                      (Mp[:, 1:], Xp[:, 1:], Yp[:, 1:]))

@@ -157,17 +157,37 @@ def test_perl_compat_matches_jax():
 
 def test_pointer_budget_chunks_flushes(monkeypatch):
     """A budget of a few pairs' pointers splits the batch into many
-    flushes; results must not change."""
+    flushes; a budget below one pair's pointers sends it down the
+    long-sequence route; results must not change."""
     pairs = _pairs(11)
     base = BatchAligner(mode=GLOBAL, device="cpu").align_pairs(pairs)
     monkeypatch.setenv("SWTPU_TB_HBM_BYTES", str(3 * 128 * 128))
     got = BatchAligner(mode=GLOBAL, device="cpu").align_pairs(pairs)
     assert [_key(r) for r in got] == [_key(r) for r in base]
     monkeypatch.setenv("SWTPU_TB_HBM_BYTES", str(64 * 64 - 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        BatchAligner(mode=GLOBAL, device="cpu").align_pairs(pairs)
+    got = BatchAligner(mode=GLOBAL, device="cpu").align_pairs(pairs)
+    assert [_key(r) for r in got] == [_key(r) for r in base]
     # score-only fills keep no pointers: no budget applies
     BatchAligner(mode=GLOBAL, device="cpu").score_pairs(pairs)
+
+
+def test_default_device_is_the_card(monkeypatch, tmp_path):
+    """Without a device the entry points run on the card, and raise
+    without one instead of running on the CPU unasked."""
+    import torch
+
+    from smithwaterman_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (Aligner, BatchAligner):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+    fa = tmp_path / "a.fas"
+    fa.write_text(">a\nHEAGAWGHEE\n")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cli.main([str(fa), str(fa)])
+    assert Aligner(device="cpu").device.type == "cpu"
+    assert BatchAligner(device="cpu").device.type == "cpu"
 
 
 def test_stats_and_phases():

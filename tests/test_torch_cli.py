@@ -2,7 +2,8 @@
 
 Both CLIs run in this process on the same small FASTA files (pairs,
 ``-list`` with ``-out``, ``-cluster``); their stdout and output files must
-be identical bytes.  The port runs on the CPU here.
+be identical bytes.  The port runs on the CPU here, asked for with
+``device="cpu"``: its default is the card.
 """
 
 import os
@@ -30,16 +31,20 @@ def files(tmp_path):
     return tmp_path, str(f1), str(f2)
 
 
-def _run(main, argv, capsys):
-    main(argv)
+def _run(main, argv, capsys, **kw):
+    main(argv, **kw)
     out = capsys.readouterr()
     return out.out
+
+
+def _ours(argv, capsys):
+    return _run(cli.main, argv, capsys, device="cpu")
 
 
 @pytest.mark.parametrize("flag", ["-local", "-glocal", "-global"])
 def test_pairs_output_identical(files, capsys, flag):
     _, f1, f2 = files
-    ours = _run(cli.main, [flag, f1, f2], capsys)
+    ours = _ours([flag, f1, f2], capsys)
     theirs = _run(jcli.main, [flag, f1, f2], capsys)
     assert ours == theirs
     assert ours.count("#score:") == 6
@@ -49,8 +54,8 @@ def test_list_and_out_identical(files, capsys):
     tmp, f1, f2 = files
     lst = tmp / "list.txt"
     lst.write_text(f"{f1}\t{f2}\n{f2} {f1}\n")
-    _run(cli.main, ["-glocal", "-list", str(lst), "-out",
-                    str(tmp / "ours.txt")], capsys)
+    _ours(["-glocal", "-list", str(lst), "-out", str(tmp / "ours.txt")],
+          capsys)
     _run(jcli.main, ["-glocal", "-list", str(lst), "-out",
                      str(tmp / "theirs.txt")], capsys)
     assert (tmp / "ours.txt").read_bytes() == (tmp / "theirs.txt").read_bytes()
@@ -62,8 +67,8 @@ def test_cluster_identical(tmp_path, capsys, flag):
     inp.write_text(CLUSTER)
     ours = str(tmp_path / "ours.fas")
     theirs = str(tmp_path / "theirs.fas")
-    out_ours = _run(cli.main, ["-cluster", flag, "-identity", "0.9", "-out",
-                               ours, str(inp)], capsys)
+    out_ours = _ours(["-cluster", flag, "-identity", "0.9", "-out", ours,
+                      str(inp)], capsys)
     out_theirs = _run(jcli.main, ["-cluster", flag, "-identity", "0.9",
                                   "-out", theirs, str(inp)], capsys)
     assert out_ours == out_theirs
@@ -75,11 +80,11 @@ def test_cluster_identical(tmp_path, capsys, flag):
 
 def test_stats_and_band(files, capsys):
     _, f1, f2 = files
-    cli.main(["-stats", f1, f2])
+    cli.main(["-stats", f1, f2], device="cpu")
     err = capsys.readouterr().err
     assert '"pairs": 6' in err
     with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        cli.main(["-band", "64", f1, f2])
+        cli.main(["-band", "64", f1, f2], device="cpu")
 
 
 def test_usage_and_parse_errors(capsys):

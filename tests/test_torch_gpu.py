@@ -12,7 +12,7 @@ import torch
 
 from smithwaterman_tpu_torch import GLOBAL, GLOCAL, LOCAL, BatchAligner
 from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
-from smithwaterman_tpu_torch.ops import batch, device_walk, fill_dp
+from smithwaterman_tpu_torch.ops import batch, device_walk, fill_dp, longseq
 
 pytestmark = pytest.mark.gpu
 MODES = [LOCAL, GLOCAL, GLOBAL]
@@ -182,3 +182,154 @@ def test_aligner_cuda_matches_cpu(cuda, mode):
         assert (g.aligned1, g.aligned2, g.score) == (c.aligned1, c.aligned2,
                                                      c.score)
     assert gpu.score(s1, s2) == cpu.score(s1, s2)
+
+
+def _long_chunk(seed, B=8, NP=300, MP=280):
+    rng = np.random.default_rng(seed)
+    c1 = rng.integers(0, 20, size=(B, NP)).astype(np.uint8)
+    c2 = rng.integers(0, 20, size=(B, MP)).astype(np.uint8)
+    n = rng.integers(1, NP + 1, size=B).astype(np.int32)
+    m = rng.integers(1, MP + 1, size=B).astype(np.int32)
+    n[:3], m[:3] = (1, NP, NP), (MP, 1, MP)
+    c2[2, 10:200] = c1[2, 40:230]
+    c1[3, 64:128] = c1[3, 0:64]  # a repeated motif: tied maxima
+    c2[3, 0:64] = c1[3, 0:64]
+    return batch.Chunk(c1, c2, n, m)
+
+
+def _on(ch, dev):
+    return tuple(torch.from_numpy(a).to(dev) for a in ch)
+
+
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("mode", MODES)
+def test_longseq_kernels_match_plain(cuda, mode, C):
+    """K3, K4 (every band) and K5 (every band, from the same walk state)
+    against their plain versions on the card."""
+    ch = _long_chunk(40 + mode)
+    tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
+    c1, c2, n, m = _on(ch, cuda)
+    B, NP, MP = ch.shape
+    args = dict(mode=mode, og=-10.0, eg=-0.5, C=C)
+    st, ck = longseq.fill_checkpointed(tab, c1, c2, n, m, **args)
+    rst, rck = longseq.fill_checkpointed_ref(tab, c1, c2, n, m, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(st, rst)
+    for b in range(B):
+        k, mb = int(ch.n[b]) // C, int(ch.m[b])
+        for a, r in zip(ck, rck):
+            assert torch.equal(a[b, :k, :mb], r[b, :k, :mb])
+    L = NP + MP + 2
+    walk = longseq.walk_start(st, n, m, mode)
+    rwalk = walk.clone()
+    cnt = torch.zeros(B, dtype=torch.int32, device=cuda)
+    rcnt = cnt.clone()
+    moves = torch.zeros((-(-L // 4), B), dtype=torch.uint8, device=cuda)
+    rmoves = moves.clone()
+    band = torch.zeros((B, longseq.band_bytes(C, MP)), dtype=torch.uint8,
+                       device=cuda)
+    rband = band.clone()
+    for sk in range(longseq.n_ckpts(NP, C) - 1, -1, -1):
+        longseq.fill_band(tab, c1, c2, n, m, ck, band, sk=sk, **args)
+        longseq.fill_band_ref(tab, c1, c2, n, m, ck, rband, sk=sk, **args)
+        got, ref = (longseq.band_view(x, C, MP) for x in (band, rband))
+        for b in range(B):
+            rows = min(max(int(ch.n[b]) - sk * C, 0), C)
+            assert torch.equal(got[b, :rows, :int(ch.m[b])],
+                               ref[b, :rows, :int(ch.m[b])]), (sk, b)
+        kw = dict(sk=sk, C=C, MP=MP, L=L, local=mode == LOCAL)
+        longseq.walk_segments(band, walk, cnt, moves, **kw)
+        longseq.walk_segments_ref(band, rwalk, rcnt, rmoves, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(walk, rwalk) and torch.equal(cnt, rcnt), sk
+        assert torch.equal(moves, rmoves), sk
+    assert bool((walk[:, 3] == 1).all()) or mode == LOCAL
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_long_route_matches_ordinary(cuda, mode):
+    """Every bucket through K3 -> K4 -> K5 against K1 -> K2: every field
+    of every result."""
+    rng = np.random.default_rng(50 + mode)
+    letters = np.array(list("ARNDCQEGHILKMFPSTWYV"))
+    pairs = []
+    for k in range(12):
+        a = "".join(rng.choice(letters, int(rng.integers(1, 700))))
+        b = "".join(rng.choice(letters, int(rng.integers(1, 700))))
+        if k % 3 == 0 and len(a) > 120:
+            b = b[:30] + a[20:120] + b[30:]
+        pairs.append((a, b))
+    longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
+    got = BatchAligner(mode=mode, device="cuda",
+                       longseq_cells=1).align_pairs(pairs)
+    assert min(longseq.LAUNCHES.values()) > 0
+    want = BatchAligner(mode=mode, device="cuda").align_pairs(pairs)
+    for g, w in zip(got, want):
+        assert (g.aligned1, g.aligned2, g.score, g.start1, g.end1, g.start2,
+                g.end2) == (w.aligned1, w.aligned2, w.score, w.start1,
+                            w.end1, w.start2, w.end2)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_longseq_kernels_write_only_their_outputs(cuda, mode):
+    """K3, K4 and K5 launched on outputs fenced by canary bytes: every
+    canary stays intact and the outputs equal the wrappers' on the same
+    inputs."""
+    from smithwaterman_tpu_torch.ops import kernels
+
+    C = 32
+    ch = _long_chunk(60 + mode)
+    tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
+    c1, c2, n, m = _on(ch, cuda)
+    B, NP, MP = ch.shape
+    nck = longseq.n_ckpts(NP, C)
+    args = dict(mode=mode, og=-10.0, eg=-0.5, C=C)
+    wst, wck = longseq.fill_checkpointed(tab, c1, c2, n, m, **args)
+    arenas = {}
+    ck = []
+    for name in ("ckm", "ckx", "cky"):
+        arenas[name], t = _fenced(4 * B * nck * MP, torch.float32, cuda)
+        ck.append(t.view(B, nck, MP))
+    arenas["stats"], stats = _fenced(4 * 8 * B, torch.float32, cuda)
+    stats = stats.view(B, 8)
+    kernels.ckpt_fill(tab, c1, c2, n, m, *ck, stats, **args)
+    sk = nck - 2
+    bb = longseq.band_bytes(C, MP)
+    arenas["band"], band = _fenced(B * bb, torch.uint8, cuda)
+    band = band.view(B, bb)
+    kernels.band_fill(tab, c1, c2, n, m, *ck, band, sk=sk, **args)
+    L = NP + MP + 2
+    walk0 = longseq.walk_start(wst, n, m, mode)
+    walk0[:, 0] = torch.minimum(walk0[:, 0], n.new_tensor((sk + 1) * C))
+    arenas["walk"], walk = _fenced(4 * 4 * B, torch.int32, cuda)
+    walk = walk.view(B, 4)
+    walk.copy_(walk0)
+    arenas["cnt"], cnt = _fenced(4 * B, torch.int32, cuda, inner=0)
+    arenas["moves"], moves = _fenced(-(-L // 4) * B, torch.uint8, cuda,
+                                     inner=0)
+    moves = moves.view(-1, B)
+    kernels.seg_walk(band, walk, cnt, moves, local=mode == LOCAL, C=C,
+                     sk=sk, MP=MP, L=L)
+    torch.cuda.synchronize()
+    for name, arena in arenas.items():
+        assert bool((arena[:GUARD] == CANARY).all()), name
+        assert bool((arena[-GUARD:] == CANARY).all()), name
+    assert torch.equal(stats, wst)
+    for b in range(B):
+        k, mb = int(ch.n[b]) // C, int(ch.m[b])
+        for a, r in zip(ck, wck):
+            assert torch.equal(a[b, :k, :mb], r[b, :k, :mb])
+    wband = torch.zeros_like(band)
+    longseq.fill_band(tab, c1, c2, n, m, wck, wband, sk=sk, **args)
+    got, want = (longseq.band_view(x, C, MP) for x in (band, wband))
+    for b in range(B):
+        rows = min(max(int(ch.n[b]) - sk * C, 0), C)
+        assert torch.equal(got[b, :rows, :int(ch.m[b])],
+                           want[b, :rows, :int(ch.m[b])])
+    rwalk = walk0.clone()
+    rcnt = torch.zeros(B, dtype=torch.int32, device=cuda)
+    rmoves = torch.zeros_like(moves)
+    longseq.walk_segments_ref(wband, rwalk, rcnt, rmoves, sk=sk, C=C, MP=MP,
+                              L=L, local=mode == LOCAL)
+    assert torch.equal(walk, rwalk) and torch.equal(cnt, rcnt)
+    assert torch.equal(moves, rmoves)
