@@ -16,22 +16,23 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    move counts and packed moves must be equal;
 5. the main path at a size users run: 3200 protein pairs, lengths uniform
    in 150..700, BLOSUM62, go = 10, ge = 0.5, through
-   ``BatchAligner(device="cuda")`` in all three modes plus one
+   ``BatchAligner(device=dev)`` in all three modes plus one
    ``score_pairs``; a random 64-pair subset per mode must equal the CPU
    path exactly and every kernel must have launched.  Then, per mode,
    each kernel runs at the main path's shapes (the same pairs, bucketed
    alike, every chunk in one launch) beside its plain version on the same
-   inputs: every pair's pointer bytes and stats, every move count and
-   move byte must be equal, and both are timed;
+   inputs (K1's in GLOCAL and GLOBAL on every third chunk): every pair's
+   pointer bytes and stats, every move count and move byte must be equal,
+   and both are timed;
 6. the long-sequence kernels K3 (checkpointed fill), K4 (band refill) and
    K5 (segment walk) against their plain versions: 8 ragged pairs up to
-   2048 x 2048 (lengths down to 1, one pair with tied maxima), all three
+   1024 x 1024 (lengths down to 1, one pair with tied maxima), all three
    modes, the default band height C and C = 64.  Stats, checkpoints,
    every band pointer byte, walk state, move count and move byte must be
    equal;
 7. the long route against the ordinary one: 16 protein pairs of 1500..4000
-   residues a side through ``BatchAligner(device="cuda",
-   longseq_cells=1)`` and ``BatchAligner(device="cuda")``, every field of
+   residues a side through ``BatchAligner(device=dev,
+   longseq_cells=1)`` and ``BatchAligner(device=dev)``, every field of
    every result equal, in all three modes;
 8. the long route at a real size: 4 DNA pairs of 70,000 bp a side (each
    partner a mutated copy: 5 % substitutions, an indel of 1..20 every
@@ -39,14 +40,39 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    go = 10, ge = 0.5, default pointer budget, in all three modes.  Only
    K3, K4 and K5 may launch; each alignment re-scored from its strings
    must equal its score, GLOBAL and GLOCAL alignments must consume every
-   residue and LOCAL ones reach 90 % identity.  Then K3, K4 and K5 run at
-   these shapes beside their plain versions, equal and timed.
+   residue and LOCAL ones reach 90 % identity.  Then K4 and K5 run at
+   these shapes beside their plain versions, and K3 at a cut depth (4
+   such pairs of 16,000 bp: its plain version runs ~60 launches a row),
+   equal and timed;
+9. the banded kernels K6 (scores), K7 (fill) and K8 (walk) against their
+   plain versions: 8 ragged protein pairs up to 2048 a side (lengths down
+   to 1, m - n from -300 to +300, one pair with tied maxima), bands of 128
+   (the pairs with m <= n), 512 and 2048 (offsets all 0) in all three
+   modes, GLOBAL with og = eg = 0 and LOCAL with a non-integer table.
+   Every score, every pointer byte of each pair's rows i <= n, the stats,
+   walk indices, counts and flags must be equal; a corrupted band must set
+   flag bit 1 in both walks and make ``align_banded_batch`` raise
+   ``BandExceeded``;
+10. banded alignment at a real size: (a) 8 protein pairs of 12,000
+   residues (mutated copies as in phase 8, over the 20 amino acids, from
+   ``default_rng(42)``), BLOSUM62, go = 10, ge = 0.5, through
+   ``align_banded_batch(band=512)`` in all three modes: one launch each of
+   K6, K7 and K8 and none of K1-K5; every score must equal the full DP's
+   (the long route), every alignment re-score to its score, GLOBAL and
+   GLOCAL consume every residue; then K6, K7 and K8 at these shapes beside
+   their plain versions, equal and timed, K6 also beside one PyTorch
+   indexing expression; (b) a 32,768-residue pair and its mutated copy in
+   LOCAL through the verified ``Aligner.align_banded(band=1024)``: the band
+   used must be at most 2048, the score the full DP's, the trimmed
+   strings must re-score to it at 85 % identity or more; cold and warm
+   walls, peak device memory and ``phase_probe``'s stages are printed.
 
 The last two stdout lines are the kernels' JSON record and the result
 line; each kernel's ``max_abs_err`` is its comparison at its main path's
-shapes (phase 5 for K1 and K2, phase 8 for K3-K5), its ``launches`` the
-count from that path's run, and ``bound_ms`` the least time the card could
-take for the same work on this run's inputs (the larger of its f32
+shapes (phase 5 for K1 and K2, phase 8 for K3-K5 with K3 at its cut
+depth, phase 10a for K6-K8), its ``launches`` the count from that path's
+run, and ``bound_ms`` the least time the card could take for the same
+work on this run's inputs (the larger of its f32
 operations at 67 TFLOP/s and its bytes at 3.35 TB/s).  Any failure raises
 and exits non-zero without a result line; so does a machine without CUDA.
 """
@@ -65,6 +91,13 @@ LETTERS = "ARNDCQEGHILKMFPSTWYV"
 CHECKED = 64
 LONGEST = 3685  # the reference suite's longest sequence
 DNA_PAIRS, DNA_LEN = 4, 70000
+DNA_CMP_LEN = 16000  # phase 8's K3-against-plain depth
+# phase 10: (a) 8 protein pairs of 12,000 at band 512, (b) one of 32,768
+BANDED_PAIRS, BANDED_LEN, BANDED_BAND = 8, 12000, 512
+GIANT_LEN, GIANT_BAND = 32768, 1024
+# f32 operations of one band cell of K7: sw::cell's 22-27 plus the
+# normalisation of X's prefix (2) and the prefix's maximum (1)
+BANDED_CELL_OPS = 30
 # an H100 SXM's published peaks (f32 outside the tensor cores, HBM3)
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # f32 operations (adds, compares, maxima) one cell of sw_cell.cuh's cell()
@@ -128,28 +161,50 @@ def bound(flops: float, nbytes: float):
     return t_bytes * 1e3, "bytes"
 
 
-def make_dna_pair(n, rng, sub_rate=0.05, indel_every=2000, indel_max=20):
-    """A random ACGT sequence of n bases and a mutated copy of it, as
+def mutated_pair(n, rng, alphabet, sub_rate=0.05, indel_every=2000,
+                 indel_max=20):
+    """A random sequence of n letters of ``alphabet`` and a mutated copy of
+    it (5 % substitutions, an indel of 1..20 every 2000 positions), as
     ``scripts/giant_pair_check.py`` ``make_pair`` builds protein pairs."""
-    s1 = rng.integers(0, 4, size=n)
+    k = len(alphabet)
+    s1 = rng.integers(0, k, size=n)
     out = []
     i = 0
     next_indel = indel_every
     while i < n:
         if i >= next_indel:
             next_indel += indel_every
-            k = int(rng.integers(1, indel_max + 1))
+            d = int(rng.integers(1, indel_max + 1))
             if rng.integers(0, 2):  # insertion into s2
-                out.extend(rng.integers(0, 4, size=k).tolist())
+                out.extend(rng.integers(0, k, size=d).tolist())
             else:  # deletion from s2
-                i += k
+                i += d
                 continue
         c = int(s1[i])
         if rng.random() < sub_rate:
-            c = int(rng.integers(0, 4))
+            c = int(rng.integers(0, k))
         out.append(c)
         i += 1
-    return "".join("ACGT"[c] for c in s1), "".join("ACGT"[c] for c in out)
+    return ("".join(alphabet[c] for c in s1),
+            "".join(alphabet[c] for c in out))
+
+
+def one_chunk(pairs, sm):
+    """``pairs`` bucketed as ``BatchAligner`` buckets them, as one chunk
+    (they must share a bucket)."""
+    from smithwaterman_tpu_torch.batch_aligner import _Bucket
+    from smithwaterman_tpu_torch.config import bucket_len
+
+    bks = {}
+    for a, b in pairs:
+        key = (bucket_len(len(a)), bucket_len(len(b)))
+        bk = bks.setdefault(key, _Bucket(*key))
+        bk.indices.append(len(bk.indices))
+        bk.codes1.append(sm.seq_to_index(a))
+        bk.codes2.append(sm.seq_to_index(b))
+    if len(bks) != 1:
+        fail(f"{len(pairs)} pairs fell into {len(bks)} buckets")
+    return next(iter(bks.values())).chunk()
 
 
 def rescore(a1: str, a2: str, sm, og: float, eg: float, mode: int,
@@ -179,6 +234,391 @@ def rescore(a1: str, a2: str, sm, og: float, eg: float, mode: int,
     return score
 
 
+def event_ms(fn):
+    """CUDA-event time of one call of ``fn`` (ms) and its result."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def timed(fn, reps):
+    """Mean CUDA-event time of ``reps`` back-to-back calls (ms) and the last
+    result."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+PHASE9_LENGTHS = ((2048, 1748), (1, 5), (1500, 1800), (700, 640),
+                  (1234, 1234), (2000, 2048), (300, 600), (1600, 1600))
+
+
+def phase9_pairs(rng):
+    """Phase 9's 8 protein code pairs: similar pairs (each seq2 a shifted
+    copy of seq1 with 8 % substitutions) of PHASE9_LENGTHS, m - n from
+    -300 to +300, lengths down to 1; the last one a 60-residue motif
+    repeated down seq1 and once in seq2: tied LOCAL maxima."""
+    pairs = []
+    for n, m in PHASE9_LENGTHS:
+        base = rng.integers(0, 20, size=n + m + 10)
+        c2 = base[7:7 + m].copy()
+        hit = rng.random(m) < 0.08
+        c2[hit] = rng.integers(0, 20, size=int(hit.sum()))
+        pairs.append((base[:n].copy(), c2))
+    c1, c2 = pairs[-1]
+    for r in range(100, len(c1) - 60, 150):
+        c1[r:r + 60] = c1[:60]
+    q = len(c2) // 4
+    c2[q:q + 60] = c1[:60]
+    return pairs
+
+
+def phase9(dev, card, modes):
+    """K6, K7 and K8 against their plain versions on the card; returns the
+    summed kernel / plain milliseconds per kernel."""
+    import torch
+
+    from smithwaterman_tpu_torch import GLOBAL, LOCAL
+    from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
+    from smithwaterman_tpu_torch.ops import banded
+
+    blosum = np.asarray(SubstitutionMatrix.blosum62().table, np.float32)
+    pairs = phase9_pairs(np.random.default_rng(SEED + 9))
+    narrow = [p for p, (n, m) in zip(pairs, PHASE9_LENGTHS) if m <= n]
+    cases = [(mode, mname, band, sub, blosum, -10.0, -0.5)
+             for mode, mname in modes
+             for band, sub in ((128, narrow), (512, pairs), (2048, pairs))]
+    cases += [(GLOBAL, "global og=eg=0", 512, pairs, blosum, 0.0, 0.0),
+              (LOCAL, "local blosum62*0.5", 512, pairs,
+               blosum * np.float32(0.5), -10.0, -0.5)]
+    sums = {"K6": [0.0, 0.0], "K7": [0.0, 0.0], "K8": [0.0, 0.0]}
+    widths = set()
+    for mode, mname, band, sub, table, og, eg in cases:
+        pk = banded.pack(sub, band, table.shape[0])
+        widths.add(pk.W)
+        tab = torch.from_numpy(table).to(dev)
+        c1, c2, n, m = (torch.from_numpy(a).to(dev)
+                        for a in (pk.codes1, pk.codes2, pk.n, pk.m))
+        what = f"{mname} W={pk.W}"
+        ms, S = event_ms(lambda: banded.banded_scores(tab, c1, c2, n, m,
+                                                      W=pk.W))
+        pms, rS = event_ms(lambda: banded.banded_scores_ref(
+            tab, c1, c2, n, m, W=pk.W))
+        sums["K6"][0] += ms
+        sums["K6"][1] += pms
+        if not torch.equal(S, rS):
+            fail(f"K6 {what}: differs from the plain scores")
+        kw = dict(mode=mode, og=og, eg=eg)
+        ms, (tb, st) = event_ms(lambda: banded.fill_banded(S, n, m, **kw))
+        pms, (rtb, rst) = event_ms(lambda: banded.fill_banded_ref(S, n, m,
+                                                                  **kw))
+        sums["K7"][0] += ms
+        sums["K7"][1] += pms
+        if not torch.equal(st, rst) or any(
+                not torch.equal(tb[b, :x], rtb[b, :x])
+                for b, x in enumerate(pk.n.tolist())):
+            fail(f"K7 {what}: stats or pointer bytes differ from the plain "
+                 "fill")
+        start, _ = banded.walk_starts(st.cpu().numpy(), pk, mode)
+        off, start = (torch.from_numpy(a).to(dev) for a in (pk.offs, start))
+        L = banded.path_len(pk)
+        wk = dict(local=mode == LOCAL, L=L)
+        ms, got = event_ms(lambda: banded.walk_banded_device(tb, off, start,
+                                                             m, **wk))
+        pms, want = event_ms(lambda: banded.walk_banded_ref(tb, off, start,
+                                                            m, **wk))
+        sums["K8"][0] += ms
+        sums["K8"][1] += pms
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"K8 {what}: walk differs from the plain walk")
+        if int(got[2].max()) == 0:
+            fail(f"K8 {what}: no steps at all")
+    # a corrupted band: every pointer says "gap in seq1", so each walk whose
+    # band starts past column 0 at row n runs left out of it
+    pk = banded.pack(narrow, 128, blosum.shape[0])
+    tab = torch.from_numpy(blosum).to(dev)
+    c1, c2, n, m = (torch.from_numpy(a).to(dev)
+                    for a in (pk.codes1, pk.codes2, pk.n, pk.m))
+    tb, st = banded.fill_banded(banded.banded_scores(tab, c1, c2, n, m,
+                                                     W=pk.W), n, m,
+                                mode=GLOBAL, og=-10.0, eg=-0.5)
+    bad = torch.full_like(tb, 0x15)
+    start = torch.from_numpy(banded.walk_starts(st.cpu().numpy(), pk,
+                                                GLOBAL)[0]).to(dev)
+    off = torch.from_numpy(pk.offs).to(dev)
+    wk = dict(local=False, L=banded.path_len(pk))
+    flags = banded.walk_banded_device(bad, off, start, m, **wk)[3]
+    rflags = banded.walk_banded_ref(bad, off, start, m, **wk)[3]
+    past0 = torch.from_numpy(pk.offs[np.arange(len(pk.n)), pk.n] > 0)
+    if not (bool(past0.any()) and bool((flags.cpu()[past0] & 2).all())
+            and torch.equal(flags, rflags)):
+        fail(f"corrupted band: flags {flags.tolist()} / plain "
+             f"{rflags.tolist()}, expected bit 1 where {past0.tolist()}")
+    real_fill = banded.fill_banded
+
+    def corrupted(*a, **k):
+        tb, st = real_fill(*a, **k)
+        return torch.full_like(tb, 0x15), st
+
+    banded.fill_banded = corrupted
+    try:
+        banded.align_banded_batch(narrow, blosum, mode=GLOBAL, og=-10.0,
+                                  eg=-0.5, band=128, device=dev)
+        fail("align_banded_batch on a corrupted band did not raise")
+    except banded.BandExceeded:
+        pass
+    finally:
+        banded.fill_banded = real_fill
+    say(f"phase 9 K6/K7/K8: {len(cases)} cases (3 modes x W in "
+        f"{sorted(widths)}, GLOBAL og=eg=0, LOCAL blosum62*0.5), "
+        f"{len(pairs)} pairs of up to 2048 a side: every score, every "
+        "pointer byte of rows i <= n, stats, indices, counts and flags equal "
+        "to the plain versions; a corrupted band sets flag bit 1 in both "
+        "walks and align_banded_batch raises BandExceeded; summed ms kernel "
+        "/ plain: " + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
+                                for k, v in sums.items()) + f"; on {card}")
+    return sums
+
+
+def trimmed_core(a1: str, a2: str):
+    """A LOCAL alignment's columns without its terminal gap columns."""
+    core = list(zip(a1, a2))
+    while core and "-" in core[0]:
+        core.pop(0)
+    while core and "-" in core[-1]:
+        core.pop()
+    return core
+
+
+def phase10(dev, card, modes):
+    """Banded alignment at a real size: (a) 8 protein pairs of 12,000
+    residues through ``align_banded_batch`` in every mode, against the full
+    DP of the long route, then K6/K7/K8 beside their plain versions at
+    these shapes; (b) one 32,768-residue pair through the verified
+    ``Aligner.align_banded``.  Returns the kernels' records."""
+    import torch
+
+    from smithwaterman_tpu_torch import GLOBAL, GLOCAL, LOCAL, Aligner
+    from smithwaterman_tpu_torch import BatchAligner
+    from smithwaterman_tpu_torch.aligner import reconstruct_alignment
+    from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
+    from smithwaterman_tpu_torch.ops import (banded, device_walk, fill_dp,
+                                             longseq)
+    from smithwaterman_tpu_torch.utils.calc_score import recalc_score
+
+    def reset():
+        fill_dp.LAUNCHES = 0
+        device_walk.LAUNCHES = 0
+        longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
+        banded.LAUNCHES.update(K6=0, K7=0, K8=0)
+
+    def counts():
+        return {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES,
+                **longseq.LAUNCHES, **banded.LAUNCHES}
+
+    sm = SubstitutionMatrix.blosum62()
+    table = np.asarray(sm.table, np.float32)
+    og, eg = -10.0, -0.5
+    rng = np.random.default_rng(SEED)
+    pairs = [mutated_pair(BANDED_LEN, rng, LETTERS)
+             for _ in range(BANDED_PAIRS)]
+    codes = [(sm.seq_to_index(a), sm.seq_to_index(b)) for a, b in pairs]
+    launches = {"K6": 0, "K7": 0, "K8": 0}
+    for mode, mname in modes:
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = banded.align_banded_batch(codes, table, mode=mode, og=og, eg=eg,
+                                        band=BANDED_BAND, device=dev)
+        wall = time.perf_counter() - t0
+        c = counts()
+        if any(c[k] != 1 for k in launches) or any(
+                c[k] for k in ("K1", "K2", "K3", "K4", "K5")):
+            fail(f"phase 10 {mname}: launches {c}")
+        for k in launches:
+            launches[k] += c[k]
+        t0 = time.perf_counter()
+        full = BatchAligner(mode=mode, device=dev,
+                            longseq_cells=1).align_pairs(pairs)
+        t_full = time.perf_counter() - t0
+        same = 0
+        for k, ((a, b), (i1, i2, score, _), f) in enumerate(
+                zip(pairs, res, full)):
+            if score != f.score:
+                fail(f"phase 10 {mname} pair {k}: banded score {score}, "
+                     f"full DP {f.score}")
+            r = reconstruct_alignment(a, b, i1, i2, score, True, mode)
+            same += (r.aligned1, r.aligned2) == (f.aligned1, f.aligned2)
+            if rescore(r.aligned1, r.aligned2, sm, og, eg, mode, LOCAL,
+                       GLOCAL) != score:
+                fail(f"phase 10 {mname} pair {k}: does not re-score to "
+                     f"{score}")
+            if mode != LOCAL and (r.aligned1.replace("-", ""),
+                                  r.aligned2.replace("-", "")) != (a, b):
+                fail(f"phase 10 {mname} pair {k}: residues lost")
+        edges = sum(e for *_, e in res)
+        say(f"phase 10a {mname}: {BANDED_PAIRS} protein pairs of "
+            f"{BANDED_LEN} (m {[len(b) for _, b in pairs]}), band "
+            f"{BANDED_BAND}: align_banded_batch wall {wall:.4f} s, "
+            f"launches {json.dumps(c)}; every score equals the full DP's "
+            f"(long route, {t_full:.3f} s), {same} of {BANDED_PAIRS} "
+            f"alignment strings equal its strings, every alignment "
+            f"re-scores to its score; {edges} edge-touched; on {card}")
+
+    # where a LOCAL batch's time goes: one more call, the card synchronised
+    # between its stages
+    stages = {}
+    banded.align_banded_batch(codes, table, mode=LOCAL, og=og, eg=eg,
+                              band=BANDED_BAND, device=dev, timings=stages)
+    say("phase 10a local stages (align_banded_batch timings): "
+        + json.dumps(stages))
+
+    # K6, K7 and K8 at these shapes beside their plain versions (LOCAL)
+    pk = banded.pack(codes, BANDED_BAND, table.shape[0])
+    tab = torch.from_numpy(table).to(dev)
+    c1, c2, n, m = (torch.from_numpy(a).to(dev)
+                    for a in (pk.codes1, pk.codes2, pk.n, pk.m))
+    B, NP = pk.codes1.shape
+    W = pk.W
+    k6_ms, S = timed(lambda: banded.banded_scores(tab, c1, c2, n, m, W=W), 5)
+    k6_plain_ms, rS = event_ms(lambda: banded.banded_scores_ref(
+        tab, c1, c2, n, m, W=W))
+    k6_err = float((S - rS).abs().max())
+    del rS
+    # the library yardstick: one indexing expression over the codes, with
+    # the band's columns and mask (geometry, no codes) computed beforehand
+    cols = (banded.row_offsets(n, m, W, NP)[:, 1:, None]
+            + torch.arange(W, device=dev))
+    valid = cols < m.to(torch.int64)[:, None, None]
+    colc = torch.minimum(cols, (m.to(torch.int64) - 1)[:, None, None])
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    l1, l2 = c1.to(torch.int64), c2.to(torch.int64)
+    lib_ms, lS = timed(lambda: torch.where(
+        valid, tab[l1[:, :, None], l2[bidx, colc]], 0.0), 3)
+    if not torch.equal(lS, S):
+        fail("K6's library yardstick computes another function")
+    del lS, cols, valid, colc
+    kw = dict(mode=LOCAL, og=og, eg=eg)
+    banded.fill_banded(S, n, m, **kw)
+    k7_ms, (tb, st) = event_ms(lambda: banded.fill_banded(S, n, m, **kw))
+    k7_plain_ms, (rtb, rst) = event_ms(lambda: banded.fill_banded_ref(
+        S, n, m, **kw))
+    k7_err = float((st - rst).abs().max())
+    for b, x in enumerate(pk.n.tolist()):
+        k7_err = max(k7_err, float((tb[b, :x].int() - rtb[b, :x].int())
+                                   .abs().max()))
+    del rtb
+    start, _ = banded.walk_starts(st.cpu().numpy(), pk, LOCAL)
+    off, start = (torch.from_numpy(a).to(dev) for a in (pk.offs, start))
+    L = banded.path_len(pk)
+    wk = dict(local=True, L=L)
+    k8_ms, got = timed(lambda: banded.walk_banded_device(tb, off, start, m,
+                                                         **wk), 3)
+    k8_plain_ms, want = event_ms(lambda: banded.walk_banded_ref(
+        tb, off, start, m, **wk))
+    k8_err = max(float((g.long() - w.long()).abs().max())
+                 for g, w in zip(got, want))
+    if max(k6_err, k7_err, k8_err) != 0.0:
+        fail(f"phase 10 kernels against plain: max errors K6 {k6_err}, K7 "
+             f"{k7_err}, K8 {k8_err}")
+    steps = int(got[2].sum())
+    cells = int(pk.n.sum()) * W
+    code_bytes = int(pk.n.sum() + pk.m.sum())
+    k6_bound = bound(0, code_bytes + 4 * B * NP * W)
+    k7_bound = bound(BANDED_CELL_OPS * cells, 5 * cells + 32 * B)
+    k8_bound = bound(STEP_OPS * steps, 8 * B * L + 5 * steps + 28 * B)
+    say(f"phase 10a kernels at these shapes ({B} pairs, NP={NP}, W={W}, "
+        f"LOCAL) on {card}: K6 {k6_ms:.4f} ms vs plain {k6_plain_ms:.3f} ms "
+        f"vs one indexing expression {lib_ms:.4f} ms, bound "
+        f"{k6_bound[0]:.4f} ms; K7 {k7_ms:.3f} ms ({cells} band cells, "
+        f"{k7_ms * 1e6 / NP:.1f} ns a row) vs plain {k7_plain_ms:.3f} ms, "
+        f"bound {k7_bound[0]:.4f} ms; K8 {k8_ms:.4f} ms ({steps} steps) vs "
+        f"plain {k8_plain_ms:.3f} ms, bound {k8_bound[0]:.6f} ms; all equal "
+        "to the plain versions")
+    del S, tb, got, want
+
+    # (b) the giant pair, LOCAL, through the verified Aligner
+    s1, s2 = mutated_pair(GIANT_LEN, np.random.default_rng(SEED), LETTERS)
+    al = Aligner(mode=LOCAL, device=dev)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = al.align_banded(s1, s2, band=GIANT_BAND)
+    cold = time.perf_counter() - t0
+    gcounts = counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r2 = al.align_banded(s1, s2, band=GIANT_BAND)
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    a, b = sm.seq_to_index(s1), sm.seq_to_index(s2)
+    *_, vscore, band_used = banded.align_banded_verified(
+        a, b, table, mode=LOCAL, og=og, eg=eg, band=GIANT_BAND, device=dev)
+    if (r2.aligned1, r2.aligned2, r2.score) != (r.aligned1, r.aligned2,
+                                                r.score) or vscore != r.score:
+        fail("phase 10b: repeated banded alignments differ")
+    if band_used > 2 * GIANT_BAND:
+        fail(f"phase 10b: verified only at band {band_used}")
+    t0 = time.perf_counter()
+    full = BatchAligner(mode=LOCAL, device=dev,
+                        longseq_cells=1).align_pairs([(s1, s2)])[0]
+    t_full = time.perf_counter() - t0
+    if full.score != r.score:
+        fail(f"phase 10b: banded score {r.score}, full DP {full.score}")
+    core = trimmed_core(r.aligned1, r.aligned2)
+    rc = recalc_score("".join(x for x, _ in core),
+                      "".join(y for _, y in core), sm, -og, -eg)
+    ident = sum(x == y for x, y in core) / max(len(core), 1)
+    if rc != r.score or ident < 0.85:
+        fail(f"phase 10b: recalc_score {rc} vs {r.score}, identity "
+             f"{ident:.4f}")
+    probes = {w: banded.phase_probe(a, b, table, mode=LOCAL, og=og, eg=eg,
+                                    band=w, device=dev)
+              for w in sorted({GIANT_BAND, band_used})}
+    say(f"phase 10b: {len(s1)} x {len(s2)} protein pair, LOCAL, verified "
+        f"Aligner.align_banded(band={GIANT_BAND}): score {r.score} equal to "
+        f"the full DP's (long route, {t_full:.3f} s; strings "
+        f"{'equal' if (r.aligned1, r.aligned2) == (full.aligned1, full.aligned2) else 'differ'}"
+        f"), band_used {band_used}, recalc_score of the trimmed strings "
+        f"{rc}, identity {ident:.4f}; cold wall {cold:.4f} s (launches "
+        f"{json.dumps(gcounts)}), warm wall {warm:.4f} s, peak device memory "
+        f"{peak / 1e9:.3f} GB; phase_probe " + json.dumps(
+            {str(w): p for w, p in probes.items()}) + f"; on {card}")
+
+    out = []
+    for name, src, repl, k, err, ms, pms, bd, lib in (
+            ("K6 banded scores", "banded_scores.cu",
+             "smithwaterman_tpu/ops/banded.py:585", "K6", k6_err, k6_ms,
+             k6_plain_ms, k6_bound, lib_ms),
+            ("K7 banded fill", "banded_fill.cu",
+             "smithwaterman_tpu/ops/banded.py:286", "K7", k7_err, k7_ms,
+             k7_plain_ms, k7_bound, None),
+            ("K8 banded walk", "banded_walk.cu",
+             "smithwaterman_tpu/ops/banded.py:413", "K8", k8_err, k8_ms,
+             k8_plain_ms, k8_bound, None)):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"smithwaterman_tpu_torch/csrc/{src}",
+            "replaces": repl, "launches": launches[k], "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": bd[0], "bound_by": bd[1],
+            "library_ms": lib})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -194,6 +634,7 @@ def main() -> int:
                                              kernels, longseq, native)
     from smithwaterman_tpu_torch.utils.calc_score import recalc_score
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     modes = [(LOCAL, "local"), (GLOCAL, "glocal"), (GLOBAL, "global")]
 
@@ -318,6 +759,7 @@ def main() -> int:
             fail(f"K2 {name} {mname}: no moves at all")
     say(f"phase 4 K2: {len(walk_inputs)} walks equal to the plain walk "
         "(counts and every move byte)")
+    say(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phase 5: the main path at a size users run
     pairs = main_path_pairs()
@@ -386,16 +828,6 @@ def main() -> int:
     L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in
             (ch.shape for ch in chunks))
 
-    def timed(fn, reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps, out
-
     main_err = {"K1": 0.0, "K2": 0.0}
     times = {}
     walk_steps = {}
@@ -404,13 +836,19 @@ def main() -> int:
         args = dict(mode=mode, og=-10.0, eg=-0.5)
         fill_dp.fill_many(tab, chunks, **args)
         k1_ms, got = timed(lambda: fill_dp.fill_many(tab, chunks, **args), 3)
+        # LOCAL, the mode recorded below, against the plain fill on every
+        # chunk; GLOCAL and GLOBAL at a cut depth, on every third chunk (the
+        # plain fill is host-bound: ~18 s a mode on all 25)
+        step = 1 if mode == LOCAL else 3
+        cgot = got if step == 1 else fill_dp.fill_many(tab, chunks[::step],
+                                                       **args)
         k1_plain_ms, ref = timed(
-            lambda: fill_dp.fill_many_ref(tab, chunks, **args), 1)
-        err, bad = fill_err(got, ref, masks)
-        if err != 0.0 or bad or not torch.equal(got.stats, ref.stats):
+            lambda: fill_dp.fill_many_ref(tab, chunks[::step], **args), 1)
+        err, bad = fill_err(cgot, ref, masks[::step])
+        if err != 0.0 or bad or not torch.equal(cgot.stats, ref.stats):
             fail(f"K1 at the main path's shapes, {mname}: max stats/tb "
                  f"error {err}, {bad} pointer bytes differ")
-        del ref
+        del ref, cgot
         def walk():
             return device_walk.walk_packed(got.tb, got.desc, got.stats,
                                            mode=mode, L=L)
@@ -428,7 +866,8 @@ def main() -> int:
         walk_steps[mname] = int(out[0].sum())
         times[mname] = (k1_ms, k1_plain_ms, k2_ms, k2_plain_ms)
         say(f"phase 5 kernels {mname} at the main path's shapes ({PAIRS} "
-            f"pairs, {len(chunks)} chunks, L={L}) on {card}: every pointer "
+            f"pairs, {len(chunks)} chunks, L={L}; K1 against the plain fill "
+            f"on {len(chunks[::step])} chunks) on {card}: every pointer "
             f"byte, stat, count and move equal to the plain versions; K1 "
             f"{k1_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms; K2 {k2_ms:.3f} "
             f"ms vs plain {k2_plain_ms:.3f} ms")
@@ -459,18 +898,9 @@ def main() -> int:
          "bound_by": k2_bound[1], "library_ms": None},
     ]
     del chunks, masks
+    say(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phase 6: K3, K4, K5 against their plain versions
-    def event_ms(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end), out
-
     def ckpt_err(got, ref, n, m, C):
         """Largest |difference| of stats and of checkpoint values inside
         every pair's true region (rows (k+1)*C <= n, columns < m)."""
@@ -501,18 +931,18 @@ def main() -> int:
                    for x, y in zip(a, b))
 
     rng6 = np.random.default_rng(SEED + 6)
-    B6, NP6 = 8, 2048
+    B6, NP6 = 8, 1024
     c1 = rng6.integers(0, 20, size=(B6, NP6)).astype(np.uint8)
     c2 = rng6.integers(0, 20, size=(B6, NP6)).astype(np.uint8)
     n6 = rng6.integers(1, NP6 + 1, size=B6).astype(np.int32)
     m6 = rng6.integers(1, NP6 + 1, size=B6).astype(np.int32)
     n6[:3], m6[:3] = (1, NP6, NP6), (NP6, 1, NP6)
     motif = c1[3, :100].copy()  # repeated down seq1: tied LOCAL maxima
-    for r in range(200, 1500, 260):
+    for r in range(150, 900, 190):
         c1[3, r:r + 100] = motif
-    c2[3, 400:500] = motif
-    n6[3], m6[3] = 1600, 1100
-    c2[4, 100:1000] = c1[4, 300:1200]  # a long shared stretch
+    c2[3, 300:400] = motif
+    n6[3], m6[3] = 1000, 700
+    c2[4, 100:700] = c1[4, 300:900]  # a long shared stretch
     ch6 = batch.Chunk(c1, c2, n6, m6)
     t1, t2, tn, tm = (torch.from_numpy(a).to(dev) for a in ch6)
     tab = torch.from_numpy(blosum).to(dev)
@@ -567,6 +997,7 @@ def main() -> int:
         "and moves equal to the plain versions; summed ms kernel / plain: "
         + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in p6.items()))
     del got, ref, band, rband
+    say(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phase 7: the long route against the ordinary route
     rng7 = np.random.default_rng(SEED + 7)
@@ -603,9 +1034,12 @@ def main() -> int:
             f"{t_long:.3f} s (launches {json.dumps(longseq.LAUNCHES)}) vs "
             f"ordinary {t_ord:.3f} s: every field equal")
 
+    say(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- phase 8: the long route at a real size
     rng8 = np.random.default_rng(SEED)
-    pairs8 = [make_dna_pair(DNA_LEN, rng8) for _ in range(DNA_PAIRS)]
+    pairs8 = [mutated_pair(DNA_LEN, rng8, "ACGT")
+              for _ in range(DNA_PAIRS)]
     dna = SubstitutionMatrix.match_mismatch(5.0, -4.0)
     cells8 = sum(len(a) * len(b) for a, b in pairs8)
     full_tb = sum(bucket_len(len(a)) * bucket_len(len(b)) for a, b in pairs8)
@@ -664,41 +1098,41 @@ def main() -> int:
             f"launches {json.dumps(counts)}; every alignment re-scores to "
             f"its score; on {card}")
 
-    # K3, K4, K5 at phase 8's shapes beside their plain versions: K3 in
-    # LOCAL (the argmax over every band), K4 and K5 in GLOBAL on the first
-    # full band the walks cross (every walk starts at (n, m))
+    # K3 beside its plain version at a cut depth, 4 DNA pairs of 16 kb (the
+    # plain fill runs ~60 launches a row: at 70 kb it took 65-89 s), in
+    # LOCAL (the argmax over every band); K4 and K5 at phase 8's own shapes
+    # in GLOBAL, on the first full band the walks cross (every walk starts
+    # at (n, m))
     sm8 = dna
-    bk8 = {}
-    for a, b in pairs8:
-        key = (bucket_len(len(a)), bucket_len(len(b)))
-        bk = bk8.setdefault(key, _Bucket(*key))
-        bk.indices.append(len(bk.indices))
-        bk.codes1.append(sm8.seq_to_index(a))
-        bk.codes2.append(sm8.seq_to_index(b))
-    if len(bk8) != 1:
-        fail(f"phase 8 pairs fell into {len(bk8)} buckets")
-    ch8 = next(iter(bk8.values())).chunk()
+    ch8 = one_chunk(pairs8, sm8)
     B8, NP8, MP8 = ch8.shape
     u1, u2, un, um = (torch.from_numpy(a).to(dev) for a in ch8)
     tab8 = torch.from_numpy(np.asarray(sm8.table, np.float32)).to(dev)
     C = longseq.DEFAULT_CKPT_ROWS
+    pairs8c = [mutated_pair(DNA_CMP_LEN, rng8, "ACGT")
+               for _ in range(DNA_PAIRS)]
+    ch8c = one_chunk(pairs8c, sm8)
+    v1, v2, vn, vm = (torch.from_numpy(a).to(dev) for a in ch8c)
     args = dict(mode=LOCAL, og=-10.0, eg=-0.5, C=C)
-    # a warm launch, which lasts seconds: the SM clock is read while it runs
-    longseq.fill_checkpointed(tab8, u1, u2, un, um, **args)
-    clock_mhz = sm_clock_mhz()
+    longseq.fill_checkpointed(tab8, v1, v2, vn, vm, **args)
     k3_ms, got = event_ms(lambda: longseq.fill_checkpointed(
-        tab8, u1, u2, un, um, **args))
+        tab8, v1, v2, vn, vm, **args))
     k3_plain_ms, ref = event_ms(lambda: longseq.fill_checkpointed_ref(
-        tab8, u1, u2, un, um, **args))
-    k3_err = ckpt_err(got, ref, ch8.n, ch8.m, C)
+        tab8, v1, v2, vn, vm, **args))
+    k3_err = ckpt_err(got, ref, ch8c.n, ch8c.m, C)
     if k3_err != 0.0:
-        fail(f"K3 at phase 8's shapes: max error {k3_err}")
-    del ref
-    ck_rows = sum((int(x) // C) * int(y) for x, y in zip(ch8.n, ch8.m))
-    k3_bound = bound(CELL_FLOPS[LOCAL] * cells8,
-                     sum(x + y for x, y in lengths) + 12 * ck_rows + 32 * B8)
+        fail(f"K3 at 16 kb: max error {k3_err}")
+    del got, ref
+    lengths8c = list(zip(ch8c.n.tolist(), ch8c.m.tolist()))
+    ck_rows = sum((x // C) * y for x, y in lengths8c)
+    k3_bound = bound(CELL_FLOPS[LOCAL] * sum(x * y for x, y in lengths8c),
+                     sum(x + y for x, y in lengths8c) + 12 * ck_rows
+                     + 32 * B8)
     args = dict(mode=GLOBAL, og=-10.0, eg=-0.5, C=C)
+    # K3 at phase 8's shapes lasts seconds: the SM clock is read while it
+    # runs
     st, ck = longseq.fill_checkpointed(tab8, u1, u2, un, um, **args)
+    clock_mhz = sm_clock_mhz()
     L8 = NP8 + MP8 + 2
     walk = longseq.walk_start(st, un, um, GLOBAL)
     cnt = torch.zeros(B8, dtype=torch.int32, device=dev)
@@ -739,17 +1173,18 @@ def main() -> int:
     k5_bound = bound(STEP_OPS * steps, steps + steps / 4 + 20 * B8)
     # wavefront steps of the slowest block (sw_band.cuh band_steps: m + rows
     # - 1 a band) and SM cycles per step at the clock read during K3
-    k3_steps = max(-(-int(x) // C) * (int(y) - 1) + int(x)
-                   for x, y in zip(ch8.n, ch8.m))
+    k3_steps = max(-(-x // C) * (y - 1) + x for x, y in lengths8c)
     k4_steps = max(int(y) + min(C, int(x) - sk * C) - 1
                    for x, y in zip(ch8.n, ch8.m))
     say(f"phase 8 kernels at the long route's shapes ({B8} pairs, "
-        f"{NP8}x{MP8}, C={C}) on {card}: K3 (LOCAL) {k3_ms:.3f} ms vs plain "
+        f"{NP8}x{MP8}, C={C}; K3 at {B8} pairs of {DNA_CMP_LEN} bp, "
+        f"{ch8c.shape[1]}x{ch8c.shape[2]}) on {card}: K3 (LOCAL) "
+        f"{k3_ms:.3f} ms vs plain "
         f"{k3_plain_ms:.3f} ms, bound {k3_bound[0]:.4f} ms; K4 (GLOBAL, band "
         f"{sk}) {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms, bound "
         f"{k4_bound[0]:.6f} ms; K5 (band {sk}, {steps} steps) {k5_ms:.3f} "
         f"ms vs plain {k5_plain_ms:.3f} ms, bound {k5_bound[0]:.6f} ms; "
-        "all equal to the plain versions; SM clock during K3 "
+        "all equal to the plain versions; SM clock during K3 at 70 kb "
         f"{clock_mhz:.0f} MHz: K3 {k3_steps} steps, "
         f"{k3_ms * 1e3 * clock_mhz / k3_steps:.1f} cycles a step; K4 "
         f"{k4_steps} steps, {k4_ms * 1e3 * clock_mhz / k4_steps:.1f} cycles "
@@ -772,6 +1207,15 @@ def main() -> int:
             "replaces": repl, "launches": launches8[k], "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": bd[0],
             "bound_by": bd[1], "library_ms": None})
+    say(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- phase 9: K6, K7, K8 against their plain versions
+    phase9(dev, card, modes)
+    say(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 10: banded alignment at a real size
+    records += phase10(dev, card, modes)
+    say(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}"
+        f" s on {card}")
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -246,11 +246,32 @@ class Aligner:
 
     def align_banded(self, s1, s2, band: int = 512, retain_all: bool = True,
                      verified: bool = True) -> AlignResult:
-        """Diagonal-banded alignment is not ported yet: it needs the banded
-        fill kernels (ROADMAP item 8, JAX ``ops/banded.py``)."""
-        raise NotImplementedError(
-            "banded alignment is not ported to the GPU package yet "
-            "(ROADMAP item 8: ops/banded.py and kernels B4/B5)")
+        """Diagonal-banded alignment (O(band) work per row) for long,
+        similar sequences, on the aligner's device (the kernels K6-K8 on a
+        card).  With ``verified`` (default) the band widens until two
+        widths agree, the standard banded-DP guard; without it the result
+        is the in-band optimum (a heuristic).  See ``ops/banded.py``."""
+        from .ops import banded as banded_ops
+
+        s1 = _as_seqdata(s1)
+        s2 = _as_seqdata(s2)
+        if self.perl_compat:
+            s1 = _perl_compat_seq(s1)
+            s2 = _perl_compat_seq(s2)
+        codes1 = self.scoring_matrix.seq_to_index(s1.seq)
+        codes2 = self.scoring_matrix.seq_to_index(s2.seq)
+        if len(codes1) == 0 or len(codes2) == 0:
+            return self._degenerate(s1, s2, len(codes1), len(codes2),
+                                    retain_all, False)
+        fn = (banded_ops.align_banded_verified if verified
+              else banded_ops.align_banded)
+        idx1, idx2, score, _ = fn(
+            codes1, codes2, np.asarray(self.scoring_matrix.table, np.float32),
+            mode=self.mode, og=self.config.og, eg=self.config.eg, band=band,
+            device=self.device,
+        )
+        return reconstruct_alignment(s1.seq, s2.seq, idx1, idx2, score,
+                                     retain_all, self.mode)
 
     def align_files(self, path1: str, path2: str, retain_all: bool = True):
         """All-vs-all over two FASTA files (parity with the Python engine's

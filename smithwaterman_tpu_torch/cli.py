@@ -14,19 +14,21 @@ Usage:
       [-coverage_short X] [-coverage_long X] -out out.fas in.fas
 
 The port of ``smithwaterman_tpu.cli``: byte-identical output.  Alignment
-batches run through BatchAligner (the CUDA kernels on a card, their plain
-PyTorch versions on the CPU).  ``-band`` is parsed but not ported yet.
+batches run through BatchAligner, ``-band W`` pairs through
+``Aligner.align_banded`` (the CUDA kernels on a card, their plain PyTorch
+versions on the CPU).
 """
 
 from __future__ import annotations
 
 import sys
+import time
 from dataclasses import dataclass
 from typing import List, Optional, TextIO, Tuple
 
 from .batch_aligner import BatchAligner
 from .cluster import greedy_cluster, write_cluster_outputs
-from .config import GLOBAL, GLOCAL, LOCAL, MODE_MESSAGES
+from .config import GLOBAL, GLOCAL, LOCAL, MODE_MESSAGES, bucket_len
 from .io.fasta import load_fasta
 
 USAGE = """usage: sa_opencl [(-global|-glocal|-local(default))] <infile1 (fasta file)>  <infile2 (fasta file)>
@@ -54,8 +56,8 @@ class AlignmentOptions:
     blosum62|dna|<file>``, ``-match``/``-mismatch`` for the dna matrix
     (defaults 4/-1 per SmithWaterman.html:62-69), ``-stats`` (per-bucket
     observability report on stderr), ``-perl_compat`` (the Perl engine's
-    input rewrite), and ``-band W`` (banded alignment, not ported yet:
-    it raises ``NotImplementedError``)."""
+    input rewrite), and ``-band W`` (verified banded alignment of band W,
+    ``Aligner.align_banded``)."""
 
     alignment_type: int = LOCAL
     file1: str = ""
@@ -78,8 +80,7 @@ class AlignmentOptions:
     # -perl_compat: replicate the Perl engine's input rewrite (strip
     # non-letters, [BJOUXZa-z] -> X, smithwaterman.pl:94-99)
     perl_compat: bool = False
-    # -band W: diagonal-banded alignment (JAX package only so far; the
-    # port raises NotImplementedError)
+    # -band W: verified diagonal-banded alignment (Aligner.align_banded)
     band: int = 0
 
     @classmethod
@@ -214,22 +215,53 @@ def _emit(f: Optional[TextIO], score, mess, name1, r1, name2, r2) -> None:
         print(f">{name2}\n{r2}\n")
 
 
+def _banded_pair(banded, s1, s2, band: int, engine: BatchAligner):
+    """One ``-band`` pair through ``Aligner.align_banded``, recorded into the
+    engine's ``-stats`` collector as the JAX CLI records it: one bucket of
+    padded sizes, the full problem's n*m cells (the "effective GCUPS"
+    convention for banded DP) and the pair's wall time."""
+    t0 = time.time()
+    r = banded.align_banded(s1, s2, band=band)
+    if engine.stats is not None:
+        dt = time.time() - t0
+        ln, lm = len(s1.seq), len(s2.seq)
+        bs = engine.stats.bucket(bucket_len(ln, engine.config.buckets),
+                                 bucket_len(lm, engine.config.buckets))
+        bs.pairs += 1
+        bs.padded_pairs += 1
+        bs.true_cells += ln * lm
+        bs.padded_cells += ln * lm
+        bs.inflight_seconds += dt
+        engine.stats.run_seconds += dt
+    return r
+
+
 def run_pairfiles(opts: AlignmentOptions, engine: BatchAligner) -> None:
     mess = MODE_MESSAGES[opts.alignment_type]
     filelist = (
         read_pair_list(opts.file1) if opts.list else [(opts.file1, opts.file2)]
     )
+    banded = None
     if opts.band > 0:
-        raise NotImplementedError(
-            "-band is not ported to the GPU package yet (ROADMAP item 8: "
-            "ops/banded.py and kernels B4/B5)")
+        from .aligner import Aligner
+
+        banded = Aligner(
+            scoring_matrix=engine.scoring_matrix,
+            config=engine.config,
+            perl_compat=opts.perl_compat,
+            device=engine.device,
+        )
     out = open(opts.outfilename, "w") if opts.outfilename else None
     try:
         for file1, file2 in filelist:
             seq1 = load_fasta(file1)
             seq2 = load_fasta(file2)
             pairs = [(s1, s2) for s1 in seq1 for s2 in seq2]
-            results = engine.align_pairs(pairs, retain_all=True)
+            if banded is not None:
+                results = [_banded_pair(banded, s1, s2, opts.band, engine)
+                           for s1, s2 in pairs]
+            else:
+                results = engine.align_pairs(pairs, retain_all=True)
             k = 0
             for s1 in seq1:
                 for s2 in seq2:

@@ -1,19 +1,25 @@
 // Host twin of the GPU kernels K1 (fill.cu), K2 (walk.cu), K3 and K4
-// (longseq_fill.cu) and K5 (seg_walk.cu).
+// (longseq_fill.cu), K5 (seg_walk.cu), K7 (banded_fill.cu) and K8
+// (banded_walk.cu).
 //
 // It includes the kernels' own headers and runs them over a batch in the
 // kernels' loop order, one pair after another, with the same per-pair
 // descriptors and memory layout.  For K3 and K4 it runs the band
 // wavefront's per-thread functions (sw_band.cuh) for every thread of a
 // block at each step, where the card runs them in parallel with a barrier
-// after each step.  The tier-1 tests hold its outputs against the JAX
-// package (ops/scan_dp.py, ops/device_walk.py, ops/longseq.py), which is
-// the only check of the card's cell code that runs without a card.
+// after each step.  For K7 it runs each band row's phase A for every thread,
+// the block's prefix in thread order, then phase C for every thread
+// (sw_banded.cuh), where the card's threads wait for each other between
+// the phases.  The tier-1 tests hold its outputs against the JAX package
+// (ops/scan_dp.py, ops/device_walk.py, ops/longseq.py, ops/banded.py),
+// which is the only check of the card's cell code that runs without a
+// card.
 // Build: g++ -O2 -fPIC -std=c++17 -ffp-contract=off -c, then g++ -shared.
 #include <cstdint>
 #include <vector>
 
 #include "sw_band.cuh"
+#include "sw_banded.cuh"
 #include "sw_cell.cuh"
 #include "sw_walk.cuh"
 
@@ -127,6 +133,52 @@ void band_all(const float* table, int K, const uint8_t* codes1,
   }
 }
 
+// One pair's banded fill as a block of THREADS threads would run it.
+template <int MODE>
+void banded_pair(const float* S, int n, int m, int64_t NP, int W,
+                 float* scr, uint8_t* tb, float* stats, float og, float eg) {
+  namespace bd = sw::banded;
+  const bd::Geom g = bd::geom(n, m, W);
+  const sw::Pen p = sw::make_pen<MODE>(og, eg);
+  float* best = scr + 6 * (int64_t)W;
+  int32_t* best_i = reinterpret_cast<int32_t*>(scr + 7 * (int64_t)W);
+  for (int q = 0; q < sw::STATS_W; ++q) stats[q] = 0.0f;
+  for (int t = 0; t < bd::THREADS; ++t)
+    bd::init_lanes(t, g, p, bd::buf(scr, W, 0), best, best_i);
+  std::vector<float> own(bd::THREADS);
+  std::vector<bd::Left> left(bd::THREADS);
+  for (int i = 1; i <= n; ++i) {
+    const bd::Row r = bd::row_begin<MODE>(g, p, i, S + (i - 1) * (int64_t)W);
+    const bd::Buf up = bd::buf(scr, W, (i - 1) & 1);
+    const bd::Buf cur = bd::buf(scr, W, i & 1);
+    uint8_t* row_tb = tb + (int64_t)(i - 1) * W;
+    for (int t = 0; t < bd::THREADS; ++t)
+      own[t] = bd::phase_a<MODE>(t, g, p, r, up, cur, row_tb, &left[t]);
+    float excl = bd::BNEG;
+    for (int t = 0; t < bd::THREADS; ++t) {
+      bd::phase_c<MODE>(t, g, p, r, excl, left[t], cur, row_tb, best, best_i,
+                        stats + 3);
+      excl = sw::mx(excl, own[t]);
+    }
+  }
+  if (MODE == sw::LOCAL) {
+    std::vector<bd::LaneBest> bests;
+    for (int t = 0; t < bd::THREADS; ++t)
+      bests.push_back(bd::thread_best(t, g, best, best_i));
+    bd::finish_local(bests.data(), bd::THREADS, stats);
+  }
+}
+
+template <int MODE>
+void banded_all(const float* S, const int32_t* n, const int32_t* m,
+                int64_t B, int64_t NP, int W, float* scratch, uint8_t* tb,
+                float* stats, float og, float eg) {
+  for (int64_t b = 0; b < B; ++b)
+    banded_pair<MODE>(S + b * NP * W, n[b], m[b], NP, W,
+                      scratch + b * sw::banded::SCRATCH_ROWS * W,
+                      tb + b * NP * W, stats + b * sw::STATS_W, og, eg);
+}
+
 }  // namespace
 
 extern "C" {
@@ -226,6 +278,43 @@ int sw_twin_seg_walk(int local, const uint8_t* band, int64_t B, int64_t MP,
     sw::walk_segment(local != 0, band + b * sw::band_bytes(C, MP), C + 1, C,
                      sk * C, L, walk + b * 4, cnt + b, moves + b, B,
                      (L + 3) / 4);
+  return 0;
+}
+
+// Same arguments and layout as sw_banded_fill_launch (banded_fill.cu), host
+// pointers.  Returns 0, or 1 for an unknown mode or a width that is not a
+// multiple of THREADS.
+int sw_twin_banded_fill(int mode, const float* S, const int32_t* n,
+                        const int32_t* m, int64_t B, int64_t NP, int W,
+                        float* scratch, uint8_t* tb, float* stats, float og,
+                        float eg) {
+  if (W <= 0 || W % sw::banded::THREADS) return 1;
+  switch (mode) {
+    case sw::LOCAL:
+      banded_all<sw::LOCAL>(S, n, m, B, NP, W, scratch, tb, stats, og, eg);
+      return 0;
+    case sw::GLOCAL:
+      banded_all<sw::GLOCAL>(S, n, m, B, NP, W, scratch, tb, stats, og, eg);
+      return 0;
+    case sw::GLOBAL:
+      banded_all<sw::GLOBAL>(S, n, m, B, NP, W, scratch, tb, stats, og, eg);
+      return 0;
+    default:
+      return 1;
+  }
+}
+
+// Same arguments and layout as sw_banded_walk_launch (banded_walk.cu).
+int sw_twin_banded_walk(int local, const uint8_t* tb, const int32_t* off,
+                        const int32_t* start, const int32_t* m, int64_t B,
+                        int64_t NP, int W, int64_t L, int32_t* idx1,
+                        int32_t* idx2, int32_t* cnt, int32_t* flags) {
+  for (int64_t b = 0; b < B; ++b) {
+    for (int64_t q = 0; q < L; ++q) idx1[b * L + q] = idx2[b * L + q] = -2;
+    sw::banded::walk_pair(local != 0, tb + b * NP * W, off + b * (NP + 1),
+                          (int)NP, W, m[b], start + 4 * b, L, idx1 + b * L,
+                          idx2 + b * L, cnt + b, flags + b);
+  }
   return 0;
 }
 

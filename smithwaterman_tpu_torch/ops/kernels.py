@@ -1,19 +1,22 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 ``csrc/fill.cu`` (K1), ``csrc/walk.cu`` (K2), ``csrc/longseq_fill.cu``
-(K3, K4) and ``csrc/seg_walk.cu`` (K5) are compiled on first use with
+(K3, K4), ``csrc/seg_walk.cu`` (K5), ``csrc/banded_scores.cu`` (K6),
+``csrc/banded_fill.cu`` (K7) and ``csrc/banded_walk.cu`` (K8) are
+compiled on first use with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per source, all
 started together, and linked into one shared library with a plain C
 interface under the package's ``_build/`` directory, loaded with ctypes.
 No PyTorch header is compiled, so the build takes seconds.
 
 Every launch goes through one wrapper here (:func:`fill`, :func:`walk`,
-:func:`ckpt_fill`, :func:`band_fill`, :func:`seg_walk`), which checks the
-tensors the kernel takes, passes each pointer and the current stream as
-``c_void_p``, and raises when the C entry point reports a CUDA error.  The
-callers (``ops/fill_dp.py``, ``ops/device_walk.py``, ``ops/longseq.py``)
-count launches.  This module imports nothing CUDA-specific until a kernel
-is built.
+:func:`ckpt_fill`, :func:`band_fill`, :func:`seg_walk`,
+:func:`banded_scores`, :func:`banded_fill`, :func:`banded_walk`), which
+checks the tensors the kernel takes, passes each pointer and the current
+stream as ``c_void_p``, and raises when the C entry point reports a CUDA
+error.  The callers (``ops/fill_dp.py``, ``ops/device_walk.py``,
+``ops/longseq.py``, ``ops/banded.py``) count launches.  This module
+imports nothing CUDA-specific until a kernel is built.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from . import native
 
 KERNEL_SOURCES = tuple(
     os.path.join(native.CSRC, f)
-    for f in ("fill.cu", "walk.cu", "longseq_fill.cu", "seg_walk.cu")
+    for f in ("fill.cu", "walk.cu", "longseq_fill.cu", "seg_walk.cu",
+              "banded_scores.cu", "banded_fill.cu", "banded_walk.cu")
 )
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH + (
@@ -106,6 +110,18 @@ def lib() -> ctypes.CDLL:
     so.sw_seg_walk_launch.restype = i32
     so.sw_seg_walk_launch.argtypes = [
         i32, vp, i64, i64, i32, i32, i64, vp, vp, vp, vp,
+    ]
+    so.sw_banded_scores_launch.restype = i32
+    so.sw_banded_scores_launch.argtypes = [
+        vp, i32, vp, vp, vp, vp, i64, i64, i64, i32, vp, vp,
+    ]
+    so.sw_banded_fill_launch.restype = i32
+    so.sw_banded_fill_launch.argtypes = [
+        i32, vp, vp, vp, i64, i64, i32, vp, vp, vp, f32, f32, vp,
+    ]
+    so.sw_banded_walk_launch.restype = i32
+    so.sw_banded_walk_launch.argtypes = [
+        i32, vp, vp, vp, vp, i64, i64, i32, i64, vp, vp, vp, vp, vp,
     ]
     _LIB = so
     return so
@@ -266,3 +282,76 @@ def seg_walk(band, walk, cnt, moves, *, local: bool, C: int, sk: int,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K5 (segment walk)")
+
+
+def _check_lengths(B: int, dev, what: str, **lengths) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors, got {dev}")
+    for name, t in lengths.items():
+        _check(t, name, torch.int32, dev, (B,))
+
+
+def banded_scores(table, codes1, codes2, n, m, S, *, W: int) -> None:
+    """Launch K6 (csrc/banded_scores.cu) on the current stream; see
+    ops/banded.banded_scores."""
+    dev = table.device
+    B, NP = codes1.shape
+    MP = codes2.shape[1]
+    _check_lengths(B, dev, "K6", n=n, m=m)
+    K = _check_table(table, "K6")
+    _check(table, "table", torch.float32, dev)
+    _check(codes1, "codes1", torch.uint8, dev, (B, NP))
+    _check(codes2, "codes2", torch.uint8, dev, (B, MP))
+    _check(S, "S", torch.float32, dev, (B, NP, W))
+    with torch.cuda.device(dev):
+        rc = lib().sw_banded_scores_launch(
+            table.data_ptr(), K, codes1.data_ptr(), codes2.data_ptr(),
+            n.data_ptr(), m.data_ptr(), B, NP, MP, int(W), S.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "K6 (banded scores)")
+
+
+def banded_fill(S, n, m, scratch, tb, stats, *, mode: int, og: float,
+                eg: float) -> None:
+    """Launch K7 (csrc/banded_fill.cu) on the current stream; see
+    ops/banded.fill_banded."""
+    dev = S.device
+    B, NP, W = S.shape
+    _check_lengths(B, dev, "K7", n=n, m=m)
+    if W % 128:
+        raise NotImplementedError(
+            f"K7 runs 128 threads a pair: W must be a multiple of 128, got {W}")
+    _check(S, "S", torch.float32, dev)
+    _check(scratch, "scratch", torch.float32, dev, (B, 8, W))
+    _check(tb, "tb", torch.uint8, dev, (B, NP, W))
+    _check(stats, "stats", torch.float32, dev, (B, 8))
+    with torch.cuda.device(dev):
+        rc = lib().sw_banded_fill_launch(
+            int(mode), S.data_ptr(), n.data_ptr(), m.data_ptr(), B, NP,
+            int(W), scratch.data_ptr(), tb.data_ptr(), stats.data_ptr(),
+            float(og), float(eg), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "K7 (banded fill)")
+
+
+def banded_walk(tb, off, start, m, idx1, idx2, cnt, flags, *, local: bool,
+                L: int) -> None:
+    """Launch K8 (csrc/banded_walk.cu) on the current stream; see
+    ops/banded.walk_banded_device."""
+    dev = tb.device
+    B, NP, W = tb.shape
+    _check_lengths(B, dev, "K8", m=m, cnt=cnt, flags=flags)
+    _check(tb, "tb", torch.uint8, dev)
+    _check(off, "off", torch.int32, dev, (B, NP + 1))
+    _check(start, "start", torch.int32, dev, (B, 4))
+    for name, t in (("idx1", idx1), ("idx2", idx2)):
+        _check(t, name, torch.int32, dev, (B, L))
+    with torch.cuda.device(dev):
+        rc = lib().sw_banded_walk_launch(
+            1 if local else 0, tb.data_ptr(), off.data_ptr(),
+            start.data_ptr(), m.data_ptr(), B, NP, int(W), int(L),
+            idx1.data_ptr(), idx2.data_ptr(), cnt.data_ptr(),
+            flags.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "K8 (banded walk)")

@@ -7,8 +7,9 @@ Two libraries, each compiled with g++ on first use into the package's
   and ``csrc/reconstruct.cpp``, shared with the JAX package (which builds
   its own copy through ``csrc/Makefile``; this module does not use it);
 * the cell twin: ``csrc/cell_twin.cpp`` of this package, which runs the
-  GPU kernels' own headers (``sw_cell.cuh``, ``sw_walk.cuh``) on the host
-  so the tier-1 tests check the code the card runs.
+  GPU kernels' own headers (``sw_cell.cuh``, ``sw_walk.cuh``,
+  ``sw_band.cuh``, ``sw_banded.cuh``) on the host so the tier-1 tests
+  check the code the card runs.
 
 Every library (these two and the CUDA kernels of ``ops/kernels.py``) is
 built by :func:`build_shared`: one compiler process per source, all
@@ -111,6 +112,10 @@ def host_lib() -> ctypes.CDLL:
     for fn in (lib.sw_traceback, lib.sw_traceback_tiled):
         fn.restype = i64
         fn.argtypes = [pu8, i64, i64, i64, i64, i64, pi64, pi64, i64]
+    lib.sw_walk_banded.restype = i64
+    lib.sw_walk_banded.argtypes = [
+        pu8, i64, pi32, i64, i64, i64, i64, i64, pi64, pi64, i64, pi64,
+    ]
     lib.sw_reconstruct_moves.restype = i64
     lib.sw_reconstruct_moves.argtypes = [
         pu8, i64, i64,          # moves, row_stride, n_rows
@@ -169,6 +174,14 @@ def twin_lib() -> ctypes.CDLL:
     lib.sw_twin_seg_walk.restype = i32
     lib.sw_twin_seg_walk.argtypes = [
         i32, vp, i64, i64, i32, i32, i64, vp, vp, vp,
+    ]
+    lib.sw_twin_banded_fill.restype = i32
+    lib.sw_twin_banded_fill.argtypes = [
+        i32, vp, vp, vp, i64, i64, i32, vp, vp, vp, f32, f32,
+    ]
+    lib.sw_twin_banded_walk.restype = i32
+    lib.sw_twin_banded_walk.argtypes = [
+        i32, vp, vp, vp, vp, i64, i64, i32, i64, vp, vp, vp, vp,
     ]
     _LIBS["twin"] = lib
     return lib

@@ -4,8 +4,10 @@ The counterpart of ``smithwaterman_tpu/ops/traceback.py``: the single-pair
 ``Aligner`` walks the full pointer matrix of ``scan_dp.fill`` (boundary row
 and column included) on the host, through the shared C++ walker
 ``csrc/traceback.cpp``; the tests also use it as an oracle independent of
-the device walk.  Pointer bytes: prev-state of M in bits 0-1, of X in bits
-2-3, of Y in bits 4-5 (3 = LOCAL "score is zero, stop here").
+the device walk, and :func:`native_walk_banded` walks one pair's band of
+pointers (``ops/banded.walk_banded``).  Pointer bytes: prev-state of M in
+bits 0-1, of X in bits 2-3, of Y in bits 4-5 (3 = LOCAL "score is zero,
+stop here").
 
 Loop semantics parity: sequence_alignment.rs:349-386.
 """
@@ -99,3 +101,37 @@ def walk(tb: np.ndarray, si: int, sj: int, state: int,
     if count < 0:
         raise RuntimeError(f"corrupt pointer matrix (walk status {count})")
     return o1[:count][::-1].tolist(), o2[:count][::-1].tolist()
+
+
+def native_walk_banded(tb: np.ndarray, off: np.ndarray, si: int, sj: int,
+                       state: int, local: bool, W: int, m: int):
+    """Walk one pair's (NP, W) band of pointer bytes from (si, sj, state)
+    with the shared C++ walker ``sw_walk_banded``; ``off`` holds the
+    (NP + 1) band offsets.  Returns (idx1, idx2, edge_touched) with
+    ``ops/banded.walk_banded``'s contract, ``("exceeded",)`` when the path
+    leaves the band, or None when the walker gives up (out of capacity or
+    a corrupt pointer) and the Python walk should report it."""
+    tbc = np.ascontiguousarray(tb, dtype=np.uint8)
+    offc = np.ascontiguousarray(off, dtype=np.int32)
+    if (tbc.ndim != 2 or tbc.shape[1] != W or not 0 <= si <= tbc.shape[0]
+            or offc.shape != (tbc.shape[0] + 1,)):
+        raise ValueError(f"band {tbc.shape} and offsets {offc.shape} do not "
+                         f"fit W={W} and start row {si}")
+    lib = native.host_lib()
+    cap = int(si + sj + 2)
+    o1 = np.empty(cap, dtype=np.int64)
+    o2 = np.empty(cap, dtype=np.int64)
+    edge = np.zeros(1, dtype=np.int64)
+    count = lib.sw_walk_banded(
+        tbc.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), W,
+        offc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        si, sj, state, 1 if local else 0, m,
+        o1.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        o2.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), cap,
+        edge.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    if count == -2:
+        return ("exceeded",)
+    if count < 0:
+        return None
+    return o1[:count][::-1].tolist(), o2[:count][::-1].tolist(), bool(edge[0])

@@ -1,0 +1,352 @@
+"""The port's banded alignment against the JAX package's, exactly.
+
+Three implementations of the port are held against
+``smithwaterman_tpu/ops/banded.py`` on the same seeded numpy inputs, the
+JAX Pallas kernels in ``interpret=True`` as ``tests/test_banded.py`` runs
+them:
+
+* the plain versions in ``smithwaterman_tpu_torch/ops/banded.py``
+  (``banded_scores_ref``, ``fill_banded_ref``, ``walk_banded_ref``) against
+  ``_banded_scores`` / ``_banded_scores_pallas``, ``fill_banded`` and
+  ``_walk_banded_device``;
+* the host twin of kernels K7 and K8 (``csrc/cell_twin.cpp``, which runs
+  the kernels' own header ``sw_banded.cuh``, every thread of a block in
+  turn between the block's waits) against the same;
+* the entry points on the CPU (``align_banded_batch``,
+  ``align_banded_verified``, ``Aligner(device="cpu").align_banded``) and
+  the host walk ``walk_banded`` against JAX's.
+
+Tolerance: exact equality of every score value, of every pointer byte in
+each pair's true band rows (i <= n), of stats, walk indices, counts and
+flags; strings and scores exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import smithwaterman_tpu as jswt
+from smithwaterman_tpu.matrices import SubstitutionMatrix as JaxSM
+from smithwaterman_tpu.ops import banded as jb
+from smithwaterman_tpu_torch import Aligner
+from smithwaterman_tpu_torch.config import GLOBAL, GLOCAL, LOCAL
+from smithwaterman_tpu_torch.ops import banded, native, traceback
+
+MODES = [LOCAL, GLOCAL, GLOBAL]
+OG, EG = -10.0, -0.5
+TABLE = np.asarray(JaxSM.blosum62().table, np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _pairs(seed, ns, ms, K=20, similar=True):
+    """Pairs of the given lengths; ``similar`` makes each seq2 a shifted,
+    mutated copy of seq1 (the workload banded mode is for)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, m in zip(ns, ms):
+        base = rng.integers(0, K, size=n + m + 10).astype(np.int32)
+        c1 = base[:n].copy()
+        c2 = (base[3:3 + m].copy() if similar
+              else rng.integers(0, K, size=m).astype(np.int32))
+        mut = rng.integers(0, m, size=max(1, m // 10))
+        c2[mut] = rng.integers(0, K, size=len(mut))
+        out.append((c1, c2))
+    return out
+
+
+def _tied_pairs(seed):
+    """Two-letter pairs with a motif repeated down seq1: LOCAL maxima tie
+    across rows and lanes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, m in ((150, 120), (131, 140), (97, 100), (64, 61), (33, 90),
+                 (120, 40), (8, 10), (1, 1)):
+        c1 = rng.choice([0, 2], size=n).astype(np.int32)
+        c2 = rng.choice([0, 2], size=m).astype(np.int32)
+        motif = rng.choice([0, 2], size=6)
+        for r in range(2, n - 6, 23):
+            c1[r:r + 6] = motif
+        if m > 20:
+            c2[10:16] = motif
+        out.append((c1, c2))
+    return out
+
+
+# (name, pairs, band, table, og, eg): ragged lengths and both signs of
+# m - n, a band as wide as every seq2 (offsets all 0), og = eg = 0, a
+# non-integer table, and tied maxima
+RAGGED = ([150, 1, 200, 37, 120, 90, 64, 180],
+          [170, 60, 150, 1, 140, 180, 64, 200])
+CASES = {
+    "ragged": (lambda: _pairs(1, *RAGGED), 128, TABLE, OG, EG),
+    "wide": (lambda: _pairs(2, [90, 120, 60, 30, 100, 110, 5, 80],
+                            [100, 128, 70, 44, 90, 128, 9, 60]),
+             256, TABLE, OG, EG),
+    "og=eg=0": (lambda: _pairs(3, *RAGGED, similar=False), 128, TABLE,
+                0.0, 0.0),
+    "table*0.5": (lambda: _pairs(4, *RAGGED), 128, TABLE * np.float32(0.5),
+                  OG, EG),
+    "ties": (lambda: _tied_pairs(5), 128,
+             np.asarray(JaxSM.match_mismatch(5.0, -4.0).table, np.float32),
+             OG, EG),
+}
+
+
+def _packed(case):
+    make, band, table, og, eg = CASES[case]
+    return banded.pack(make(), band, table.shape[0]), table, og, eg
+
+
+def _S(pk, table):
+    return banded.banded_scores_ref(_t(table), _t(pk.codes1), _t(pk.codes2),
+                                    _t(pk.n), _t(pk.m), W=pk.W)
+
+
+def _jax_fill(S, pk, mode, og, eg):
+    tb, stats = jb.fill_banded(
+        jnp.asarray(S.numpy().transpose(1, 0, 2)),
+        jnp.asarray(pk.n[:, None]), jnp.asarray(pk.m[:, None]),
+        mode=mode, og=og, eg=eg, interpret=True)
+    return np.asarray(tb).transpose(1, 0, 2), np.asarray(stats)
+
+
+def _twin_fill(S, pk, mode, og, eg):
+    S = np.ascontiguousarray(S.numpy())
+    B, NP, W = S.shape
+    scratch = np.zeros((B, 8, W), np.float32)
+    tb = np.zeros((B, NP, W), np.uint8)
+    stats = np.full((B, 8), 7.0, np.float32)
+    rc = native.twin_lib().sw_twin_banded_fill(
+        mode, S.ctypes.data, pk.n.ctypes.data, pk.m.ctypes.data, B, NP, W,
+        scratch.ctypes.data, tb.ctypes.data, stats.ctypes.data, og, eg)
+    assert rc == 0
+    return tb, stats
+
+
+def _assert_tb_equal(got, want, pk, what):
+    for b in range(len(pk.n)):
+        n = int(pk.n[b])
+        np.testing.assert_array_equal(got[b, :n], want[b, :n],
+                                      err_msg=f"{what}: pair {b}")
+
+
+# ------------------------------------------------------------ geometry
+def test_band_offsets_match_jax():
+    for n, m, W in ((100, 120, 64), (100, 80, 64), (7, 300, 296),
+                    (1, 1, 128), (50, 50, 50), (3000, 3100, 512)):
+        np.testing.assert_array_equal(banded.band_offsets(n, m, W),
+                                      jb.band_offsets(n, m, W))
+    for f in (banded.band_offsets, jb.band_offsets):
+        with pytest.raises(ValueError):
+            f(10, 200, 64)
+    pk = banded.pack(_pairs(6, *RAGGED), 128, 24)
+    off = banded.row_offsets(_t(pk.n), _t(pk.m), pk.W, pk.codes1.shape[1])
+    np.testing.assert_array_equal(off.numpy(), pk.offs)
+    with pytest.raises(ValueError, match="int32"):
+        banded.pack([(np.zeros(50000, np.int32), np.zeros(100000, np.int32))],
+                    128, 24)
+
+
+@pytest.mark.parametrize("band", [128, 256])
+def test_banded_scores_ref_matches_jax(band):
+    pk = banded.pack(_pairs(7, *RAGGED), band, TABLE.shape[0])
+    S = _S(pk, TABLE).numpy()
+    NP = pk.codes1.shape[1]
+    Mpad = -(-int(pk.m.max()) // 128) * 128 + 128
+    c2 = np.zeros((8, Mpad), np.int32)
+    c2[:, :pk.codes2.shape[1]] = pk.codes2
+    nm = np.stack([pk.n, pk.m], axis=1).astype(np.int32)
+    fast = np.asarray(jb._banded_scores_pallas(
+        jnp.asarray(pk.codes1.astype(np.int32)), jnp.asarray(c2),
+        jnp.asarray(TABLE), jnp.asarray(nm), W=pk.W, interpret=True))
+    ref = np.asarray(jb._banded_scores(
+        jnp.asarray(pk.codes1.astype(np.int32)),
+        jnp.asarray(pk.codes2.astype(np.int32)), jnp.asarray(TABLE),
+        jnp.asarray(pk.offs[:, 1:NP + 1]), jnp.asarray(pk.m), W=pk.W))
+    np.testing.assert_array_equal(S, fast.transpose(1, 0, 2))
+    np.testing.assert_array_equal(S, ref)
+
+
+# ------------------------------------------------------------ fill
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("mode", MODES)
+def test_fill_banded_matches_jax(mode, case):
+    """The plain fill and the K7 twin against the Pallas kernel: stats and
+    every pointer byte of each pair's rows i <= n."""
+    pk, table, og, eg = _packed(case)
+    S = _S(pk, table)
+    jtb, jst = _jax_fill(S, pk, mode, og, eg)
+    tb, st = banded.fill_banded_ref(S, _t(pk.n), _t(pk.m), mode=mode, og=og,
+                                    eg=eg)
+    np.testing.assert_array_equal(st.numpy(), jst)
+    np.testing.assert_array_equal(tb.numpy(), jtb)
+    ttb, tst = _twin_fill(S, pk, mode, og, eg)
+    np.testing.assert_array_equal(tst, jst)
+    _assert_tb_equal(ttb, jtb, pk, f"twin {case}")
+
+
+# ------------------------------------------------------------ walk
+def _jax_walk(tb, pk, start, mode, L):
+    i1, i2, cnt, flags = jb._walk_banded_device(
+        jnp.asarray(tb.transpose(1, 0, 2)), jnp.asarray(pk.offs),
+        jnp.asarray(start[:, 0]), jnp.asarray(start[:, 1]),
+        jnp.asarray(start[:, 2]), jnp.asarray(pk.m),
+        jnp.asarray(start[:, 3] != 0), W=pk.W, local=mode == LOCAL, L=L)
+    return tuple(np.asarray(a) for a in (i1, i2, cnt, flags))
+
+
+def _twin_walk(tb, pk, start, mode, L):
+    B, NP, W = tb.shape
+    tb = np.ascontiguousarray(tb)
+    start = np.ascontiguousarray(start, np.int32)
+    i1 = np.zeros((B, L), np.int32)
+    i2 = np.zeros((B, L), np.int32)
+    cnt = np.zeros(B, np.int32)
+    flags = np.zeros(B, np.int32)
+    rc = native.twin_lib().sw_twin_banded_walk(
+        1 if mode == LOCAL else 0, tb.ctypes.data, pk.offs.ctypes.data,
+        start.ctypes.data, pk.m.ctypes.data, B, NP, W, L, i1.ctypes.data,
+        i2.ctypes.data, cnt.ctypes.data, flags.ctypes.data)
+    assert rc == 0
+    return i1, i2, cnt, flags
+
+
+def _walks_agree(tb, pk, start, mode, L):
+    """JAX's walk, the plain walk and the K8 twin on the same band; returns
+    JAX's."""
+    want = _jax_walk(tb, pk, start, mode, L)
+    ref = banded.walk_banded_ref(_t(tb), _t(pk.offs), _t(start), _t(pk.m),
+                                 local=mode == LOCAL, L=L)
+    for name, got in (("plain", [a.numpy() for a in ref]),
+                      ("twin", _twin_walk(tb, pk, start, mode, L))):
+        for a, w, what in zip(got, want, ("idx1", "idx2", "cnt", "flags")):
+            np.testing.assert_array_equal(a, w, err_msg=f"{name} {what}")
+    return want
+
+
+@pytest.mark.parametrize("case", ["ragged", "og=eg=0", "ties"])
+@pytest.mark.parametrize("mode", MODES)
+def test_walk_banded_matches_jax(mode, case):
+    """Every pair's walk from the JAX fill's own band and stats."""
+    pk, table, og, eg = _packed(case)
+    jtb, jst = _jax_fill(_S(pk, table), pk, mode, og, eg)
+    start, _ = banded.walk_starts(jst, pk, mode)
+    i1, i2, cnt, flags = _walks_agree(jtb, pk, start, mode,
+                                      banded.path_len(pk))
+    assert (cnt[start[:, 3] != 0] > 0).all()
+
+
+def test_walk_banded_flags():
+    """Edge touches (a detour wider than the band), a band corrupted so the
+    walk leaves it, and a capacity too short for the path: bits 0 and 1 as
+    JAX sets them."""
+    a = np.random.default_rng(9).integers(0, 20, size=600).astype(np.int32)
+    junk = ((a[:200] + 7) % 20).astype(np.int32)
+    pairs = [(a, np.concatenate([junk, a[:400]]))]
+    pairs += _pairs(10, [500] * 7, [560] * 7)  # the JAX fill takes 8 pairs
+    pk = banded.pack(pairs, 128, TABLE.shape[0])
+    jtb, jst = _jax_fill(_S(pk, TABLE), pk, GLOCAL, OG, EG)
+    start, _ = banded.walk_starts(jst, pk, GLOCAL)
+    flags = _walks_agree(jtb, pk, start, GLOCAL, banded.path_len(pk))[3]
+    assert flags[0] == 1
+    # every pointer says "gap in seq1": the walks run left out of the band
+    bad = np.full_like(jtb, 0x15)
+    flags = _walks_agree(bad, pk, start, GLOCAL, banded.path_len(pk))[3]
+    assert (flags & 2).all()
+    flags = _walks_agree(jtb, pk, start, GLOCAL, 64)[3]
+    assert (flags & 2).all()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_host_walk_matches_jax(mode, monkeypatch):
+    """``walk_banded``, native and Python, against JAX's on one pair."""
+    pk, table, og, eg = _packed("ragged")
+    jtb, jst = _jax_fill(_S(pk, table), pk, mode, og, eg)
+    start, _ = banded.walk_starts(jst, pk, mode)
+    for k in (0, 2, 5):
+        args = (jtb[k], pk.offs[k], int(start[k, 0]), int(start[k, 1]),
+                int(start[k, 2]), mode == LOCAL, pk.W, int(pk.m[k]))
+        want = jb.walk_banded(*args)
+        assert banded.walk_banded(*args) == want
+        with monkeypatch.context() as mp:
+            mp.setattr(traceback, "native_walk_banded", lambda *a: None)
+            assert banded.walk_banded(*args) == want
+    # a band past column 0 whose pointers all say "gap in seq1"
+    pk = banded.pack(_pairs(12, [300], [320]), 128, TABLE.shape[0])
+    assert pk.offs[0, -1] > 0
+    bad = np.full((pk.codes1.shape[1], pk.W), 0x15, np.uint8)
+    args = (bad, pk.offs[0], 300, 320, 0, False, pk.W, 320)
+    for f in (banded.walk_banded, jb.walk_banded):
+        with pytest.raises((banded.BandExceeded, jb.BandExceeded)):
+            f(*args)
+
+
+# ------------------------------------------------------------ entry points
+@pytest.mark.parametrize("mode", MODES)
+def test_align_banded_batch_matches_jax(mode):
+    pairs = _pairs(11, *RAGGED)
+    want = jb.align_banded_batch(pairs, TABLE, mode=mode, og=OG, eg=EG,
+                                 band=128, interpret=True)
+    got = banded.align_banded_batch(pairs, TABLE, mode=mode, og=OG, eg=EG,
+                                    band=128, device="cpu")
+    assert got == want
+
+
+def test_align_banded_batch_raises_band_exceeded(monkeypatch):
+    real = banded.fill_banded
+
+    def corrupt(*a, **k):
+        tb, stats = real(*a, **k)
+        return torch.full_like(tb, 0x15), stats
+
+    monkeypatch.setattr(banded, "fill_banded", corrupt)
+    pairs = _pairs(12, [200], [260])
+    with pytest.raises(banded.BandExceeded):
+        banded.align_banded_batch(pairs, TABLE, mode=GLOBAL, og=OG, eg=EG,
+                                  band=128, device="cpu")
+
+
+def test_align_banded_verified_matches_jax():
+    """A detour wider than the band: the narrow band's score is worse, and
+    verification widens to the full DP's result, as JAX's does."""
+    a = np.random.default_rng(13).integers(0, 20, size=220).astype(np.int32)
+    junk = ((a[:70] + 7) % 20).astype(np.int32)
+    c1, c2 = a, np.concatenate([junk, a[:150]]).astype(np.int32)
+    kw = dict(mode=GLOCAL, og=OG, eg=EG, band=128)
+    got = banded.align_banded_verified(c1, c2, TABLE, device="cpu", **kw)
+    want = jb.align_banded_verified(c1, c2, TABLE, interpret=True, **kw)
+    assert got == want and got[3] > 128
+    narrow = banded.align_banded(c1, c2, TABLE, device="cpu", **kw)
+    assert narrow == jb.align_banded(c1, c2, TABLE, interpret=True, **kw)
+    assert narrow[2] < got[2]
+    kw = dict(mode=LOCAL, og=OG, eg=EG, band=128, max_band=256)
+    b = a.copy()
+    b[::17] = (b[::17] + 5) % 20
+    got = banded.align_banded_verified(a, b, TABLE, device="cpu", **kw)
+    assert got == jb.align_banded_verified(a, b, TABLE, interpret=True, **kw)
+    assert got[3] == 256
+
+
+@pytest.mark.parametrize("verified", [True, False])
+@pytest.mark.parametrize("mode", MODES)
+def test_aligner_align_banded_matches_jax(mode, verified):
+    rng = np.random.default_rng(20 + mode)
+    letters = "ACDEFGHIKLMNPQRSTVWYBZX"
+    s1 = "".join(letters[i] for i in rng.integers(0, 23, 180))
+    l2 = list(s1[15:])
+    l2[50] = "W"
+    del l2[120:124]
+    s2 = "".join(l2) + "KKLL"
+    cases = [(s1, s2), (s2, s1), ("", s2)]
+    if not verified:
+        cases += [("W", "W"), ("bj*o", "BJO")]
+    for a, b in cases:
+        got = Aligner(mode=mode, device="cpu", perl_compat=True).align_banded(
+            a, b, band=128, verified=verified)
+        want = jswt.Aligner(mode=mode, perl_compat=True).align_banded(
+            a, b, band=128, verified=verified)
+        assert vars(got) == vars(want), (a[:10], b[:10])

@@ -78,13 +78,40 @@ def test_cluster_identical(tmp_path, capsys, flag):
     assert os.path.getsize(ours + ".clstr") > 0
 
 
-def test_stats_and_band(files, capsys):
+@pytest.fixture
+def frozen_clock(monkeypatch):
+    """A clock that stands still, for both CLIs' stats collectors too, so
+    that the -stats reports' seconds (and the rates from them) are equal
+    bytes."""
+    import time
+
+    from smithwaterman_tpu.utils import metrics as jmetrics
+    from smithwaterman_tpu_torch.utils import metrics
+
+    monkeypatch.setattr(time, "time", lambda: 1000.0)
+    for mod in (metrics, jmetrics):
+        cls = mod.StatsCollector
+        monkeypatch.setattr(mod, "StatsCollector",
+                            lambda cls=cls: cls(wall_start=1000.0))
+
+
+def test_stats_and_band(files, capsys, frozen_clock):
+    """-stats alone, and -band with and without -stats: stdout and the
+    stderr report byte-identical to the JAX CLI's."""
     _, f1, f2 = files
     cli.main(["-stats", f1, f2], device="cpu")
     err = capsys.readouterr().err
     assert '"pairs": 6' in err
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        cli.main(["-band", "64", f1, f2], device="cpu")
+    for argv in (["-band", "64", f1, f2],
+                 ["-stats", "-glocal", "-band", "128", f1, f2],
+                 ["-global", "-band", "256", f2, f1]):
+        cli.main(argv, device="cpu")
+        ours = capsys.readouterr()
+        jcli.main(argv)
+        theirs = capsys.readouterr()
+        assert (ours.out, ours.err) == (theirs.out, theirs.err)
+        assert ours.out.count("#score:") == 6
+        assert ('"pairs": 6' in ours.err) == ("-stats" in argv)
 
 
 def test_usage_and_parse_errors(capsys):

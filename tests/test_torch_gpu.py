@@ -333,3 +333,125 @@ def test_longseq_kernels_write_only_their_outputs(cuda, mode):
                               L=L, local=mode == LOCAL)
     assert torch.equal(walk, rwalk) and torch.equal(cnt, rcnt)
     assert torch.equal(moves, rmoves)
+
+
+def _banded_pairs(seed):
+    """Ragged similar pairs (lengths down to 1, both signs of m - n) and
+    one pair with a repeated motif: tied LOCAL maxima."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, m in ((600, 640), (1, 50), (700, 560), (37, 1), (300, 400),
+                 (512, 512), (90, 200)):
+        base = rng.integers(0, 20, size=n + m + 10)
+        c2 = base[3:3 + m].copy()
+        c2[rng.integers(0, m, size=max(1, m // 10))] = 5
+        out.append((base[:n].copy(), c2))
+    c1 = rng.integers(0, 20, size=400)
+    for r in range(0, 360, 60):
+        c1[r:r + 40] = c1[:40]
+    out.append((c1, c1[:40].copy()))
+    return out
+
+
+def _banded_on(pk, dev):
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (pk.codes1, pk.codes2, pk.n, pk.m))
+
+
+@pytest.mark.parametrize("band", [128, 512, 1024])
+@pytest.mark.parametrize("mode", MODES)
+def test_banded_kernels_match_plain(cuda, mode, band):
+    """K6, K7 and K8 against their plain versions on the card: every score,
+    every pointer byte of rows i <= n, stats, indices, counts and flags."""
+    from smithwaterman_tpu_torch.ops import banded
+
+    table = SubstitutionMatrix.blosum62().table
+    tab = torch.from_numpy(table).to(cuda)
+    pk = banded.pack(_banded_pairs(70 + mode), band, table.shape[0])
+    c1, c2, n, m = _banded_on(pk, cuda)
+    S = banded.banded_scores(tab, c1, c2, n, m, W=pk.W)
+    assert torch.equal(S, banded.banded_scores_ref(tab, c1, c2, n, m,
+                                                   W=pk.W))
+    args = dict(mode=mode, og=-10.0, eg=-0.5)
+    tb, st = banded.fill_banded(S, n, m, **args)
+    rtb, rst = banded.fill_banded_ref(S, n, m, **args)
+    assert torch.equal(st, rst)
+    for b in range(len(pk.n)):
+        assert torch.equal(tb[b, :int(pk.n[b])], rtb[b, :int(pk.n[b])]), b
+    start, _ = banded.walk_starts(st.cpu().numpy(), pk, mode)
+    off, start = (torch.from_numpy(a).to(cuda) for a in (pk.offs, start))
+    L = banded.path_len(pk)
+    got = banded.walk_banded_device(tb, off, start, m, local=mode == LOCAL,
+                                    L=L)
+    want = banded.walk_banded_ref(tb, off, start, m, local=mode == LOCAL, L=L)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_banded_cuda_matches_cpu(cuda, mode):
+    """align_banded_batch and Aligner.align_banded on the card equal the
+    CPU path, and every banded kernel launched."""
+    from smithwaterman_tpu_torch import Aligner
+    from smithwaterman_tpu_torch.ops import banded
+
+    table = SubstitutionMatrix.blosum62().table
+    pairs = _banded_pairs(80 + mode)
+    before = dict(banded.LAUNCHES)
+    got = banded.align_banded_batch(pairs, table, mode=mode, og=-10.0,
+                                    eg=-0.5, band=128, device="cuda")
+    assert all(banded.LAUNCHES[k] > before[k] for k in before)
+    assert got == banded.align_banded_batch(pairs, table, mode=mode, og=-10.0,
+                                            eg=-0.5, band=128, device="cpu")
+    s1 = "".join("ACDEFGHIKLMNPQRSTVWY"[c] for c in pairs[0][0])
+    s2 = "".join("ACDEFGHIKLMNPQRSTVWY"[c] for c in pairs[0][1])
+    g = Aligner(mode=mode, device="cuda").align_banded(s1, s2, band=128)
+    c = Aligner(mode=mode, device="cpu").align_banded(s1, s2, band=128)
+    assert vars(g) == vars(c)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_banded_kernels_write_only_their_outputs(cuda, mode):
+    """K6, K7 and K8 launched on outputs fenced by canary bytes: every
+    canary stays intact and the outputs equal the wrappers' on the same
+    inputs."""
+    from smithwaterman_tpu_torch.ops import banded, kernels
+
+    table = SubstitutionMatrix.blosum62().table
+    tab = torch.from_numpy(table).to(cuda)
+    pk = banded.pack(_banded_pairs(90 + mode), 256, table.shape[0])
+    c1, c2, n, m = _banded_on(pk, cuda)
+    B, NP = pk.codes1.shape
+    W = pk.W
+    args = dict(mode=mode, og=-10.0, eg=-0.5)
+    wS = banded.banded_scores(tab, c1, c2, n, m, W=W)
+    wtb, wst = banded.fill_banded(wS, n, m, **args)
+    arenas = {}
+    arenas["S"], S = _fenced(4 * B * NP * W, torch.float32, cuda)
+    S = S.view(B, NP, W)
+    kernels.banded_scores(tab, c1, c2, n, m, S, W=W)
+    arenas["scratch"], scratch = _fenced(4 * B * 8 * W, torch.float32, cuda)
+    arenas["tb"], tb = _fenced(B * NP * W, torch.uint8, cuda)
+    arenas["stats"], stats = _fenced(4 * 8 * B, torch.float32, cuda)
+    tb, stats = tb.view(B, NP, W), stats.view(B, 8)
+    kernels.banded_fill(S, n, m, scratch.view(B, 8, W), tb, stats, **args)
+    start, _ = banded.walk_starts(wst.cpu().numpy(), pk, mode)
+    off, start = (torch.from_numpy(a).to(cuda) for a in (pk.offs, start))
+    L = banded.path_len(pk)
+    out = []
+    for name, nbytes in (("idx1", 4 * B * L), ("idx2", 4 * B * L),
+                         ("cnt", 4 * B), ("flags", 4 * B)):
+        arenas[name], t = _fenced(nbytes, torch.int32, cuda)
+        out.append(t.view(B, L) if name.startswith("idx") else t)
+    kernels.banded_walk(tb, off, start, m, *out, local=mode == LOCAL, L=L)
+    torch.cuda.synchronize()
+    for name, arena in arenas.items():
+        assert bool((arena[:GUARD] == CANARY).all()), name
+        assert bool((arena[-GUARD:] == CANARY).all()), name
+    assert torch.equal(S, wS) and torch.equal(stats, wst)
+    for b in range(B):
+        assert torch.equal(tb[b, :int(pk.n[b])], wtb[b, :int(pk.n[b])])
+    want = banded.walk_banded_device(wtb, off, start, m, local=mode == LOCAL,
+                                     L=L)
+    for g, w in zip(out, want):
+        assert torch.equal(g, w)
