@@ -65,14 +65,34 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    LOCAL through the verified ``Aligner.align_banded(band=1024)``: the band
    used must be at most 2048, the score the full DP's, the trimmed
    strings must re-score to it at 85 % identity or more; cold and warm
-   walls, peak device memory and ``phase_probe``'s stages are printed.
+   walls, peak device memory and ``phase_probe``'s stages are printed;
+11. the opt-in routes' kernels against their plain versions: K9 (the
+   wavefront score fill) on ragged pairs down to length 1 with NP not a
+   multiple of the strip width, at (go, ge) = (10, 0.5), (0, 0) and (5, 2)
+   and with a non-integer table, also against K1's score-only best; K10
+   (the fill with match-run bytes) on phase 3's inputs in all three modes,
+   its pointer bytes and stats equal to K1's and its run bytes to the plain
+   ones; K11 (the token walk) on K10's own pools.  All exact;
+12. the opt-in routes at the main path's full width, each driven with the
+   launch counts set to 0 just before it: (a) phase 5's 3200 pairs with
+   ``SWTPU_TOKEN_WALK=1`` in all three modes, every result equal to phase
+   5's, only K10 and K11 launching (not K1 or K2); warm wall, peak device
+   memory, tokens against moves a pair, and K10 / K11 beside K1 / K2 and
+   their plain versions at that flush; (b)
+   ``BatchAligner(diag_scores=True).score_pairs`` on the same pairs in
+   LOCAL, every score equal to phase 5's, only K9 launching; its warm wall
+   beside phase 5's, and K9 beside K1's score-only fill and its plain
+   version (on every third chunk); (c) ``sweep.score_matrix``, a self-sweep
+   of 400 such proteins (79,800 pairs, ``chunk_pairs`` 8192) through the
+   wavefront route into a temporary file, cut to half its lines and
+   resumed, equal to the matrix of the K1 route.
 
 The last two stdout lines are the kernels' JSON record and the result
 line; each kernel's ``max_abs_err`` is its comparison at its main path's
 shapes (phase 5 for K1 and K2, phase 8 for K3-K5 with K3 at its cut
-depth, phase 10a for K6-K8), its ``launches`` the count from that path's
-run, and ``bound_ms`` the least time the card could take for the same
-work on this run's inputs (the larger of its f32
+depth, phase 10a for K6-K8, phase 12 for K9-K11), its ``launches`` the
+count from that path's run, and ``bound_ms`` the least time the card could
+take for the same work on this run's inputs (the larger of its f32
 operations at 67 TFLOP/s and its bytes at 3.35 TB/s).  Any failure raises
 and exits non-zero without a result line; so does a machine without CUDA.
 """
@@ -111,6 +131,17 @@ CELL_FLOPS = {0: 22, 1: 22, 2: 27}  # GLOBAL, GLOCAL, LOCAL
 # shift, compares, moves), counted at the f32 rate for want of a
 # published integer one
 STEP_OPS = 12
+# f32 operations of one cell of sw_diag.cuh's step(): 4 adds (W1 + og,
+# Y1 + eg, X1 + eg in xpre, Wd + s), 7 maxima (T0, xpre, Y, M, two for W,
+# the running best)
+DIAG_CELL_FLOPS = 11
+# integer operations of sw_cell.cuh's run_byte() a cell (field extraction
+# 2, compares 5, the increment, the pack 2), counted at the f32 rate
+RUN_OPS = 10
+# integer operations of one token-walk step (walk_tokens_pair): a walk
+# step's 12 plus the run byte's fields, the marker test and the jump
+TOKEN_STEP_OPS = 18
+SWEEP_SEQS, SWEEP_CHUNK = 400, 8192
 
 
 def fail(msg: str) -> None:
@@ -618,6 +649,349 @@ def phase10(dev, card, modes):
             "library_ms": lib})
     return out
 
+def phase11(dev, card, modes, cases, ragged, pair_masks, fill_err, walk_err):
+    """K9, K10 and K11 against their plain versions on the card."""
+    import torch
+
+    from smithwaterman_tpu_torch import LOCAL
+    from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
+    from smithwaterman_tpu_torch.ops import batch, device_walk, diag_dp
+    from smithwaterman_tpu_torch.ops import fill_dp
+
+    blosum = np.asarray(SubstitutionMatrix.blosum62().table, np.float32)
+    rng = np.random.default_rng(SEED + 11)
+    B, NP, MP = 40, 300, 210   # NP and MP not multiples of the strip width
+    odd = batch.Chunk(rng.integers(0, 20, size=(B, NP)).astype(np.uint8),
+                      rng.integers(0, 20, size=(B, MP)).astype(np.uint8),
+                      rng.integers(1, NP + 1, size=B).astype(np.int32),
+                      rng.integers(1, MP + 1, size=B).astype(np.int32))
+    odd.n[:4], odd.m[:4] = (1, NP, 1, 77), (MP, 1, 1, 32)
+    odd.codes2[4, 20:180] = odd.codes1[4, 50:210]
+    odd.n[4], odd.m[4] = NP, MP
+    # a stretch from row 0 across the first strip boundary (column 31)
+    odd.codes1[5, :60] = 18
+    odd.codes2[5, 31:91] = 18
+    odd.n[5], odd.m[5] = NP, MP
+    sums = {"K9": [0.0, 0.0], "K10": [0.0, 0.0], "K11": [0.0, 0.0]}
+    n9 = 0
+    for table, tname in ((blosum, "blosum62"),
+                         (blosum * np.float32(0.5), "blosum62*0.5")):
+        tab = torch.from_numpy(table).to(dev)
+        for og, eg in ((-10.0, -0.5), (0.0, 0.0), (-5.0, -2.0)):
+            chunks = ragged + [odd]
+            ms, got = event_ms(lambda: diag_dp.fill_diag(tab, chunks, og=og,
+                                                         eg=eg))
+            pms, ref = event_ms(lambda: torch.cat([diag_dp.fill_diag_ref(
+                tab, *(torch.from_numpy(a).to(dev) for a in ch), og=og,
+                eg=eg) for ch in chunks]))
+            sums["K9"][0] += ms
+            sums["K9"][1] += pms
+            k1 = fill_dp.fill_many(tab, chunks, mode=LOCAL, og=og, eg=eg,
+                                   score_only=True)
+            if not (torch.equal(got, ref) and torch.equal(got, k1.stats)):
+                fail(f"K9 {tname} og={og} eg={eg}: best scores differ from "
+                     "the plain wavefront or K1's score-only fill")
+            n9 += 1
+    for name, chunks, table, og, eg in cases:
+        tab = torch.from_numpy(np.ascontiguousarray(table)).to(dev)
+        masks = pair_masks(chunks)
+        for mode, mname in modes:
+            args = dict(mode=mode, og=og, eg=eg)
+            k1 = fill_dp.fill_many(tab, chunks, **args)
+            ms, got = event_ms(lambda: fill_dp.fill_many(tab, chunks,
+                                                         runs=True, **args))
+            err, bad = fill_err(got, k1, masks)
+            runs = fill_dp.Filled(got.run, got.stats, got.desc, got.shapes,
+                                  got.tb_base)
+            plain = fill_dp.Filled(torch.empty_like(got.run), got.stats,
+                                   got.desc, got.shapes, got.tb_base)
+            pms, _ = event_ms(lambda: [
+                plain.tb_view(c).copy_(fill_dp.run_bytes_ref(got.tb_view(c)))
+                for c in range(len(chunks))])
+            sums["K10"][0] += ms
+            sums["K10"][1] += pms
+            if err != 0.0 or bad or not torch.equal(got.stats, k1.stats):
+                fail(f"K10 {name} {mname}: pointer bytes or stats differ "
+                     f"from K1's ({bad} bytes, max error {err})")
+            rerr, rbad = fill_err(runs, plain, masks)
+            if rerr != 0.0 or rbad:
+                fail(f"K10 {name} {mname}: {rbad} run bytes differ from the "
+                     "plain ones")
+            L = max(device_walk.max_path_len(NP_, MP_)
+                    for _, NP_, MP_ in got.shapes)
+            ms, out = event_ms(lambda: device_walk.walk_tokens(
+                got.tb, got.run, got.desc, got.stats, mode=mode, L=L))
+            pms, rout = event_ms(lambda: device_walk.walk_tokens_ref(
+                got.tb, got.run, got.desc, got.stats, mode=mode, L=L))
+            sums["K11"][0] += ms
+            sums["K11"][1] += pms
+            if walk_err(out, rout) != 0.0 or int(out[0].max()) == 0:
+                fail(f"K11 {name} {mname}: tokens differ from the plain "
+                     "token walk, or none at all")
+        del masks
+    say(f"phase 11 K9: {n9} cases (2 tables x (go, ge) in (10, 0.5), (0, 0), "
+        f"(5, 2); phase 3's ragged chunks and {B} pairs of up to {NP} x {MP}, "
+        "lengths down to 1) equal to the plain wavefront and to K1's "
+        f"score-only best; K10 and K11: {len(cases)} cases x 3 modes, "
+        "pointer bytes and stats equal to K1's, run bytes to the plain ones, "
+        "tokens to the plain token walk; summed ms kernel / plain: "
+        + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in sums.items())
+        + f"; on {card}")
+
+
+def phase12(dev, card, modes, pairs, chunks, results, scores, walls,
+            walk_steps, times, pair_masks, fill_err, walk_err):
+    """The opt-in routes at the main path's full width; returns the K9,
+    K10 and K11 records."""
+    import os
+    import tempfile
+
+    import torch
+
+    from smithwaterman_tpu_torch import LOCAL, BatchAligner
+    from smithwaterman_tpu_torch import sweep as swp
+    from smithwaterman_tpu_torch.io.fasta import SeqData
+    from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
+    from smithwaterman_tpu_torch.ops import (batch, device_walk, diag_dp,
+                                             fill_dp, longseq)
+
+    def reset():
+        fill_dp.LAUNCHES = fill_dp.LAUNCHES_RUNS = 0
+        device_walk.LAUNCHES = device_walk.LAUNCHES_TOKENS = 0
+        diag_dp.LAUNCHES = 0
+        longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
+
+    def counts():
+        return {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES,
+                "K9": diag_dp.LAUNCHES, "K10": fill_dp.LAUNCHES_RUNS,
+                "K11": device_walk.LAUNCHES_TOKENS, **longseq.LAUNCHES}
+
+    def same(a, b):
+        return (a.aligned1, a.aligned2, a.score, a.start1, a.end1, a.start2,
+                a.end2) == (b.aligned1, b.aligned2, b.score, b.start1,
+                            b.end1, b.start2, b.end2)
+
+    og, eg = -10.0, -0.5
+    tab = torch.from_numpy(np.asarray(SubstitutionMatrix.blosum62().table,
+                                      np.float32)).to(dev)
+    true_cells = sum(len(a.seq) * len(b.seq) for a, b in pairs)
+    code_bytes = sum(len(a.seq) + len(b.seq) for a, b in pairs)
+    nflush = len(batch.plan_flushes(chunks, batch.tb_budget(), False,
+                                    runs=True))
+
+    # (a) the token walk through BatchAligner, all three modes
+    launches = {"K9": 0, "K10": 0, "K11": 0}
+    os.environ["SWTPU_TOKEN_WALK"] = "1"
+    try:
+        for mode, mname in modes:
+            eng = BatchAligner(mode=mode, device="cuda")
+            eng.align_pairs(pairs)            # cold
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()   # earlier phases' tensors
+            reset()
+            t0 = time.perf_counter()
+            res = eng.align_pairs(pairs)
+            wall = time.perf_counter() - t0
+            c = counts()
+            peak = torch.cuda.max_memory_allocated() - held
+            if c["K10"] == 0 or c["K11"] == 0 or any(
+                    c[k] for k in ("K1", "K2", "K3", "K4", "K5", "K9")):
+                fail(f"phase 12a {mname}: launches {c}")
+            launches["K10"] += c["K10"]
+            launches["K11"] += c["K11"]
+            moves = results[mname][0]
+            diff = [k for k, (g, w) in enumerate(zip(res, moves))
+                    if not same(g, w)]
+            if diff:
+                fail(f"phase 12a {mname}: {len(diff)} results differ from "
+                     f"phase 5's move-stream results (first pair {diff[0]})")
+            say(f"phase 12a {mname}: {PAIRS} pairs with SWTPU_TOKEN_WALK=1, "
+                f"warm wall {wall:.4f} s (move streams, phase 5: "
+                f"{walls[mname]:.4f} s), {nflush} flush(es), peak device "
+                f"memory {peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB "
+                f"held before the call, launches {json.dumps(c)}; all "
+                f"{PAIRS} results equal to phase 5's; phases "
+                + json.dumps({k: round(v, 4) for k, v in eng.phase.items()})
+                + f"; on {card}")
+    finally:
+        del os.environ["SWTPU_TOKEN_WALK"]
+
+    # K10 and K11 at the main path's shapes, beside K1 / K2 and their plain
+    # versions: every pair's pointer bytes and stats equal to K1's, run
+    # bytes to the plain ones, tokens to the plain token walk
+    masks = pair_masks(chunks)
+    L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in
+            (ch.shape for ch in chunks))
+    errs = {"K10": 0.0, "K11": 0.0}
+    tt = {}
+    for mode, mname in modes:
+        args = dict(mode=mode, og=og, eg=eg)
+        k1 = fill_dp.fill_many(tab, chunks, **args)
+        fill_dp.fill_many(tab, chunks, runs=True, **args)
+        k10_ms, got = timed(lambda: fill_dp.fill_many(tab, chunks, runs=True,
+                                                      **args), 3)
+        err, bad = fill_err(got, k1, masks)
+        if err != 0.0 or bad or not torch.equal(got.stats, k1.stats):
+            fail(f"K10 at the main path's shapes, {mname}: pointer bytes or "
+                 "stats differ from K1's")
+        del k1
+        # the plain run bytes on every chunk in LOCAL, on every third in
+        # GLOCAL and GLOBAL (host-bound: ~7 s a mode on all 25)
+        step = 1 if mode == LOCAL else 3
+        plain = torch.zeros_like(got.run)
+        pview = fill_dp.Filled(plain, got.stats, got.desc, got.shapes,
+                               got.tb_base)
+        k10_plain_ms, _ = event_ms(lambda: [
+            pview.tb_view(c).copy_(fill_dp.run_bytes_ref(got.tb_view(c)))
+            for c in range(0, len(chunks), step)])
+        rerr, rbad = fill_err(
+            fill_dp.Filled(got.run, got.stats, got.desc, got.shapes,
+                           got.tb_base), pview,
+            [mk if c % step == 0 else torch.zeros_like(mk)
+             for c, mk in enumerate(masks)])
+        del plain, pview
+        device_walk.walk_tokens(got.tb, got.run, got.desc, got.stats,
+                                mode=mode, L=L)
+        k11_ms, out = timed(lambda: device_walk.walk_tokens(
+            got.tb, got.run, got.desc, got.stats, mode=mode, L=L), 5)
+        k11_plain_ms, rout = event_ms(lambda: device_walk.walk_tokens_ref(
+            got.tb, got.run, got.desc, got.stats, mode=mode, L=L))
+        werr = walk_err(out, rout)
+        if rerr != 0.0 or rbad or werr != 0.0:
+            fail(f"K10/K11 at the main path's shapes, {mname}: {rbad} run "
+                 f"bytes differ, token walk max error {werr}")
+        errs["K10"] = max(errs["K10"], err, rerr)
+        errs["K11"] = max(errs["K11"], werr)
+        ntok = int(out[0].sum())
+        tt[mname] = (k10_ms, k10_plain_ms, k11_ms, k11_plain_ms, ntok)
+        k1_ms, _, k2_ms, _ = times[mname]
+        say(f"phase 12a kernels {mname} at the main path's shapes: K10 "
+            f"{k10_ms:.3f} ms (K1 {k1_ms:.3f} ms) vs plain run bytes "
+            f"{k10_plain_ms:.3f} ms on {len(chunks[::step])} chunks; K11 "
+            f"{k11_ms:.4f} ms (K2 {k2_ms:.4f} ms) "
+            f"vs plain {k11_plain_ms:.3f} ms; tokens {ntok} "
+            f"({ntok / PAIRS:.1f} a pair) against moves {walk_steps[mname]} "
+            f"({walk_steps[mname] / PAIRS:.1f} a pair); all equal")
+        del got, out, rout
+    del masks
+
+    # (b) the wavefront route through score_pairs, LOCAL
+    eng = BatchAligner(mode=LOCAL, device="cuda", diag_scores=True)
+    eng.score_pairs(pairs)                      # cold
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    dscores = eng.score_pairs(pairs)
+    wall = time.perf_counter() - t0
+    c = counts()
+    if c["K9"] == 0 or any(c[k] for k in ("K1", "K2", "K10", "K11")):
+        fail(f"phase 12b: launches {c}")
+    launches["K9"] += c["K9"]
+    if not np.array_equal(dscores, scores):
+        fail("phase 12b: wavefront scores differ from the K1 route's")
+    say(f"phase 12b score_pairs local, diag_scores=True: {PAIRS} pairs warm "
+        f"{wall:.4f} s (K1 route, phase 5: {walls['local score_pairs']:.4f} "
+        f"s), launches {json.dumps(c)}; every score equal to phase 5's; "
+        f"phases " + json.dumps({k: round(v, 4) for k, v in
+                                  eng.phase.items()}))
+    diag_dp.fill_diag(tab, chunks, og=og, eg=eg)
+    k9_ms, got = timed(lambda: diag_dp.fill_diag(tab, chunks, og=og, eg=eg),
+                       5)
+    fill_dp.fill_many(tab, chunks, mode=LOCAL, og=og, eg=eg, score_only=True)
+    k1so_ms, k1 = timed(lambda: fill_dp.fill_many(
+        tab, chunks, mode=LOCAL, og=og, eg=eg, score_only=True), 3)
+    k9_err = float((got - k1.stats).abs().max())
+    # the plain wavefront in strips of 128 columns (its values do not
+    # depend on the width; phase 11 runs K9's 32) on every third chunk
+    sub = chunks[::3]
+    k9_plain_ms, ref = event_ms(lambda: torch.cat([diag_dp.fill_diag_ref(
+        tab, *(torch.from_numpy(a).to(dev) for a in ch), og=og, eg=eg,
+        lanes=128) for ch in sub]))
+    lo, rows = 0, []
+    for k, ch in enumerate(chunks):
+        if k % 3 == 0:
+            rows.append(got[lo:lo + ch.shape[0]])
+        lo += ch.shape[0]
+    k9_err = max(k9_err, float((torch.cat(rows) - ref).abs().max()))
+    if k9_err != 0.0:
+        fail(f"K9 at the main path's shapes: max error {k9_err}")
+    sub_ms, _ = timed(lambda: diag_dp.fill_diag(tab, sub, og=og, eg=eg), 5)
+    say(f"phase 12b kernels at the main path's shapes ({PAIRS} pairs, "
+        f"{len(chunks)} chunks): K9 {k9_ms:.4f} ms vs K1 score-only "
+        f"{k1so_ms:.3f} ms, equal best on every pair; plain wavefront (128 "
+        f"columns a strip) on {len(sub)} of {len(chunks)} chunks "
+        f"{k9_plain_ms:.3f} ms (K9 on "
+        f"them {sub_ms:.4f} ms), equal; on {card}")
+
+    # (c) a resumable self-sweep through the wavefront route
+    rng = np.random.default_rng(SEED + 12)
+    letters = np.array(list(LETTERS))
+    seqs = [SeqData(f"p{k}", "", "".join(rng.choice(
+        letters, int(rng.integers(LMIN, LMAX + 1)))))
+        for k in range(SWEEP_SEQS)]
+    cfg = swp.SweepConfig(chunk_pairs=SWEEP_CHUNK)
+    npairs = SWEEP_SEQS * (SWEEP_SEQS - 1) // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sweep.jsonl")
+        wave = BatchAligner(mode=LOCAL, device="cuda", diag_scores=True)
+        reset()
+        t0 = time.perf_counter()
+        mat = swp.score_matrix(seqs, None, wave, out, cfg)
+        t_wave = time.perf_counter() - t0
+        c = counts()
+        if c["K9"] == 0 or c["K1"]:
+            fail(f"phase 12c: launches {c}")
+        launches["K9"] += c["K9"]
+        with open(out) as f:
+            lines = f.read().splitlines()
+        with open(out, "w") as f:
+            f.write("\n".join(lines[:len(lines) // 2]) + "\n")
+        t0 = time.perf_counter()
+        redone = swp.sweep(seqs, None, wave, out, cfg)
+        t_resume = time.perf_counter() - t0
+        if redone != len(lines) - len(lines) // 2:
+            fail(f"phase 12c: resume ran {redone} chunks")
+        resumed = swp.score_matrix(seqs, None, wave, out, cfg)
+        t0 = time.perf_counter()
+        k1mat = swp.score_matrix(seqs, None,
+                                 BatchAligner(mode=LOCAL, device="cuda"),
+                                 os.path.join(tmp, "k1.jsonl"), cfg)
+        t_k1 = time.perf_counter() - t0
+    if not (np.array_equal(mat, k1mat) and np.array_equal(resumed, k1mat)):
+        fail("phase 12c: the sweep's matrix differs from the K1 route's")
+    say(f"phase 12c sweep.score_matrix: {SWEEP_SEQS} proteins of "
+        f"{LMIN}..{LMAX}, {npairs} pairs in {len(lines)} chunks of "
+        f"{SWEEP_CHUNK}: wavefront route {t_wave:.3f} s (launches "
+        f"{json.dumps(c)}), cut to {len(lines) // 2} lines and resumed "
+        f"({redone} chunks, {t_resume:.3f} s), K1 route {t_k1:.3f} s; both "
+        "matrices equal")
+
+    k10_ms, k10_plain_ms, k11_ms, k11_plain_ms, ntok = tt["local"]
+    k9_bound = bound(DIAG_CELL_FLOPS * true_cells,
+                     code_bytes + 32 * PAIRS)
+    k10_bound = bound((CELL_FLOPS[LOCAL] + RUN_OPS) * true_cells,
+                      2 * true_cells + code_bytes + 32 * PAIRS)
+    k11_bound = bound(TOKEN_STEP_OPS * ntok, 3 * ntok + 36 * PAIRS)
+    out = []
+    for name, src, repl, k, err, ms, pms, bd in (
+            ("K9 wavefront score fill", "diag_fill.cu",
+             "smithwaterman_tpu/ops/diag_dp.py:291", "K9", k9_err, k9_ms,
+             k9_plain_ms, k9_bound),
+            ("K10 fill with run bytes", "fill.cu",
+             "smithwaterman_tpu/ops/pallas_dp.py:820", "K10", errs["K10"],
+             k10_ms, k10_plain_ms, k10_bound),
+            ("K11 token walk", "token_walk.cu",
+             "smithwaterman_tpu/ops/device_walk.py:322", "K11", errs["K11"],
+             k11_ms, k11_plain_ms, k11_bound)):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"smithwaterman_tpu_torch/csrc/{src}",
+            "replaces": repl, "launches": launches[k], "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": bd[0], "bound_by": bd[1],
+            "library_ms": None})
+    return out
+
 
 def main() -> int:
     import torch
@@ -897,7 +1271,7 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
     ]
-    del chunks, masks
+    del masks
     say(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phase 6: K3, K4, K5 against their plain versions
@@ -1214,6 +1588,15 @@ def main() -> int:
     say(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
     # ---- phase 10: banded alignment at a real size
     records += phase10(dev, card, modes)
+    say(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 11: K9, K10, K11 against their plain versions
+    phase11(dev, card, modes, cases, ragged, pair_masks, fill_err, walk_err)
+    say(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 12: the opt-in routes at the main path's full width
+    records += phase12(dev, card, modes, pairs, chunks, results, scores,
+                       walls, walk_steps, times, pair_masks, fill_err,
+                       walk_err)
+    say(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}"
         f" s on {card}")
     say(json.dumps({"kernels": records}))

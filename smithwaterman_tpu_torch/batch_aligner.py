@@ -21,6 +21,18 @@ every user surface goes through (CLI, clustering, the single-pair
 5. the string rebuild on the host from the 2-bit move streams
    (``ops/reconstruct.reconstruct_packed``, ``csrc/reconstruct.cpp``).
 
+Two opt-in routes, off by default as in the JAX package, change no result:
+
+* ``diag_scores=True`` (or ``SWTPU_DIAG_SCORES=1``): a score-only
+  flush that ``ops/diag_dp.eligible`` accepts (LOCAL, og <= eg <= 0) takes
+  the wavefront fill (kernel K9, ``ops/diag_dp.fill_diag``) instead of K1;
+  ``align_pairs`` never does;
+* ``SWTPU_TOKEN_WALK=1``: alignments take the fill with match-run bytes
+  (kernel K10) and the token walk (kernel K11,
+  ``ops/device_walk.walk_tokens``), which jumps up to 16 diagonal cells a
+  step and ships one byte a token; the rebuild expands the tokens
+  (``reconstruct_packed(tokens=True)``).  The long route is unchanged.
+
 Results come back in input order and are bit-identical to the single-pair
 ``Aligner``.  ``device="cpu"`` runs the same stages with the kernels'
 plain PyTorch versions: the tests' reference path.  Without a device the
@@ -29,6 +41,7 @@ engine runs on the card, and raises where there is none.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -46,7 +59,7 @@ from .aligner import (
 from .config import LOCAL, AlignConfig, bucket_len
 from .matrices import ScoringMatrix, SubstitutionMatrix
 from .ops import batch as batch_ops
-from .ops import device_walk, fill_dp, longseq
+from .ops import device_walk, diag_dp, fill_dp, longseq
 from .ops import reconstruct as recon
 
 
@@ -93,6 +106,7 @@ class BatchAligner:
         device: Optional[str] = None,
         perl_compat: bool = False,
         longseq_cells: Optional[int] = None,
+        diag_scores: Optional[bool] = None,
     ):
         if config is None:
             config = AlignConfig(mode=mode, gap_open=gap_open,
@@ -104,6 +118,15 @@ class BatchAligner:
         # long-sequence route (ops/longseq.py) for alignments; None: only
         # buckets whose single pair's pointers exceed SWTPU_TB_HBM_BYTES
         self.longseq_cells = longseq_cells
+        # the wavefront fill (K9) for eligible score-only LOCAL chunks;
+        # None reads SWTPU_DIAG_SCORES (default off, as in the JAX package)
+        if diag_scores is None:
+            diag_scores = os.environ.get("SWTPU_DIAG_SCORES", "0") == "1"
+        self.diag_scores = diag_scores
+        # token walks (K10 fill with run bytes, K11 walk) for alignments;
+        # SWTPU_TOKEN_WALK=1 turns them on (default off, as in the JAX
+        # package)
+        self.token_walk = os.environ.get("SWTPU_TOKEN_WALK", "0") == "1"
         # replicate the Perl engine's input rewrite (aligner.perl_sanitize)
         self.perl_compat = perl_compat
         # opt-in observability: assign a utils.metrics.StatsCollector
@@ -173,7 +196,8 @@ class BatchAligner:
         table = self._table_on_device() if order else None
         flushes = batch_ops.plan_flushes(
             [bk.chunk() for bk in order], batch_ops.tb_budget(), score_only,
-            long_cells=self.longseq_cells)
+            long_cells=self.longseq_cells,
+            runs=self.token_walk and not score_only)
         # caller positions of each pair, in flush order
         positions = [i for bk in order for i in bk.indices]
         ph["bucket"] = time.time() - t0
@@ -198,17 +222,25 @@ class BatchAligner:
         t0 = time.time()
         og, eg = self.config.og, self.config.eg
         chunks = flush.chunks
+        tokens = False
         if flush.long:
             (chunk,) = chunks
             stats_d, cnt_d, mv_d = longseq.align_long_packed(
                 table, chunk, mode=self.mode, og=og, eg=eg)
+        elif score_only:
+            stats_d = self._fill_scores(table, chunks)
         else:
+            tokens = self.token_walk
             filled = fill_dp.fill_many(table, chunks, mode=self.mode, og=og,
-                                       eg=eg, score_only=score_only)
+                                       eg=eg, runs=tokens)
             stats_d = filled.stats
-            if not score_only:
-                L = max(device_walk.max_path_len(NP, MP)
-                        for _, NP, MP in filled.shapes)
+            L = max(device_walk.max_path_len(NP, MP)
+                    for _, NP, MP in filled.shapes)
+            if tokens:
+                cnt_d, mv_d = device_walk.walk_tokens(
+                    filled.tb, filled.run, filled.desc, filled.stats,
+                    mode=self.mode, L=L)
+            else:
                 cnt_d, mv_d = device_walk.walk_packed(
                     filled.tb, filled.desc, filled.stats, mode=self.mode,
                     L=L)
@@ -238,11 +270,27 @@ class BatchAligner:
             j0 = np.concatenate([ch.m for ch in chunks])
         res = recon.reconstruct_packed(
             [seqs[i][0].seq for i in pos], [seqs[i][1].seq for i in pos],
-            mv, cnt, i0, j0, scores, self.mode, retain_all,
+            mv, cnt, i0, j0, scores, self.mode, retain_all, tokens=tokens,
         )
         for k, idx in enumerate(pos):
             results[idx] = res[k]
         ph["reconstruct"] += time.time() - t0
+
+    def _fill_scores(self, table, chunks) -> torch.Tensor:
+        """Stats of a score-only flush: through the wavefront fill (K9)
+        with ``diag_scores`` when ``diag_dp.eligible`` accepts the flush,
+        else through K1.  The port's eligibility is the flush's mode and
+        penalties and lengths of at least 1, which every bucketed pair has,
+        so one flush never holds both kinds (the JAX package decides per
+        bucket, on its TPU tiling too)."""
+        og, eg = self.config.og, self.config.eg
+        if self.diag_scores and diag_dp.eligible(
+                mode=self.mode, og=og, eg=eg, score_only=True,
+                n=np.concatenate([ch.n for ch in chunks]),
+                m=np.concatenate([ch.m for ch in chunks])):
+            return diag_dp.fill_diag(table, chunks, og=og, eg=eg)
+        return fill_dp.fill_many(table, chunks, mode=self.mode, og=og,
+                                 eg=eg, score_only=True).stats
 
     def _record(self, order: List[_Bucket]) -> None:
         for bk in order:

@@ -1,6 +1,6 @@
-// Host twin of the GPU kernels K1 (fill.cu), K2 (walk.cu), K3 and K4
-// (longseq_fill.cu), K5 (seg_walk.cu), K7 (banded_fill.cu) and K8
-// (banded_walk.cu).
+// Host twin of the GPU kernels K1 and K10 (fill.cu), K2 (walk.cu), K3 and
+// K4 (longseq_fill.cu), K5 (seg_walk.cu), K7 (banded_fill.cu), K8
+// (banded_walk.cu), K9 (diag_fill.cu) and K11 (token_walk.cu).
 //
 // It includes the kernels' own headers and runs them over a batch in the
 // kernels' loop order, one pair after another, with the same per-pair
@@ -10,8 +10,11 @@
 // after each step.  For K7 it runs each band row's phase A for every thread,
 // the block's prefix in thread order, then phase C for every thread
 // (sw_banded.cuh), where the card's threads wait for each other between
-// the phases.  The tier-1 tests hold its outputs against the JAX package
-// (ops/scan_dp.py, ops/device_walk.py, ops/longseq.py, ops/banded.py),
+// the phases.  For K9 it runs every lane of a warp in turn at each step,
+// handing each lane its left neighbour's values from before the step, as
+// the card's shuffles do (sw_diag.cuh).  The tier-1 tests hold its
+// outputs against the JAX package (ops/scan_dp.py, ops/pallas_dp.py,
+// ops/device_walk.py, ops/longseq.py, ops/banded.py, ops/diag_dp.py),
 // which is the only check of the card's cell code that runs without a
 // card.
 // Build: g++ -O2 -fPIC -std=c++17 -ffp-contract=off -c, then g++ -shared.
@@ -21,6 +24,7 @@
 #include "sw_band.cuh"
 #include "sw_banded.cuh"
 #include "sw_cell.cuh"
+#include "sw_diag.cuh"
 #include "sw_walk.cuh"
 
 namespace {
@@ -50,6 +54,71 @@ void fill_mode(int traceback, const float* table, int K,
   else
     fill_all<MODE, false>(table, K, codes1, codes2, desc, B, tb, carry,
                           stats, og, eg);
+}
+
+template <int MODE>
+void fill_runs_all(const float* table, int K, const uint8_t* codes1,
+                   const uint8_t* codes2, const int64_t* desc, int64_t B,
+                   uint8_t* tb, uint8_t* run, float* carry, float* stats,
+                   float og, float eg) {
+  for (int64_t b = 0; b < B; ++b) {
+    const int64_t* d = desc + b * sw::DESC_W;
+    sw::fill_pair<MODE, true, true>(
+        table, K, codes1 + d[sw::D_OFF1], codes2 + d[sw::D_OFF2],
+        (int)d[sw::D_N], (int)d[sw::D_M], tb + d[sw::D_TB], d[sw::D_RS],
+        d[sw::D_CS], carry + d[sw::D_CARRY], 3 * d[sw::D_CS], og, eg,
+        stats + b * sw::STATS_W, run + d[sw::D_TB]);
+  }
+}
+
+// One pair's wavefront fill as a warp would run it (diag_fill.cu).
+float diag_pair(const float* table, int K, const uint8_t* c1,
+                const uint8_t* c2, int n, int m, float* edge, float og,
+                float eg) {
+  namespace dg = sw::diag;
+  constexpr int W = dg::LANES;
+  float best = 0.0f;
+  for (int c0 = 0; c0 < m; c0 += W) {
+    dg::Lane lanes[W];
+    int code1[W];
+    for (int l = 0; l < W; ++l) {
+      lanes[l] = dg::lane_begin();
+      code1[l] = 0;
+    }
+    const int steps = dg::strip_steps(n, m, c0);
+    for (int d = 0; d < steps; ++d) {
+      // every lane's values from before the step: the shuffles' sources
+      float xp[W], w1[W];
+      int cd[W];
+      for (int l = 0; l < W; ++l) {
+        xp[l] = dg::xpre(lanes[l].w1, lanes[l].x1, og, eg);
+        w1[l] = lanes[l].w1;
+        cd[l] = code1[l];
+      }
+      for (int l = 0; l < W; ++l) {
+        float xin, wl;
+        if (l == 0) {
+          dg::lane0_fill(edge, n, c0, d, &xin, &wl);
+          code1[0] = d < n ? c1[d] : 0;
+        } else {
+          xin = xp[l - 1];
+          wl = w1[l - 1];
+          code1[l] = cd[l - 1];
+        }
+        const int r = d - l, c = c0 + l;
+        const float s = table[code1[l] * K + (c < m ? c2[c] : 0)];
+        dg::step(&lanes[l], s, xin, wl, r < 0, r >= 0 && r < n && c < m,
+                 og, eg);
+        if (l == W - 1 && dg::keeps_edge(n, m, c0, r)) {
+          edge[2 * (int64_t)r] = lanes[l].w1;
+          edge[2 * (int64_t)r + 1] =
+              dg::xpre(lanes[l].w1, lanes[l].x1, og, eg);
+        }
+      }
+    }
+    for (int l = 0; l < W; ++l) best = sw::mx(best, lanes[l].best);
+  }
+  return best;
 }
 
 // One band of one pair as a block of C threads would run it.
@@ -205,6 +274,61 @@ int sw_twin_fill(int mode, int traceback, const float* table, int K,
     default:
       return 1;
   }
+}
+
+// Same arguments and layout as sw_fill_launch (fill.cu) with a run pool
+// (K10), host pointers, no stream.  Returns 0, or 1 for an unknown mode.
+int sw_twin_fill_runs(int mode, const float* table, int K,
+                      const uint8_t* codes1, const uint8_t* codes2,
+                      const int64_t* desc, int64_t B, uint8_t* tb,
+                      uint8_t* run, float* carry, float* stats, float og,
+                      float eg) {
+  switch (mode) {
+    case sw::LOCAL:
+      fill_runs_all<sw::LOCAL>(table, K, codes1, codes2, desc, B, tb, run,
+                               carry, stats, og, eg);
+      return 0;
+    case sw::GLOCAL:
+      fill_runs_all<sw::GLOCAL>(table, K, codes1, codes2, desc, B, tb, run,
+                                carry, stats, og, eg);
+      return 0;
+    case sw::GLOBAL:
+      fill_runs_all<sw::GLOBAL>(table, K, codes1, codes2, desc, B, tb, run,
+                                carry, stats, og, eg);
+      return 0;
+    default:
+      return 1;
+  }
+}
+
+// Same arguments and layout as sw_diag_fill_launch (diag_fill.cu), host
+// pointers.  Returns 0.
+int sw_twin_diag_fill(const float* table, int K, const uint8_t* codes1,
+                      const uint8_t* codes2, const int64_t* desc, int64_t B,
+                      float* scratch, float* stats, float og, float eg) {
+  for (int64_t b = 0; b < B; ++b) {
+    const int64_t* d = desc + b * sw::DESC_W;
+    float* st = stats + b * sw::STATS_W;
+    for (int q = 0; q < sw::STATS_W; ++q) st[q] = 0.0f;
+    st[0] = diag_pair(table, K, codes1 + d[sw::D_OFF1],
+                      codes2 + d[sw::D_OFF2], (int)d[sw::D_N],
+                      (int)d[sw::D_M], scratch + d[sw::D_CARRY], og, eg);
+  }
+  return 0;
+}
+
+// Same arguments and layout as sw_walk_tokens_launch (token_walk.cu).
+int sw_twin_walk_tokens(int local, const uint8_t* tb, const uint8_t* run,
+                        const int64_t* desc, const float* stats, int64_t B,
+                        int64_t L, int32_t* cnt, uint8_t* toks) {
+  for (int64_t b = 0; b < B; ++b) {
+    const int64_t* d = desc + b * sw::DESC_W;
+    cnt[b] = sw::walk_tokens_pair(
+        local != 0, tb + d[sw::D_TB], run + d[sw::D_TB], d[sw::D_RS],
+        d[sw::D_CS], (int)d[sw::D_N], (int)d[sw::D_M],
+        stats + b * sw::STATS_W, L, toks + b, B);
+  }
+  return 0;
 }
 
 // Same arguments and layout as sw_walk_launch (walk.cu), host pointers.

@@ -27,6 +27,16 @@
 // one-column-ahead prefetch in fill_pair faulted with an illegal address
 // in the optimized non-LOCAL score-only build, not under -G; the plain
 // loop the compiler unrolls itself is right in every specialization.)
+//
+// K10: the same kernel with RUNS, replacing pallas_dp.py _kernel's
+// emit_runs branch (:505-547) as called by fill_tiled(emit_runs=True)
+// (:820).  Besides the pointer byte it writes each cell's match-run byte
+// (sw_cell.cuh run_byte) into a second pool in the pointer pool's layout,
+// which the token walk (token_walk.cu, K11) reads.  The diagonal's run byte
+// is the byte this thread stored one row earlier, read back from the pool
+// (an L1/L2 hit: one more byte load a cell); bound as K1 is, by the serial
+// chain of a pair, now with two byte stores a cell.  K1 without runs is
+// the RUNS = false specialization, unchanged.
 #include <cuda_runtime.h>
 
 #include "sw_cell.cuh"
@@ -35,35 +45,53 @@ namespace {
 
 constexpr int kThreads = 32;
 
-template <int MODE, bool TB>
+template <int MODE, bool TB, bool RUNS>
 __global__ void __launch_bounds__(kThreads)
     fill_kernel(const float* __restrict__ table, int K,
                 const uint8_t* __restrict__ codes1,
                 const uint8_t* __restrict__ codes2,
                 const int64_t* __restrict__ desc, int64_t B, uint8_t* tb,
-                float* carry, float* stats, float og, float eg) {
+                uint8_t* run, float* carry, float* stats, float og,
+                float eg) {
   extern __shared__ float tab[];
   for (int t = threadIdx.x; t < K * K; t += blockDim.x) tab[t] = table[t];
   __syncthreads();
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int64_t* d = desc + b * sw::DESC_W;
-  sw::fill_pair<MODE, TB>(tab, K, codes1 + d[sw::D_OFF1],
-                          codes2 + d[sw::D_OFF2], (int)d[sw::D_N],
-                          (int)d[sw::D_M], TB ? tb + d[sw::D_TB] : nullptr,
-                          d[sw::D_RS], d[sw::D_CS], carry + d[sw::D_CARRY],
-                          3 * d[sw::D_CS], og, eg, stats + b * sw::STATS_W);
+  sw::fill_pair<MODE, TB, RUNS>(
+      tab, K, codes1 + d[sw::D_OFF1], codes2 + d[sw::D_OFF2],
+      (int)d[sw::D_N], (int)d[sw::D_M], TB ? tb + d[sw::D_TB] : nullptr,
+      d[sw::D_RS], d[sw::D_CS], carry + d[sw::D_CARRY], 3 * d[sw::D_CS], og,
+      eg, stats + b * sw::STATS_W, RUNS ? run + d[sw::D_TB] : nullptr);
 }
 
-template <int MODE, bool TB>
+template <int MODE, bool TB, bool RUNS = false>
 void launch(const float* table, int K, const uint8_t* codes1,
             const uint8_t* codes2, const int64_t* desc, int64_t B,
-            uint8_t* tb, float* carry, float* stats, float og, float eg,
-            cudaStream_t stream) {
+            uint8_t* tb, uint8_t* run, float* carry, float* stats, float og,
+            float eg, cudaStream_t stream) {
   const unsigned grid = (unsigned)((B + kThreads - 1) / kThreads);
   const size_t smem = (size_t)K * K * sizeof(float);
-  fill_kernel<MODE, TB><<<grid, kThreads, smem, stream>>>(
-      table, K, codes1, codes2, desc, B, tb, carry, stats, og, eg);
+  fill_kernel<MODE, TB, RUNS><<<grid, kThreads, smem, stream>>>(
+      table, K, codes1, codes2, desc, B, tb, run, carry, stats, og, eg);
+}
+
+template <int MODE>
+void launch_mode(int traceback, const float* table, int K,
+                 const uint8_t* codes1, const uint8_t* codes2,
+                 const int64_t* desc, int64_t B, uint8_t* tb, uint8_t* run,
+                 float* carry, float* stats, float og, float eg,
+                 cudaStream_t st) {
+  if (run)
+    launch<MODE, true, true>(table, K, codes1, codes2, desc, B, tb, run,
+                             carry, stats, og, eg, st);
+  else if (traceback)
+    launch<MODE, true>(table, K, codes1, codes2, desc, B, tb, nullptr, carry,
+                       stats, og, eg, st);
+  else
+    launch<MODE, false>(table, K, codes1, codes2, desc, B, nullptr, nullptr,
+                        carry, stats, og, eg, st);
 }
 
 }  // namespace
@@ -72,40 +100,30 @@ extern "C" {
 
 // Launches K1 on `stream` over B pairs described by desc (B, 8) int64.
 // table: (K, K) f32, K <= 64; codes: flat uint8 buffers; tb: uint8 pool
-// (ignored when traceback == 0); carry: f32 scratch; stats: (B, 8) f32.
+// (ignored when traceback == 0); run: NULL, or a second uint8 pool in tb's
+// layout that receives each cell's match-run byte (K10, which needs
+// traceback); carry: f32 scratch; stats: (B, 8) f32.
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int sw_fill_launch(int mode, int traceback, const float* table, int K,
                    const uint8_t* codes1, const uint8_t* codes2,
-                   const int64_t* desc, int64_t B, uint8_t* tb,
+                   const int64_t* desc, int64_t B, uint8_t* tb, uint8_t* run,
                    float* carry, float* stats, float og, float eg,
                    void* stream) {
-  if (B <= 0 || K <= 0 || K > 64) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (mode == sw::LOCAL) {
-    if (traceback)
-      launch<sw::LOCAL, true>(table, K, codes1, codes2, desc, B, tb, carry,
-                              stats, og, eg, st);
-    else
-      launch<sw::LOCAL, false>(table, K, codes1, codes2, desc, B, tb, carry,
-                               stats, og, eg, st);
-  } else if (mode == sw::GLOCAL) {
-    if (traceback)
-      launch<sw::GLOCAL, true>(table, K, codes1, codes2, desc, B, tb, carry,
-                               stats, og, eg, st);
-    else
-      launch<sw::GLOCAL, false>(table, K, codes1, codes2, desc, B, tb,
-                                carry, stats, og, eg, st);
-  } else if (mode == sw::GLOBAL) {
-    if (traceback)
-      launch<sw::GLOBAL, true>(table, K, codes1, codes2, desc, B, tb, carry,
-                               stats, og, eg, st);
-    else
-      launch<sw::GLOBAL, false>(table, K, codes1, codes2, desc, B, tb,
-                                carry, stats, og, eg, st);
-  } else {
+  if (B <= 0 || K <= 0 || K > 64 || (run && !traceback))
     return (int)cudaErrorInvalidValue;
-  }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == sw::LOCAL)
+    launch_mode<sw::LOCAL>(traceback, table, K, codes1, codes2, desc, B, tb,
+                           run, carry, stats, og, eg, st);
+  else if (mode == sw::GLOCAL)
+    launch_mode<sw::GLOCAL>(traceback, table, K, codes1, codes2, desc, B, tb,
+                            run, carry, stats, og, eg, st);
+  else if (mode == sw::GLOBAL)
+    launch_mode<sw::GLOBAL>(traceback, table, K, codes1, codes2, desc, B, tb,
+                            run, carry, stats, og, eg, st);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -146,22 +146,56 @@ SW_HD uint32_t cell(float s, Cell d, Cell u, Cell l, float og, float eg,
   return pm | (px << 2) | (py << 4);
 }
 
+// The match-run byte of one cell (smithwaterman_tpu/ops/pallas_dp.py
+// :505-547, fill_tiled(emit_runs=True)): e in bits 0-3 is the number of
+// EXTRA diagonal M-steps a walk arriving here in state M may take in one
+// jump (1+e cells, at most 16), x in bits 4-5 the state after them.  pm is
+// the cell's M pointer (bits 0-1 of its pointer byte), rdiag the run byte
+// of the diagonal cell (i-1, j-1); row 0 and column 0 read RUN_EDGE, the
+// capped (15, M), so a jump ends one step onto the boundary, where the
+// walk's boundary rules take over.
+//   pm == STOP (LOCAL zero cell)   -> (15, STOP), a marker reserved for
+//                                     these cells: landing on it in state M
+//                                     ends the walk without emission;
+//   pm != M                        -> (0, pm), one step;
+//   pm == M, diagonal is a marker  -> (0, STOP): emit this cell, then stop;
+//   pm == M, diagonal capped       -> (0, M): the jump restarts here;
+//   pm == M, otherwise             -> (e_d + 1, x_d).
+// A chain whose exit is STOP caps one earlier (e <= 14), or a 16-long match
+// chain ending at a zero cell would forge the marker and cut walks short.
+constexpr uint32_t RUN_EDGE = 15;  // (15, M)
+
+SW_HD uint32_t run_byte(uint32_t pm, uint32_t rdiag) {
+  if (pm == STOP) return 15u | (STOP << 4);
+  if (pm != MATCH) return pm << 4;
+  const uint32_t ed = rdiag & 15u, xd = (rdiag >> 4) & 3u;
+  const bool diag_stop = ed == 15u && xd == STOP;
+  const uint32_t ecap = xd == STOP ? 14u : 15u;
+  if (!diag_stop && ed < ecap) return (ed + 1u) | (xd << 4);
+  return (diag_stop ? STOP : MATCH) << 4;
+}
+
 // Fill one pair, row by row, in the kernel's loop order.
 //   tab:   (K, K) substitution table (shared memory on the card)
 //   c1/c2: the pair's codes (n and m of them)
 //   tb:    pointer byte of cell (i, j) at tb[(i-1)*tb_rs + (j-1)*tb_cs]
 //          (only when TB; only cells i <= n, j <= m are written)
+//   run:   with RUNS (which needs TB), the run byte of cell (i, j)
+//          (run_byte) at the same offset as its pointer byte; the byte of
+//          the row above is read back from there, one row late
 //   carry: the previous row's (M, X, Y) at column j at
 //          carry[(j-1)*carry_cs + {0,1,2}] (scratch, m entries)
 //   stats: STATS_W floats.  LOCAL: [best, best_i, best_j] (best_i/best_j
 //          only with TB, as in the Pallas contract), the first maximum of
 //          M in i-major, j-minor order under a strict `>`.  Otherwise the
 //          final cell's (M, X, Y) in slots 3-5.
-template <int MODE, bool TB>
+template <int MODE, bool TB, bool RUNS = false>
 SW_HD void fill_pair(const float* tab, int K, const uint8_t* c1,
                      const uint8_t* c2, int n, int m, uint8_t* tb,
                      int64_t tb_rs, int64_t tb_cs, float* carry,
-                     int64_t carry_cs, float og, float eg, float* stats) {
+                     int64_t carry_cs, float og, float eg, float* stats,
+                     uint8_t* run = nullptr) {
+  static_assert(TB || !RUNS, "run bytes come from the pointer bytes");
   const float so = MODE == GLOBAL ? og : 0.0f;
   const float se = MODE == GLOBAL ? eg : 0.0f;
   const float sent = 10.0f * og + 10.0f * eg;
@@ -186,6 +220,9 @@ SW_HD void fill_pair(const float* tab, int K, const uint8_t* c1,
     const float pe = last_row ? se : eg;
     const float* trow = tab + (int64_t)c1[i - 1] * K;
     uint8_t* tbrow = TB ? tb + (int64_t)(i - 1) * tb_rs : nullptr;
+    uint8_t* runrow = RUNS ? run + (int64_t)(i - 1) * tb_rs : nullptr;
+    const uint8_t* runup = RUNS && i > 1 ? runrow - tb_rs : nullptr;
+    uint32_t rdiag = RUN_EDGE;  // column 0
     float* cj = carry;
     for (int j = 1; j <= m; ++j, cj += carry_cs) {
       const Cell up = {cj[0], cj[1], cj[2]};
@@ -200,6 +237,12 @@ SW_HD void fill_pair(const float* tab, int K, const uint8_t* c1,
       cj[1] = v.x;
       cj[2] = v.y;
       if (TB) tbrow[(int64_t)(j - 1) * tb_cs] = (uint8_t)p;
+      if (RUNS) {
+        const int64_t at = (int64_t)(j - 1) * tb_cs;
+        const uint32_t rup = i > 1 ? runup[at] : RUN_EDGE;  // row 0
+        runrow[at] = (uint8_t)run_byte(p & 3u, rdiag);
+        rdiag = rup;
+      }
       if (MODE == LOCAL && v.m > best) {
         best = v.m;
         best_i = i;

@@ -79,6 +79,72 @@ SW_HD int32_t walk_pair(bool local, const uint8_t* tb, int64_t tb_rs,
   return cnt;
 }
 
+// Walks one pair over its pointer bytes and match-run bytes (run_byte,
+// sw_cell.cuh) and emits tokens: the token walk (kernel K11,
+// token_walk.cu).  Semantics are smithwaterman_tpu/ops/device_walk.py
+// walk_bundle_pooled_tokens (:392-432), step for step:
+//   * the start, the boundary normalisation and the boundary pointers are
+//     walk_pair's;
+//   * in state M inside the matrix, the run byte's reserved (15, STOP)
+//     marker (not the pointer) says the path has ended; otherwise the walk
+//     consumes 1 + e cells on both i and j and goes on in the byte's exit
+//     state; in any other state it takes one step to the pointer's state;
+//   * a LOCAL path ends after the token whose next state is STOP, a
+//     non-LOCAL one at its first boundary cell.
+// Token t of the pair is the byte s | e << 2 (e = 0 outside state M) at
+// toks[t * tok_stride]; only tokens t < the returned count are written.
+SW_HD int32_t walk_tokens_pair(bool local, const uint8_t* tb,
+                               const uint8_t* run, int64_t tb_rs,
+                               int64_t tb_cs, int n, int m, const float* st,
+                               int64_t L, uint8_t* toks, int64_t tok_stride) {
+  int i, j, s;
+  bool done;
+  if (local) {
+    done = st[0] <= 0.0f;
+    i = done ? 0 : (int)st[1];
+    j = done ? 0 : (int)st[2];
+    s = MATCH;
+  } else {
+    i = n;
+    j = m;
+    s = MATCH;
+    if (st[4] > st[3]) s = GAPINX;
+    if (st[5] > st[3 + s]) s = GAPINY;
+    done = false;
+  }
+  int32_t cnt = 0;
+  for (int64_t step = 0; step < L && !done; ++step) {
+    s = normalize_boundary_state(i, j, s);
+    const bool interior = i >= 1 && j >= 1;
+    int prev, e = 0, xs = 0;
+    bool stop;
+    if (interior) {
+      const int64_t at = (int64_t)(i - 1) * tb_rs + (int64_t)(j - 1) * tb_cs;
+      prev = (tb[at] >> (2 * s)) & 3;
+      if (s == MATCH) {
+        const int rb = run[at];
+        e = rb & 15;
+        xs = (rb >> 4) & 3;
+        stop = local && e == 15 && xs == STOP;
+      } else {
+        stop = local && prev == STOP;
+      }
+    } else {
+      prev = boundary_prev(i, j, s, local);
+      stop = local && prev == STOP;
+    }
+    if (stop) break;
+    toks[cnt * tok_stride] = (uint8_t)(s | (e << 2));
+    ++cnt;
+    const int adv = 1 + e;
+    if (s != GAPINX) i -= adv;
+    if (s != GAPINY) j -= adv;
+    s = (interior && s == MATCH) ? xs : prev;
+    done = i == 0 || j == 0 || (local && s == STOP);
+  }
+  return cnt;
+}
+
 // One band's share of a long-sequence walk (kernel K5, seg_walk.cu).
 // Semantics are smithwaterman_tpu/ops/longseq.py _packed_walk_segments'
 // loop body w_body (:359-388), step for step.  Unlike walk_pair, the walk

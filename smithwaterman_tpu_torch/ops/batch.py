@@ -74,10 +74,13 @@ class Flush(NamedTuple):
 
 
 def plan_flushes(chunks: Iterable[Chunk], budget: int, score_only: bool,
-                 long_cells: Optional[int] = None) -> List[Flush]:
+                 long_cells: Optional[int] = None,
+                 runs: bool = False) -> List[Flush]:
     """Split bucket chunks so each piece's pointer array fits ``budget``,
     then group pieces into flushes whose pointers fit it together (input
-    order kept).  Score-only fills keep no pointers: one flush.
+    order kept).  Score-only fills keep no pointers: one flush.  With
+    ``runs`` (the token walk's match-run bytes, one more byte a cell) a
+    cell counts two bytes, as the JAX package doubles ``tb_bytes``.
 
     A chunk whose single pair's pointers exceed the budget, or whose NP*MP
     is at least ``long_cells`` (the JAX package's ``longseq_cells``), takes
@@ -96,9 +99,9 @@ def plan_flushes(chunks: Iterable[Chunk], budget: int, score_only: bool,
     cur_bytes = 0
     for ch in chunks:
         B, NP, MP = ch.shape
-        per_pair = NP * MP
+        per_pair = NP * MP * (2 if runs else 1)
         if per_pair > budget or (long_cells is not None
-                                 and per_pair >= long_cells):
+                                 and NP * MP >= long_cells):
             if cur:
                 flushes.append(Flush(cur))
                 cur, cur_bytes = [], 0

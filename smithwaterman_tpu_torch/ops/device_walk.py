@@ -18,6 +18,20 @@ first boundary cell; the rebuild synthesizes the terminal-gap tail.
 On CUDA tensors :func:`walk_packed` launches K2 (``csrc/walk.cu``) once
 per flush; on CPU tensors it runs :func:`walk_packed_ref`, a lockstep
 loop of tensor operations that mirrors ``device_walk.py:281-311``.
+
+The token walk (:func:`walk_tokens`) replaces ``walk_bundle_pooled_tokens``
+(``device_walk.py:322``): over the fill's pointer pool and its match-run
+bytes (``fill_dp.fill_many(runs=True)``) a pair in state M jumps up to 16
+diagonal cells a step, and each step emits one token byte, state in bits
+0-1 and the extra steps ``e`` in bits 2-5:
+
+* ``cnt`` (B,) int32, the number of tokens of each pair;
+* ``toks`` (L, B) uint8: token ``t`` of pair ``k`` at ``toks[t, k]`` for
+  ``t < cnt[k]``, in walk order; every other byte is 0.
+
+On CUDA tensors it launches K11 (``csrc/token_walk.cu``) once per flush;
+on CPU tensors it runs :func:`walk_tokens_ref`, mirroring
+``device_walk.py:392-432``.
 """
 
 from __future__ import annotations
@@ -30,8 +44,10 @@ import torch
 from ..config import CELL_GAPINX, CELL_GAPINY, CELL_MATCH, CELL_STOP, LOCAL
 from .fill_dp import D_CS, D_M, D_N, D_RS, D_TB
 
-# K2 launches made through walk_packed (a plain count, read by chip_smoke.py)
+# K2 launches made through walk_packed and K11 launches made through
+# walk_tokens (plain counts, read by chip_smoke.py)
 LAUNCHES = 0
+LAUNCHES_TOKENS = 0
 
 
 def max_path_len(np_pad: int, mp_pad: int) -> int:
@@ -127,6 +143,82 @@ def walk_packed(tb: torch.Tensor, desc: torch.Tensor, stats: torch.Tensor,
     return cnt, moves
 
 
+def walk_tokens_ref(tb: torch.Tensor, run: torch.Tensor, desc: torch.Tensor,
+                    stats: torch.Tensor, *, mode: int, L: int):
+    """Plain lockstep token walk of every pair on the tensors' device: one
+    iteration of tensor operations per step, as the JAX loop body."""
+    dev = tb.device
+    B = desc.shape[0]
+    local = mode == LOCAL
+    base, cs, rs = desc[:, D_TB], desc[:, D_CS], desc[:, D_RS]
+    i, j, s, done = _walk_starts(stats, desc[:, D_N], desc[:, D_M], mode)
+    out = torch.zeros((L, B), dtype=torch.uint8, device=dev)
+    cnt = torch.zeros((B,), dtype=torch.int32, device=dev)
+    step = 0
+    while step < L and not bool(done.all()):
+        s = torch.where((j == 0) & (i > 0), CELL_GAPINY,
+                        torch.where((i == 0) & (j > 0), CELL_GAPINX, s))
+        interior = (i >= 1) & (j >= 1)
+        off = base + (i - 1).clamp_min(0) * rs + (j - 1).clamp_min(0) * cs
+        ptr = tb[off].to(torch.int64)
+        rb = run[off].to(torch.int64)
+        prev_in = (ptr >> (2 * s)) & 3
+        bstate = torch.where((i == 0) & (j == 0), CELL_MATCH,
+                             torch.where(i == 0, CELL_GAPINX, CELL_GAPINY))
+        if local:
+            bstate = torch.where(s == bstate, CELL_STOP, bstate)
+        prev = torch.where(interior, prev_in, bstate)
+        is_m = (s == CELL_MATCH) & interior
+        e = torch.where(is_m, rb & 15, 0)
+        xs = (rb >> 4) & 3
+        if local:
+            # the reserved (15, STOP) marker: landing there in state M ends
+            # the path without emission
+            marker = ((rb & 15) == 15) & (xs == CELL_STOP)
+            stop = torch.where(is_m, marker, prev == CELL_STOP)
+        else:
+            stop = torch.zeros_like(done)
+        emit = ~done & ~stop
+        e = torch.where(stop, 0, e)
+        adv = 1 + e
+        ni = torch.where(emit & (s != CELL_GAPINX), i - adv, i)
+        nj = torch.where(emit & (s != CELL_GAPINY), j - adv, j)
+        ns = torch.where(emit, torch.where(is_m, xs, prev), s)
+        out[step] = torch.where(emit, s | (e << 2), 0).to(torch.uint8)
+        cnt += emit.to(torch.int32)
+        done = done | stop | (ni == 0) | (nj == 0)
+        if local:
+            done = done | (ns == CELL_STOP)
+        i, j, s = ni, nj, ns
+        step += 1
+    return cnt, out
+
+
+def walk_tokens(tb: torch.Tensor, run: torch.Tensor, desc: torch.Tensor,
+                stats: torch.Tensor, *, mode: int,
+                L: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-walk every pair of a fill with run bytes (``fill_dp.Filled``'s
+    tb and run pools, desc and stats).  CUDA: one launch of K11.  CPU:
+    :func:`walk_tokens_ref`.  Any other device raises."""
+    global LAUNCHES_TOKENS
+    dev = tb.device
+    if dev.type == "cpu":
+        return walk_tokens_ref(tb, run, desc, stats, mode=mode, L=L)
+    if dev.type != "cuda":
+        raise ValueError(f"no token walk for device {dev}")
+    from . import kernels
+
+    B = desc.shape[0]
+    cnt = torch.empty((B,), dtype=torch.int32, device=dev)
+    toks = torch.zeros((L, B), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return cnt, toks
+    kernels.walk_tokens(tb, run, desc, stats, cnt, toks, local=mode == LOCAL,
+                        L=L)
+    LAUNCHES_TOKENS += 1
+    return cnt, toks
+
+
 def unpack_moves(mv_col: np.ndarray, c: int) -> np.ndarray:
     """(L4,) packed byte column -> (c,) uint8 states, walk order."""
     b = mv_col[: (c + 3) // 4]
@@ -138,6 +230,14 @@ def unpack_moves(mv_col: np.ndarray, c: int) -> np.ndarray:
     return s[:c]
 
 
+def tokens_to_states(tok_col: np.ndarray, c: int) -> np.ndarray:
+    """(L,) token byte column -> expanded per-step uint8 states, walk
+    order (the numpy counterpart of csrc sw_reconstruct_tokens's
+    expansion)."""
+    t = np.asarray(tok_col[:c], np.int64)
+    return np.repeat((t & 3).astype(np.uint8), 1 + (t >> 2))
+
+
 def moves_to_path(moves: np.ndarray, cnt: np.ndarray, i0: int, j0: int,
                   k: int):
     """Replay pair ``k``'s packed move column into left-to-right aligned
@@ -145,7 +245,23 @@ def moves_to_path(moves: np.ndarray, cnt: np.ndarray, i0: int, j0: int,
     c = int(cnt[k])
     if c == 0:
         return [], []
-    s = np.asarray(unpack_moves(moves[:, k], c), np.int64)
+    return _states_to_path(
+        np.asarray(unpack_moves(moves[:, k], c), np.int64), i0, j0)
+
+
+def tokens_to_path(toks: np.ndarray, cnt: np.ndarray, i0: int, j0: int,
+                   k: int):
+    """Like :func:`moves_to_path` for token streams (one byte a token,
+    state bits 0-1, extra MATCH steps bits 2-5)."""
+    c = int(cnt[k])
+    if c == 0:
+        return [], []
+    return _states_to_path(
+        np.asarray(tokens_to_states(toks[:, k], c), np.int64), i0, j0)
+
+
+def _states_to_path(s: np.ndarray, i0: int, j0: int):
+    """Walk-order per-step states -> left-to-right aligned index lists."""
     di = (s != CELL_GAPINX).astype(np.int64)
     dj = (s != CELL_GAPINY).astype(np.int64)
     ib = i0 - np.concatenate([[0], np.cumsum(di[:-1])])

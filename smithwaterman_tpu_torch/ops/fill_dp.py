@@ -17,10 +17,17 @@ One call fills every chunk of a flush (:func:`fill_many`).  Its outputs:
   GLOBAL/GLOCAL ``[0, 0, 0, finalM, finalX, finalY, 0, 0]``.
 * ``desc`` (B, 8) int64 per-pair descriptors (``csrc/sw_cell.cuh`` Desc),
   which the walk (``device_walk``) reads too.
+* ``run`` (with ``runs=True``, for the token walk): a second uint8 pool in
+  ``tb``'s layout holding each cell's match-run byte (``pallas_dp.py``
+  ``fill_tiled(emit_runs=True)``): e in bits 0-3, the exit state in bits
+  4-5, ``(15, STOP)`` reserved for LOCAL zero cells.  Defined, as ``tb``,
+  for each pair's ``[:n, :m]``.
 
-On CUDA tensors :func:`fill_many` launches K1 (``csrc/fill.cu``) once; on
-CPU tensors it runs :func:`fill_ref`, the plain version built on the
-exact oracle ``ops/scan_dp.py``.  There is no other route.
+On CUDA tensors :func:`fill_many` launches K1 (``csrc/fill.cu``) once, or
+K10 (the same kernel writing run bytes too) with ``runs=True``; on CPU
+tensors it runs :func:`fill_ref`, the plain version built on the exact
+oracle ``ops/scan_dp.py``, and :func:`run_bytes_ref`.  There is no other
+route.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import LOCAL
+from ..config import CELL_MATCH, CELL_STOP, LOCAL
 from . import batch, scan_dp
 
 STATS_W = 8
@@ -39,8 +46,12 @@ STATS_W = 8
 D_OFF1, D_OFF2, D_N, D_M, D_TB, D_CS, D_RS, D_CARRY = range(8)
 DESC_W = 8
 
-# K1 launches made through fill_many (a plain count, read by chip_smoke.py)
+# K1 and K10 launches made through fill_many (plain counts, read by
+# chip_smoke.py)
 LAUNCHES = 0
+LAUNCHES_RUNS = 0
+# a run byte: (e, exit state); row 0 and column 0 read (15, M)
+RUN_EDGE = 15
 
 
 @dataclass
@@ -52,12 +63,15 @@ class Filled:
     desc: torch.Tensor             # (B, 8) int64, on the fill's device
     shapes: List[Tuple[int, int, int]]  # per chunk (B, NP, MP)
     tb_base: List[int]             # per chunk offset into the pool
+    run: Optional[torch.Tensor] = None  # run-byte pool in tb's layout
 
-    def tb_view(self, c: int) -> torch.Tensor:
-        """Chunk ``c``'s pointers as a (NP, MP, B) view of the pool."""
+    def tb_view(self, c: int, pool: Optional[torch.Tensor] = None):
+        """Chunk ``c``'s pointers (or its bytes of ``pool``, a pool in the
+        same layout such as ``run``) as a (NP, MP, B) view."""
         B, NP, MP = self.shapes[c]
         lo = self.tb_base[c]
-        return self.tb[lo:lo + NP * MP * B].view(NP, MP, B)
+        pool = self.tb if pool is None else pool
+        return pool[lo:lo + NP * MP * B].view(NP, MP, B)
 
 
 def layout(chunks: Sequence[batch.Chunk]):
@@ -115,6 +129,35 @@ def fill_ref(table: torch.Tensor, codes1: torch.Tensor, codes2: torch.Tensor,
     return tb, stats
 
 
+def run_bytes_ref(tb: torch.Tensor) -> torch.Tensor:
+    """The match-run bytes of one chunk's pointers ``tb`` (NP, MP, B),
+    in plain PyTorch: a loop over rows, vectorised over columns and pairs,
+    reading the row above shifted one column, as ``pallas_dp.py:525-546``
+    and ``csrc/sw_cell.cuh`` ``run_byte`` do."""
+    NP, MP, B = tb.shape
+    pm = (tb & 3).to(torch.int32)
+    out = torch.empty_like(tb)
+    edge = torch.full((1, B), RUN_EDGE, dtype=torch.int32, device=tb.device)
+    above = edge.expand(MP, B)          # row 0
+    for i in range(NP):
+        rd = torch.cat([edge, above[:-1]], 0)   # column 0 reads the edge
+        ed, xd = rd & 15, (rd >> 4) & 3
+        p = pm[i]
+        is_m = p == CELL_MATCH
+        diag_stop = (ed == 15) & (xd == CELL_STOP)
+        ecap = torch.where(xd == CELL_STOP, 14, 15)
+        cont = is_m & ~diag_stop & (ed < ecap)
+        e = torch.where(cont, ed + 1, 0)
+        x = torch.where(cont, xd, torch.where(
+            is_m, torch.where(diag_stop, CELL_STOP, CELL_MATCH), p))
+        stop = p == CELL_STOP
+        e = torch.where(stop, 15, e)
+        x = torch.where(stop, CELL_STOP, x)
+        above = e | (x << 4)
+        out[i] = above.to(torch.uint8)
+    return out
+
+
 def _validate(chunks: Sequence[batch.Chunk], K: int) -> None:
     for ch in chunks:
         B, NP, MP = ch.shape
@@ -137,27 +180,34 @@ def _validate(chunks: Sequence[batch.Chunk], K: int) -> None:
             raise ValueError(f"codes must lie below the table's {K} symbols")
 
 
-def _alloc(chunks, table: torch.Tensor, score_only: bool):
+def _alloc(chunks, table: torch.Tensor, score_only: bool, runs: bool):
+    if runs and score_only:
+        raise ValueError("run bytes come with a traceback fill")
     dev = table.device
     _validate(chunks, table.shape[0])
     desc_np, tb_base, tb_bytes, carry_floats = layout(chunks)
-    tb = (None if score_only
-          else torch.empty(max(tb_bytes, 1), dtype=torch.uint8, device=dev))
+
+    def pool(on):
+        return (torch.empty(max(tb_bytes, 1), dtype=torch.uint8, device=dev)
+                if on else None)
+
     stats = torch.empty((desc_np.shape[0], STATS_W), dtype=torch.float32,
                         device=dev)
-    out = Filled(tb, stats, torch.from_numpy(desc_np).to(dev),
-                 [ch.shape for ch in chunks], tb_base)
+    out = Filled(pool(not score_only), stats,
+                 torch.from_numpy(desc_np).to(dev),
+                 [ch.shape for ch in chunks], tb_base, pool(runs))
     return out, carry_floats
 
 
 def fill_many_ref(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
-                  mode: int, og: float, eg: float,
-                  score_only: bool = False) -> Filled:
-    """The plain version of :func:`fill_many`: :func:`fill_ref` per chunk,
-    on ``table``'s device, into the same pool layout."""
+                  mode: int, og: float, eg: float, score_only: bool = False,
+                  runs: bool = False) -> Filled:
+    """The plain version of :func:`fill_many`: :func:`fill_ref` (and with
+    ``runs`` :func:`run_bytes_ref`) per chunk, on ``table``'s device, into
+    the same pool layout."""
     dev = table.device
     table = table.to(torch.float32)
-    out, _ = _alloc(chunks, table, score_only)
+    out, _ = _alloc(chunks, table, score_only, runs)
     lo = 0
     for c, ch in enumerate(chunks):
         B = ch.shape[0]
@@ -167,28 +217,32 @@ def fill_many_ref(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
         out.stats[lo:lo + B] = st
         if tbc is not None:
             out.tb_view(c).copy_(tbc)
+        if runs:
+            out.tb_view(c, out.run).copy_(run_bytes_ref(tbc))
         lo += B
     return out
 
 
 def fill_many(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
-              mode: int, og: float, eg: float,
-              score_only: bool = False) -> Filled:
-    """Fill every chunk of a flush on ``table``'s device.
+              mode: int, og: float, eg: float, score_only: bool = False,
+              runs: bool = False) -> Filled:
+    """Fill every chunk of a flush on ``table``'s device; with ``runs``
+    the match-run bytes too (``Filled.run``).
 
-    CUDA: one launch of K1 over all pairs (codes uploaded as two flat
-    buffers, the per-pair descriptors as one (B, 8) array).  CPU: the
-    plain version, :func:`fill_many_ref`.  Any other device raises."""
-    global LAUNCHES
+    CUDA: one launch of K1 (K10 with ``runs``) over all pairs (codes
+    uploaded as two flat buffers, the per-pair descriptors as one (B, 8)
+    array).  CPU: the plain version, :func:`fill_many_ref`.  Any other
+    device raises."""
+    global LAUNCHES, LAUNCHES_RUNS
     dev = table.device
     if dev.type == "cpu":
         return fill_many_ref(table, chunks, mode=mode, og=og, eg=eg,
-                             score_only=score_only)
+                             score_only=score_only, runs=runs)
     if dev.type != "cuda":
         raise ValueError(f"no fill for device {dev}")
     from . import kernels
 
-    out, carry_floats = _alloc(chunks, table, score_only)
+    out, carry_floats = _alloc(chunks, table, score_only, runs)
     if out.desc.shape[0] == 0:
         return out
     codes1 = torch.from_numpy(np.concatenate(
@@ -198,6 +252,9 @@ def fill_many(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
     carry = torch.empty(carry_floats, dtype=torch.float32, device=dev)
     kernels.fill(table.to(torch.float32).contiguous(), codes1, codes2,
                  out.desc, out.tb, carry, out.stats, mode=mode,
-                 traceback=not score_only, og=og, eg=eg)
-    LAUNCHES += 1
+                 traceback=not score_only, og=og, eg=eg, run=out.run)
+    if runs:
+        LAUNCHES_RUNS += 1
+    else:
+        LAUNCHES += 1
     return out

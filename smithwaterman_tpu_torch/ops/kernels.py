@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-``csrc/fill.cu`` (K1), ``csrc/walk.cu`` (K2), ``csrc/longseq_fill.cu``
-(K3, K4), ``csrc/seg_walk.cu`` (K5), ``csrc/banded_scores.cu`` (K6),
-``csrc/banded_fill.cu`` (K7) and ``csrc/banded_walk.cu`` (K8) are
-compiled on first use with
+``csrc/fill.cu`` (K1, and K10 with run bytes), ``csrc/walk.cu`` (K2),
+``csrc/longseq_fill.cu`` (K3, K4), ``csrc/seg_walk.cu`` (K5),
+``csrc/banded_scores.cu`` (K6), ``csrc/banded_fill.cu`` (K7),
+``csrc/banded_walk.cu`` (K8), ``csrc/diag_fill.cu`` (K9) and
+``csrc/token_walk.cu`` (K11) are compiled on first use with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per source, all
 started together, and linked into one shared library with a plain C
 interface under the package's ``_build/`` directory, loaded with ctypes.
@@ -11,11 +12,13 @@ No PyTorch header is compiled, so the build takes seconds.
 
 Every launch goes through one wrapper here (:func:`fill`, :func:`walk`,
 :func:`ckpt_fill`, :func:`band_fill`, :func:`seg_walk`,
-:func:`banded_scores`, :func:`banded_fill`, :func:`banded_walk`), which
+:func:`banded_scores`, :func:`banded_fill`, :func:`banded_walk`,
+:func:`diag_fill`, :func:`walk_tokens`), which
 checks the tensors the kernel takes, passes each pointer and the current
 stream as ``c_void_p``, and raises when the C entry point reports a CUDA
 error.  The callers (``ops/fill_dp.py``, ``ops/device_walk.py``,
-``ops/longseq.py``, ``ops/banded.py``) count launches.  This module
+``ops/longseq.py``, ``ops/banded.py``, ``ops/diag_dp.py``) count
+launches.  This module
 imports nothing CUDA-specific until a kernel is built.
 """
 
@@ -33,7 +36,8 @@ from . import native
 KERNEL_SOURCES = tuple(
     os.path.join(native.CSRC, f)
     for f in ("fill.cu", "walk.cu", "longseq_fill.cu", "seg_walk.cu",
-              "banded_scores.cu", "banded_fill.cu", "banded_walk.cu")
+              "banded_scores.cu", "banded_fill.cu", "banded_walk.cu",
+              "diag_fill.cu", "token_walk.cu")
 )
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH + (
@@ -93,7 +97,7 @@ def lib() -> ctypes.CDLL:
                          ctypes.c_float)
     so.sw_fill_launch.restype = i32
     so.sw_fill_launch.argtypes = [
-        i32, i32, vp, i32, vp, vp, vp, i64, vp, vp, vp, f32, f32, vp,
+        i32, i32, vp, i32, vp, vp, vp, i64, vp, vp, vp, vp, f32, f32, vp,
     ]
     so.sw_walk_launch.restype = i32
     so.sw_walk_launch.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp, vp]
@@ -123,6 +127,14 @@ def lib() -> ctypes.CDLL:
     so.sw_banded_walk_launch.argtypes = [
         i32, vp, vp, vp, vp, i64, i64, i32, i64, vp, vp, vp, vp, vp,
     ]
+    so.sw_diag_fill_launch.restype = i32
+    so.sw_diag_fill_launch.argtypes = [
+        vp, i32, vp, vp, vp, i64, vp, vp, f32, f32, vp,
+    ]
+    so.sw_walk_tokens_launch.restype = i32
+    so.sw_walk_tokens_launch.argtypes = [
+        i32, vp, vp, vp, vp, i64, i64, vp, vp, vp,
+    ]
     _LIB = so
     return so
 
@@ -146,8 +158,9 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def fill(table, codes1, codes2, desc, tb, carry, stats, *, mode: int,
-         traceback: bool, og: float, eg: float) -> None:
-    """Launch K1 (csrc/fill.cu) on the current stream; see fill_dp."""
+         traceback: bool, og: float, eg: float, run=None) -> None:
+    """Launch K1 (csrc/fill.cu) on the current stream, or K10 when given a
+    ``run`` pool (tb's size; needs ``traceback``); see fill_dp."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, got {dev}")
@@ -161,16 +174,21 @@ def fill(table, codes1, codes2, desc, tb, carry, stats, *, mode: int,
     _check(stats, "stats", torch.float32, dev, (B, 8))
     if traceback:
         _check(tb, "tb", torch.uint8, dev)
+    if run is not None:
+        if not traceback:
+            raise ValueError("K10's run bytes need a traceback fill")
+        _check(run, "run", torch.uint8, dev, tuple(tb.shape))
     # a launch goes to the current device: make it the tensors' card
     with torch.cuda.device(dev):
         rc = lib().sw_fill_launch(
             int(mode), 1 if traceback else 0, table.data_ptr(), K,
             codes1.data_ptr(), codes2.data_ptr(), desc.data_ptr(), B,
-            tb.data_ptr() if traceback else None, carry.data_ptr(),
+            tb.data_ptr() if traceback else None,
+            None if run is None else run.data_ptr(), carry.data_ptr(),
             stats.data_ptr(), float(og), float(eg),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(rc, "K1 (fill)")
+    _raise_on(rc, "K1 (fill)" if run is None else "K10 (fill with runs)")
 
 
 def walk(tb, desc, stats, cnt, moves, *, local: bool, L: int) -> None:
@@ -355,3 +373,52 @@ def banded_walk(tb, off, start, m, idx1, idx2, cnt, flags, *, local: bool,
             flags.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K8 (banded walk)")
+
+
+def diag_fill(table, codes1, codes2, desc, scratch, stats, *, og: float,
+              eg: float) -> None:
+    """Launch K9 (csrc/diag_fill.cu) on the current stream; see
+    ops/diag_dp.fill_diag."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"K9 runs on CUDA tensors, got {dev}")
+    if not og <= eg <= 0.0:
+        raise ValueError(f"K9 needs og <= eg <= 0, got og={og}, eg={eg}")
+    K = _check_table(table, "K9")
+    B = desc.shape[0]
+    _check(table, "table", torch.float32, dev)
+    _check(codes1, "codes1", torch.uint8, dev)
+    _check(codes2, "codes2", torch.uint8, dev)
+    _check(desc, "desc", torch.int64, dev, (B, 8))
+    _check(scratch, "scratch", torch.float32, dev)
+    _check(stats, "stats", torch.float32, dev, (B, 8))
+    with torch.cuda.device(dev):
+        rc = lib().sw_diag_fill_launch(
+            table.data_ptr(), K, codes1.data_ptr(), codes2.data_ptr(),
+            desc.data_ptr(), B, scratch.data_ptr(), stats.data_ptr(),
+            float(og), float(eg), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "K9 (wavefront score fill)")
+
+
+def walk_tokens(tb, run, desc, stats, cnt, toks, *, local: bool,
+                L: int) -> None:
+    """Launch K11 (csrc/token_walk.cu) on the current stream; see
+    device_walk.walk_tokens."""
+    dev = tb.device
+    if dev.type != "cuda":
+        raise ValueError(f"K11 runs on CUDA tensors, got {dev}")
+    B = desc.shape[0]
+    _check(tb, "tb", torch.uint8, dev)
+    _check(run, "run", torch.uint8, dev, tuple(tb.shape))
+    _check(desc, "desc", torch.int64, dev, (B, 8))
+    _check(stats, "stats", torch.float32, dev, (B, 8))
+    _check(cnt, "cnt", torch.int32, dev, (B,))
+    _check(toks, "toks", torch.uint8, dev, (L, B))
+    with torch.cuda.device(dev):
+        rc = lib().sw_walk_tokens_launch(
+            1 if local else 0, tb.data_ptr(), run.data_ptr(), desc.data_ptr(),
+            stats.data_ptr(), B, int(L), cnt.data_ptr(), toks.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "K11 (token walk)")

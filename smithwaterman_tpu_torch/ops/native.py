@@ -8,7 +8,7 @@ Two libraries, each compiled with g++ on first use into the package's
   its own copy through ``csrc/Makefile``; this module does not use it);
 * the cell twin: ``csrc/cell_twin.cpp`` of this package, which runs the
   GPU kernels' own headers (``sw_cell.cuh``, ``sw_walk.cuh``,
-  ``sw_band.cuh``, ``sw_banded.cuh``) on the host so the tier-1 tests
+  ``sw_band.cuh``, ``sw_banded.cuh``, ``sw_diag.cuh``) on the host so the tier-1 tests
   check the code the card runs.
 
 Every library (these two and the CUDA kernels of ``ops/kernels.py``) is
@@ -116,15 +116,18 @@ def host_lib() -> ctypes.CDLL:
     lib.sw_walk_banded.argtypes = [
         pu8, i64, pi32, i64, i64, i64, i64, i64, pi64, pi64, i64, pi64,
     ]
-    lib.sw_reconstruct_moves.restype = i64
-    lib.sw_reconstruct_moves.argtypes = [
-        pu8, i64, i64,          # moves, row_stride, n_rows
-        pi32, pi32, pi32,       # cnt, i0, j0
-        pu8, pi64, pu8, pi64,   # seq1, off1, seq2, off2
-        i64, i64, i64,          # count, local, retain
-        pu8, pu8, pi64,         # out1, out2, outoff
-        pi64, pi64,             # outlen, spans
-    ]
+    # the token rebuild takes the move rebuild's arguments, with one
+    # token byte an entry and cnt counting tokens
+    for fn in (lib.sw_reconstruct_moves, lib.sw_reconstruct_tokens):
+        fn.restype = i64
+        fn.argtypes = [
+            pu8, i64, i64,          # moves or tokens, row_stride, n_rows
+            pi32, pi32, pi32,       # cnt, i0, j0
+            pu8, pi64, pu8, pi64,   # seq1, off1, seq2, off2
+            i64, i64, i64,          # count, local, retain
+            pu8, pu8, pi64,         # out1, out2, outoff
+            pi64, pi64,             # outlen, spans
+        ]
     p = ctypes.POINTER
     lib.sw_fasta_parse.restype = ctypes.c_void_p
     lib.sw_fasta_parse.argtypes = [ctypes.c_char_p, i64, p(i64)]
@@ -182,6 +185,18 @@ def twin_lib() -> ctypes.CDLL:
     lib.sw_twin_banded_walk.restype = i32
     lib.sw_twin_banded_walk.argtypes = [
         i32, vp, vp, vp, vp, i64, i64, i32, i64, vp, vp, vp, vp,
+    ]
+    lib.sw_twin_fill_runs.restype = i32
+    lib.sw_twin_fill_runs.argtypes = [
+        i32, vp, i32, vp, vp, vp, i64, vp, vp, vp, vp, f32, f32,
+    ]
+    lib.sw_twin_diag_fill.restype = i32
+    lib.sw_twin_diag_fill.argtypes = [
+        vp, i32, vp, vp, vp, i64, vp, vp, f32, f32,
+    ]
+    lib.sw_twin_walk_tokens.restype = i32
+    lib.sw_twin_walk_tokens.argtypes = [
+        i32, vp, vp, vp, vp, i64, i64, vp, vp,
     ]
     _LIBS["twin"] = lib
     return lib

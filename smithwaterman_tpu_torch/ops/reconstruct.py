@@ -3,7 +3,9 @@
 The counterpart of ``smithwaterman_tpu/ops/reconstruct.py``: the device
 walk ships one 2-bit-packed move array per flush, and the shared native
 rebuild ``csrc/reconstruct.cpp`` (``sw_reconstruct_moves``) replays every
-pair's stream straight into its alignment strings.  String and span
+pair's stream straight into its alignment strings; the token walk ships
+one byte a token, which ``sw_reconstruct_tokens`` expands the same way
+(``tokens=True``).  String and span
 semantics are ``aligner.reconstruct_alignment``'s (parity:
 sequence_alignment.rs:469-551); :func:`reconstruct_packed_py` is the exact
 Python path the tests hold the native one against.
@@ -38,13 +40,16 @@ def reconstruct_packed(
     mode: int,
     retain_all: bool,
     col0: int = 0,
+    tokens: bool = False,
 ) -> List:
     """Replay packed move streams into AlignResults, natively.
 
     ``moves`` is the (n_rows, B) packed byte array whose columns ``col0 ..
     col0+count`` belong to these pairs (count = len(seq1s)); cnt, i0, j0
-    and scores are per pair (>= count entries).  Raises on a stream the
-    rebuild rejects (a corrupt walk)."""
+    and scores are per pair (>= count entries).  ``tokens=True`` reads
+    ``moves`` as a token stream (``device_walk.walk_tokens``: one byte a
+    token, ``cnt`` counting tokens).  Raises on a stream the rebuild
+    rejects (a corrupt walk)."""
     from ..aligner import AlignResult
 
     count = len(seq1s)
@@ -79,7 +84,9 @@ def reconstruct_packed(
     spans = np.zeros((count, 4), np.int64)
     i64, i32, u8 = ctypes.c_int64, ctypes.c_int32, ctypes.c_uint8
     mv_ptr = ctypes.cast(moves.ctypes.data + col0, ctypes.POINTER(u8))
-    rc = lib.sw_reconstruct_moves(
+    rebuild = (lib.sw_reconstruct_tokens if tokens
+               else lib.sw_reconstruct_moves)
+    rc = rebuild(
         mv_ptr, B, n_rows,
         _ptr(cnt32, i32), _ptr(i032, i32), _ptr(j032, i32),
         _ptr(seq1, u8), _ptr(off1, i64), _ptr(seq2, u8), _ptr(off2, i64),
@@ -88,7 +95,8 @@ def reconstruct_packed(
         _ptr(outlen, i64), _ptr(spans, i64),
     )
     if rc != 0:
-        raise RuntimeError(f"corrupt move stream at pair {-rc - 1}")
+        raise RuntimeError(f"corrupt {'token' if tokens else 'move'} "
+                           f"stream at pair {-rc - 1}")
     o1b = out1.tobytes()
     o2b = out2.tobytes()
     res = []
@@ -105,15 +113,18 @@ def reconstruct_packed(
 
 
 def reconstruct_packed_py(seq1s, seq2s, moves, cnt, i0, j0, scores,
-                          mode: int, retain_all: bool, col0: int = 0):
+                          mode: int, retain_all: bool, col0: int = 0,
+                          tokens: bool = False):
     """The exact Python path of :func:`reconstruct_packed` (no warning)."""
     from ..aligner import reconstruct_alignment
 
     if mode != LOCAL:
         retain_all = True
+    to_path = (device_walk.tokens_to_path if tokens
+               else device_walk.moves_to_path)
     res = []
     for k in range(len(seq1s)):
-        idx1, idx2 = device_walk.moves_to_path(
+        idx1, idx2 = to_path(
             moves[:, col0:], cnt, int(i0[k]), int(j0[k]), k)
         if mode != LOCAL:
             # a non-local stream stops at its first boundary cell: put

@@ -12,7 +12,8 @@ import torch
 
 from smithwaterman_tpu_torch import GLOBAL, GLOCAL, LOCAL, BatchAligner
 from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
-from smithwaterman_tpu_torch.ops import batch, device_walk, fill_dp, longseq
+from smithwaterman_tpu_torch.ops import (batch, device_walk, diag_dp,
+                                         fill_dp, longseq)
 
 pytestmark = pytest.mark.gpu
 MODES = [LOCAL, GLOCAL, GLOBAL]
@@ -105,8 +106,9 @@ def _fenced(nbytes, dtype, dev, inner=CANARY):
 @pytest.mark.parametrize("score_only", [False, True])
 @pytest.mark.parametrize("mode", MODES)
 def test_kernels_write_only_their_outputs(cuda, mode, score_only):
-    """K1 and K2 launched on outputs fenced by canary bytes: every canary
-    stays intact and the outputs equal the wrappers' on the same inputs."""
+    """K1 and K2 (traceback), K10 and K11 (traceback) and K9 (score-only
+    LOCAL) launched on outputs fenced by canary bytes: every canary stays
+    intact and the outputs equal the wrappers' on the same inputs."""
     from smithwaterman_tpu_torch.ops import kernels
 
     chunks = _chunks(20 + mode)
@@ -127,30 +129,162 @@ def test_kernels_write_only_their_outputs(cuda, mode, score_only):
     stats = stats.view(B, 8)
     kernels.fill(tab, codes1, codes2, want.desc, tb, carry, stats,
                  traceback=not score_only, **args)
+    L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in want.shapes)
     if not score_only:
-        L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in want.shapes)
         L4 = -(-L // 4)
         arenas["cnt"], cnt = _fenced(4 * B, torch.int32, cuda)
         arenas["moves"], moves = _fenced(L4 * B, torch.uint8, cuda, inner=0)
         moves = moves.view(L4, B)
         kernels.walk(tb, want.desc, stats, cnt, moves, local=mode == LOCAL,
                      L=L)
+        # K10 into fenced pointer and run pools, K11 into fenced outputs
+        arenas["tb10"], tb10 = _fenced(tb_bytes, torch.uint8, cuda)
+        arenas["run"], run = _fenced(tb_bytes, torch.uint8, cuda)
+        arenas["carry10"], carry10 = _fenced(4 * carry_floats, torch.float32,
+                                             cuda)
+        arenas["stats10"], stats10 = _fenced(4 * 8 * B, torch.float32, cuda)
+        stats10 = stats10.view(B, 8)
+        kernels.fill(tab, codes1, codes2, want.desc, tb10, carry10, stats10,
+                     traceback=True, run=run, **args)
+        arenas["tcnt"], tcnt = _fenced(4 * B, torch.int32, cuda)
+        arenas["toks"], toks = _fenced(L * B, torch.uint8, cuda, inner=0)
+        toks = toks.view(L, B)
+        kernels.walk_tokens(tb10, run, want.desc, stats10, tcnt, toks,
+                            local=mode == LOCAL, L=L)
+    elif mode == LOCAL:
+        # K9 into a fenced scratch and stats
+        desc9, floats = diag_dp.layout(chunks)
+        desc9 = torch.from_numpy(desc9).to(cuda)
+        arenas["scratch9"], scratch9 = _fenced(4 * floats, torch.float32,
+                                               cuda)
+        arenas["stats9"], stats9 = _fenced(4 * 8 * B, torch.float32, cuda)
+        stats9 = stats9.view(B, 8)
+        kernels.diag_fill(tab, codes1, codes2, desc9, scratch9, stats9,
+                          og=-10.0, eg=-0.5)
     torch.cuda.synchronize()
     for name, arena in arenas.items():
         assert bool((arena[:GUARD] == CANARY).all()), name
         assert bool((arena[-GUARD:] == CANARY).all()), name
     assert torch.equal(stats, want.stats)
     if score_only:
+        if mode == LOCAL:
+            assert torch.equal(stats9, diag_dp.fill_diag(tab, chunks,
+                                                         og=-10.0, eg=-0.5))
         return
     got = fill_dp.Filled(tb, stats, want.desc, want.shapes, want.tb_base)
+    wruns = fill_dp.fill_many(tab, chunks, runs=True, **args)
+    got10 = fill_dp.Filled(tb10, stats10, want.desc, want.shapes,
+                           want.tb_base, run)
+    assert torch.equal(stats10, want.stats)
     for c, ch in enumerate(chunks):
         for b in range(ch.shape[0]):
             n, m = int(ch.n[b]), int(ch.m[b])
-            assert torch.equal(got.tb_view(c)[:n, :m, b],
-                               want.tb_view(c)[:n, :m, b])
+            for f in (got, got10):
+                assert torch.equal(f.tb_view(c)[:n, :m, b],
+                                   want.tb_view(c)[:n, :m, b])
+            assert torch.equal(got10.tb_view(c, run)[:n, :m, b],
+                               wruns.tb_view(c, wruns.run)[:n, :m, b])
     wcnt, wmv = device_walk.walk_packed(want.tb, want.desc, want.stats,
                                         mode=mode, L=L)
     assert torch.equal(cnt, wcnt) and torch.equal(moves, wmv)
+    wtcnt, wtoks = device_walk.walk_tokens(wruns.tb, wruns.run, wruns.desc,
+                                           wruns.stats, mode=mode, L=L)
+    assert torch.equal(tcnt, wtcnt) and torch.equal(toks, wtoks)
+
+
+def _run_chunks(seed):
+    """_chunks with identical runs longer than 16 in half the pairs."""
+    out = _chunks(seed)
+    for ch in out:
+        for b in range(0, ch.shape[0], 2):
+            k = min(ch.shape[1], ch.shape[2]) - 3
+            ch.codes2[b, 3:3 + k] = ch.codes1[b, :k]
+    return out
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_run_fill_and_token_walk_match_plain(cuda, mode):
+    """K10 (pointer bytes, run bytes, stats) against its plain version and
+    K1, and K11 on K10's own pools against its plain version."""
+    chunks = _run_chunks(30 + mode)
+    tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
+    for og, eg in ((-10.0, -0.5), (0.0, 0.0)):
+        args = dict(mode=mode, og=og, eg=eg)
+        before = fill_dp.LAUNCHES_RUNS
+        got = fill_dp.fill_many(tab, chunks, runs=True, **args)
+        assert fill_dp.LAUNCHES_RUNS == before + 1
+        ref = fill_dp.fill_many_ref(tab, chunks, runs=True, **args)
+        k1 = fill_dp.fill_many(tab, chunks, **args)
+        assert torch.equal(got.stats, ref.stats)
+        assert torch.equal(got.stats, k1.stats)
+        for c, ch in enumerate(chunks):
+            for b in range(ch.shape[0]):
+                n, m = int(ch.n[b]), int(ch.m[b])
+                assert torch.equal(got.tb_view(c)[:n, :m, b],
+                                   k1.tb_view(c)[:n, :m, b])
+                assert torch.equal(got.tb_view(c, got.run)[:n, :m, b],
+                                   ref.tb_view(c, ref.run)[:n, :m, b])
+        L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in got.shapes)
+        cnt, toks = device_walk.walk_tokens(got.tb, got.run, got.desc,
+                                            got.stats, mode=mode, L=L)
+        rcnt, rtoks = device_walk.walk_tokens_ref(got.tb, got.run, got.desc,
+                                                  got.stats, mode=mode, L=L)
+        assert torch.equal(cnt, rcnt) and torch.equal(toks, rtoks)
+        assert int(((toks >> 2) > 0).sum()) > 0  # runs were jumped
+
+
+@pytest.mark.parametrize("og,eg", [(-10.0, -0.5), (0.0, 0.0), (-5.0, -2.0)])
+def test_diag_kernel_matches_plain(cuda, og, eg):
+    """K9 against its plain version and K1's score-only best."""
+    chunks = _chunks(40)
+    ch = chunks[0]
+    ch.n[1], ch.m[2] = 1, 1
+    ch.m[3] = 32
+    # a stretch from row 0 across the first strip boundary (column 31)
+    ch.codes1[4, :60] = 18
+    ch.codes2[4, 31:91] = 18
+    ch.n[4], ch.m[4] = 128, 256
+    tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
+    before = diag_dp.LAUNCHES
+    got = diag_dp.fill_diag(tab, chunks, og=og, eg=eg)
+    assert diag_dp.LAUNCHES == before + 1
+    ref = torch.cat([diag_dp.fill_diag_ref(
+        tab, *(torch.from_numpy(a).to(cuda) for a in c), og=og, eg=eg)
+        for c in chunks])
+    k1 = fill_dp.fill_many(tab, chunks, mode=LOCAL, og=og, eg=eg,
+                           score_only=True)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, k1.stats)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_opt_in_routes_cuda_match_cpu(cuda, mode, monkeypatch):
+    """The token walk (K10, K11) and, in LOCAL, the wavefront route (K9)
+    through BatchAligner on the card equal the CPU path."""
+    rng = np.random.default_rng(60 + mode)
+    letters = np.array(list("ARNDCQEGHILKMFPSTWYV"))
+    pairs = []
+    for _ in range(40):
+        a = "".join(rng.choice(letters, int(rng.integers(1, 300))))
+        b = "".join(rng.choice(letters, int(rng.integers(1, 300))))
+        pairs.append((a, b[:20] + a[10:200] + b[20:] if len(a) > 50 else b))
+    pairs.append(("", "ACD"))
+    want = BatchAligner(mode=mode, device="cpu").align_pairs(pairs)
+    monkeypatch.setenv("SWTPU_TOKEN_WALK", "1")
+    before = (fill_dp.LAUNCHES_RUNS, device_walk.LAUNCHES_TOKENS,
+              fill_dp.LAUNCHES, device_walk.LAUNCHES)
+    got = BatchAligner(mode=mode, device="cuda").align_pairs(pairs)
+    assert fill_dp.LAUNCHES_RUNS > before[0]
+    assert device_walk.LAUNCHES_TOKENS > before[1]
+    assert (fill_dp.LAUNCHES, device_walk.LAUNCHES) == before[2:]
+    assert [vars(r) for r in got] == [vars(r) for r in want]
+    if mode != LOCAL:
+        return
+    before = diag_dp.LAUNCHES
+    scores = BatchAligner(device="cuda", diag_scores=True).score_pairs(pairs)
+    assert diag_dp.LAUNCHES > before
+    np.testing.assert_array_equal(
+        scores, BatchAligner(device="cpu").score_pairs(pairs))
 
 
 def test_fill_rejects_codes_past_the_table(cuda):
