@@ -85,12 +85,30 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    version (on every third chunk); (c) ``sweep.score_matrix``, a self-sweep
    of 400 such proteins (79,800 pairs, ``chunk_pairs`` 8192) through the
    wavefront route into a temporary file, cut to half its lines and
-   resumed, equal to the matrix of the K1 route.
+   resumed, equal to the matrix of the K1 route;
+13. the striped kernels K12 (block fill) and K13 (single-device grid fill)
+   against their plain versions, launch by launch: 3 ragged pairs of up to
+   512 x 2048 (lengths down to 1), D = 1, 2, 4 shards on one card, three
+   modes, block_rows 8 and 64, C = 64, each a checkpointed fill and a
+   seeded band re-fill with pointer bytes; a non-integer table with
+   og = -10.3, eg = -0.7; og = eg = 0; int8 and folded S at D = 1.  Stats,
+   checkpoints, row state, outbox edges and pointer bytes all exact;
+14. the striped path at a real size: one 2048 x 65,536 protein pair (the
+   reference 65,536 random residues from ``default_rng(42)``, the query a
+   mutated copy of its residues 30,000-32,047), BLOSUM62, go = 10,
+   ge = 0.5, block_rows 64.  (a) ``striped_fill`` in three modes at D = 1
+   (K13) and D = 4 on the one card (K12), and ``striped_fill_ckpt`` LOCAL
+   at D = 4, each equal to K3's stats row on the same pair; (b)
+   ``striped_align`` at D = 1 in three modes, its strings and score equal
+   to ``BatchAligner(longseq_cells=1)``'s; only K12 and K13 launch in
+   (a) and (b).  Then K12 and K13 beside their plain versions and their
+   bounds at these shapes.
 
 The last two stdout lines are the kernels' JSON record and the result
 line; each kernel's ``max_abs_err`` is its comparison at its main path's
 shapes (phase 5 for K1 and K2, phase 8 for K3-K5 with K3 at its cut
-depth, phase 10a for K6-K8, phase 12 for K9-K11), its ``launches`` the
+depth, phase 10a for K6-K8, phase 12 for K9-K11, phase 14 for K12-K13),
+its ``launches`` the
 count from that path's run, and ``bound_ms`` the least time the card could
 take for the same work on this run's inputs (the larger of its f32
 operations at 67 TFLOP/s and its bytes at 3.35 TB/s).  Any failure raises
@@ -142,6 +160,19 @@ RUN_OPS = 10
 # step's 12 plus the run byte's fields, the marker test and the jump
 TOKEN_STEP_OPS = 18
 SWEEP_SEQS, SWEEP_CHUNK = 400, 8192
+# phase 14: one 2048 x 65,536 protein pair, the query a mutated copy of the
+# reference's residues 30,000-32,047 (the JAX package's single-chip striped
+# shape, scripts/bench_suite.py:241)
+STRIPED_NP, STRIPED_MP, STRIPED_AT = 2048, 65536, 30000
+# f32 operations of one score-only striped cell (sw_striped.cuh): M 3 (2
+# maxima, 1 add), Y 5 (3 adds, 2 maxima; LOCAL 2 adds, 2 maxima, 1 clamp),
+# G 2, h 4 (the column's (jg-1)*pe: 1 subtract, 1 multiply; 1 subtract, the
+# thread's running maximum), X 5 (2 maxima, 1 subtract, 1 multiply, 1 add);
+# LOCAL adds the clamps of M and X and the running-best compare
+STRIPED_CELL_OPS = {0: 19, 1: 19, 2: 22}  # GLOBAL, GLOCAL, LOCAL
+# and with pointer bytes: M's 3 compares, Y's 3, X's 4 adds and 3 compares
+# (LOCAL 3 more zero tests), the pack 3
+STRIPED_TB_OPS = 16
 
 
 def fail(msg: str) -> None:
@@ -192,13 +223,10 @@ def bound(flops: float, nbytes: float):
     return t_bytes * 1e3, "bytes"
 
 
-def mutated_pair(n, rng, alphabet, sub_rate=0.05, indel_every=2000,
-                 indel_max=20):
-    """A random sequence of n letters of ``alphabet`` and a mutated copy of
-    it (5 % substitutions, an indel of 1..20 every 2000 positions), as
-    ``scripts/giant_pair_check.py`` ``make_pair`` builds protein pairs."""
-    k = len(alphabet)
-    s1 = rng.integers(0, k, size=n)
+def mutate(s1, rng, k, sub_rate=0.05, indel_every=2000, indel_max=20):
+    """A mutated copy of the codes ``s1`` over ``k`` letters: 5 %
+    substitutions, an indel of 1..20 every 2000 positions."""
+    n = len(s1)
     out = []
     i = 0
     next_indel = indel_every
@@ -216,6 +244,17 @@ def mutated_pair(n, rng, alphabet, sub_rate=0.05, indel_every=2000,
             c = int(rng.integers(0, k))
         out.append(c)
         i += 1
+    return out
+
+
+def mutated_pair(n, rng, alphabet, sub_rate=0.05, indel_every=2000,
+                 indel_max=20):
+    """A random sequence of n letters of ``alphabet`` and a mutated copy of
+    it (5 % substitutions, an indel of 1..20 every 2000 positions), as
+    ``scripts/giant_pair_check.py`` ``make_pair`` builds protein pairs."""
+    k = len(alphabet)
+    s1 = rng.integers(0, k, size=n)
+    out = mutate(s1, rng, k, sub_rate, indel_every, indel_max)
     return ("".join(alphabet[c] for c in s1),
             "".join(alphabet[c] for c in out))
 
@@ -993,6 +1032,305 @@ def phase12(dev, card, modes, pairs, chunks, results, scores, walls,
     return out
 
 
+class StripedLockstep:
+    """While active, every K12 / K13 launch of ``parallel/seq_tiled`` runs
+    beside its plain version on copies of the same inputs.  ``err`` is the
+    largest |difference| of any output (row state, outbox edges, above
+    edges, per-lane bests and rows, accumulators, pointer bytes,
+    checkpoints); ``ms`` / ``plain_ms`` sum each kernel's and its plain
+    version's CUDA-event times."""
+
+    def __init__(self):
+        from smithwaterman_tpu_torch.parallel import seq_tiled
+
+        self.st = seq_tiled
+        self.err = 0.0
+        self.ms = {"K12": 0.0, "K13": 0.0}
+        self.plain_ms = {"K12": 0.0, "K13": 0.0}
+        self.calls = {"K12": 0, "K13": 0}
+
+    @staticmethod
+    def diff(a, b):
+        if a is None or not a.numel():
+            return 0.0
+        return float((a.double() - b.double()).abs().max())
+
+    def __enter__(self):
+        import torch
+
+        st = self.st
+        self.real = real_block, real_grid = st.block_fill, st.grid_fill
+
+        def block(*state, ds, **kw):
+            ref = [None if a is None else a.clone() for a in state]
+            pms, _ = event_ms(lambda: st.block_ref(*ref, ds=ds, **kw))
+            ms, _ = event_ms(lambda: real_block(*state, ds=ds, **kw))
+            self.ms["K12"] += ms
+            self.plain_ms["K12"] += pms
+            self.calls["K12"] += 1
+            self.err = max([self.err] + [self.diff(a, r) for a, r in
+                                         zip(state[3:], ref[3:])])
+
+        def grid(S, n, m, *, mode, pen, C=None):
+            ms, out = event_ms(lambda: real_grid(S, n, m, mode=mode, pen=pen,
+                                                 C=C))
+            ref = [torch.empty_like(a) for a in out[:3]]
+            rck = None if out[3] is None else [torch.empty_like(a)
+                                               for a in out[3]]
+            pms, _ = event_ms(lambda: st.grid_fill_ref(
+                S, n, m, *ref, rck, C=C, mode=mode, pen=pen))
+            self.ms["K13"] += ms
+            self.plain_ms["K13"] += pms
+            self.calls["K13"] += 1
+            self.err = max([self.err] + [self.diff(a, r) for a, r in
+                                         zip(out[:3], ref)]
+                           + [self.diff(a, r) for a, r in
+                              zip(out[3] or (), rck or ())])
+            return out
+
+        st.block_fill, st.grid_fill = block, grid
+        return self
+
+    def __exit__(self, *exc):
+        self.st.block_fill, self.st.grid_fill = self.real
+
+
+def phase13(dev, card, modes):
+    """K12 and K13 against their plain versions on the card, launch by
+    launch: ragged pairs, D = 1, 2, 4 shards on one card, three modes,
+    block_rows 8 and 64, C = 64, a seeded band with pointer bytes, a
+    non-integer table and penalties, og = eg = 0, int8 and folded S."""
+    import torch
+
+    from smithwaterman_tpu_torch import GLOBAL
+    from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
+    from smithwaterman_tpu_torch.parallel import make_mesh, seq_tiled
+
+    blosum = np.asarray(SubstitutionMatrix.blosum62().table, np.float32)
+    rng = np.random.default_rng(SEED + 13)
+    NP, MP = 512, 2048
+    c1 = rng.integers(0, 20, size=(3, NP))
+    c2 = rng.integers(0, 20, size=(3, MP))
+    c2[0, 700:1100] = c1[0, 50:450]          # a long shared stretch
+    n = np.array([NP, 1, 377], np.int32)     # lengths down to 1
+    m = np.array([1733, MP, 1], np.int32)
+    tab = torch.from_numpy(blosum).to(dev)
+    S = tab[torch.from_numpy(c1).to(dev)[:, :, None],
+            torch.from_numpy(c2).to(dev)[:, None, :]].contiguous()
+    Sx = (S * 0.37).contiguous()             # a non-integer table
+    cases = [(mode, mname, D, K, S, -10.0, -0.5) for mode, mname in modes
+             for D in (1, 2, 4) for K in (8, 64)]
+    cases += [(mode, mname + " blosum62*0.37 og=-10.3 eg=-0.7", 4, 64, Sx,
+               -10.3, -0.7) for mode, mname in modes]
+    cases.append((GLOBAL, "global og=eg=0", 2, 8, S, 0.0, 0.0))
+    S8 = S[:1].to(torch.int8)
+    with StripedLockstep() as ls:
+        for mode, what, D, K, Sc, og, eg in cases:
+            kw = dict(mode=mode, og=og, eg=eg, block_rows=K,
+                      mesh=make_mesh(devices=[dev] * D))
+            _, ck = seq_tiled.striped_fill_ckpt(Sc, n, m, ckpt_rows=64, **kw)
+            seq_tiled.striped_band_tb(Sc[:, 64:128], n, m, 64,
+                                      *(a[:, 0] for a in ck), **kw)
+            if ls.err != 0.0:
+                fail(f"K12/K13 {what} D={D} block_rows={K}: max error "
+                     f"{ls.err} against the plain versions")
+        one = make_mesh(devices=[dev])
+        for mode, mname in modes:
+            kw = dict(mode=mode, og=-10.0, eg=-0.5, block_rows=8, mesh=one)
+            want = seq_tiled.striped_fill(S[:1], n[:1], m[:1], **kw)
+            for x, folded in ((S8, False), (seq_tiled.fold_S(S8), True)):
+                got = seq_tiled.striped_fill(x, n[:1], m[:1], folded=folded,
+                                             **kw)
+                if not torch.equal(got, want) or ls.err != 0.0:
+                    fail(f"K13 {mname} int8 folded={folded}: differs")
+    say(f"phase 13 K12/K13: {len(cases)} cases (3 modes x D in (1, 2, 4) "
+        "shards on one card x block_rows in (8, 64), a non-integer table "
+        "with og=-10.3 eg=-0.7 at D=4, GLOBAL og=eg=0), 3 pairs of up to "
+        f"{NP} x {MP} (lengths down to 1), each a checkpointed fill (C=64) "
+        "and a seeded band re-fill with pointer bytes; int8 and folded S at "
+        f"D=1 in 3 modes: {ls.calls['K12']} K12 and {ls.calls['K13']} K13 "
+        "launches each equal to its plain version in every output (stats, "
+        "checkpoints, row state, outbox edges, pointer bytes); summed ms "
+        f"kernel / plain: K12 {ls.ms['K12']:.3f} / {ls.plain_ms['K12']:.3f}, "
+        f"K13 {ls.ms['K13']:.3f} / {ls.plain_ms['K13']:.3f}; on {card}")
+
+
+def phase14(dev, card, modes):
+    """The striped path at a real size: one 2048 x 65,536 protein pair.
+    Returns the K12 and K13 records."""
+    import torch
+
+    from smithwaterman_tpu_torch import GLOBAL, LOCAL, BatchAligner
+    from smithwaterman_tpu_torch.aligner import reconstruct_alignment
+    from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
+    from smithwaterman_tpu_torch.ops import (banded, device_walk, diag_dp,
+                                             fill_dp, longseq)
+    from smithwaterman_tpu_torch.parallel import make_mesh, seq_tiled
+
+    def reset():
+        fill_dp.LAUNCHES = fill_dp.LAUNCHES_RUNS = 0
+        device_walk.LAUNCHES = device_walk.LAUNCHES_TOKENS = 0
+        diag_dp.LAUNCHES = 0
+        longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
+        banded.LAUNCHES.update(K6=0, K7=0, K8=0)
+        seq_tiled.LAUNCHES.update(K12=0, K13=0)
+
+    def counts():
+        return {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES,
+                **longseq.LAUNCHES, **banded.LAUNCHES, "K9": diag_dp.LAUNCHES,
+                "K10": fill_dp.LAUNCHES_RUNS,
+                "K11": device_walk.LAUNCHES_TOKENS, **seq_tiled.LAUNCHES}
+
+    og, eg, K, C = -10.0, -0.5, 64, longseq.DEFAULT_CKPT_ROWS
+    sm = SubstitutionMatrix.blosum62()
+    rng = np.random.default_rng(SEED)
+    ref_codes = rng.integers(0, 20, size=STRIPED_MP)
+    ref = "".join(LETTERS[c] for c in ref_codes)
+    qry = "".join(LETTERS[c] for c in mutate(
+        ref_codes[STRIPED_AT:STRIPED_AT + STRIPED_NP], rng, 20))
+    qry = qry[:STRIPED_NP]
+    n, m = len(qry), STRIPED_MP
+    q_idx = np.zeros(STRIPED_NP, np.uint8)
+    q_idx[:n] = sm.seq_to_index(qry)
+    r_idx = np.asarray(sm.seq_to_index(ref), np.uint8)
+    tab = torch.from_numpy(np.asarray(sm.table, np.float32)).to(dev)
+    qt = torch.from_numpy(q_idx).to(dev)[None]
+    rt = torch.from_numpy(r_idx).to(dev)[None]
+    S = tab[qt[0].long()[:, None], rt[0].long()[None, :]][None].contiguous()
+    nv, mv = np.array([n], np.int32), np.array([m], np.int32)
+    mesh1 = make_mesh(devices=[dev])
+    mesh4 = make_mesh(devices=[dev] * 4)
+    kw = dict(og=og, eg=eg, block_rows=K)
+
+    # (a) + (b): the striped calls alone, with every launch count at 0
+    seq_tiled.striped_align(S, nv, mv, mode=LOCAL, mesh=mesh1, **kw)  # warm
+    torch.cuda.synchronize()
+    reset()
+    fills, aligns, walls, peaks = {}, {}, {}, {}
+    for mode, mname in modes:
+        fills[mname] = (seq_tiled.striped_fill(S, nv, mv, mode=mode,
+                                               mesh=mesh1, **kw),
+                        seq_tiled.striped_fill(S, nv, mv, mode=mode,
+                                               mesh=mesh4, **kw))
+    st4, _ = seq_tiled.striped_fill_ckpt(S, nv, mv, mode=LOCAL, ckpt_rows=C,
+                                         mesh=mesh4, **kw)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()   # S and earlier phases' tensors
+    for mode, mname in modes:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        aligns[mname] = seq_tiled.striped_align(S, nv, mv, mode=mode,
+                                                mesh=mesh1, **kw)
+        walls[mname] = time.perf_counter() - t0
+        peaks[mname] = torch.cuda.max_memory_allocated() - held
+    c = counts()
+    launches = {"K12": c["K12"], "K13": c["K13"]}
+    if not (c["K12"] and c["K13"]) or any(
+            v for k, v in c.items() if k not in launches):
+        fail(f"phase 14: launches {c}")
+
+    # the references: K3's stats row and the long route's alignment
+    nt, mt = (torch.tensor([x], dtype=torch.int32, device=dev)
+              for x in (n, m))
+    for mode, mname in modes:
+        st3, _ = longseq.fill_checkpointed(tab, qt, rt, nt, mt, mode=mode,
+                                           og=og, eg=eg, C=C)
+        st3 = st3[0].cpu().numpy()
+        f1, f4 = (x.cpu().numpy()[0] for x in fills[mname])
+        idx, stats = aligns[mname]
+        if mode == LOCAL:
+            ok = (f1 == f4 == st3[0]
+                  and np.array_equal(st4[0, :3].cpu().numpy(), st3[:3])
+                  and np.array_equal(stats[0, :3], st3[:3]))
+            score = float(stats[0, 0]) if stats[0, 0] > 0 else 0.0
+        else:
+            ok = (np.array_equal(f1, st3[3:6]) and np.array_equal(f4, st3[3:6])
+                  and np.array_equal(stats[0, 3:6], st3[3:6]))
+            score = float(np.max(stats[0, 3:6]))
+        if not ok:
+            fail(f"phase 14 {mname}: striped stats {f1} (D=1) / {f4} (D=4) "
+                 f"/ align {stats[0]} differ from K3's {st3}")
+        got = reconstruct_alignment(qry, ref, idx[0][0], idx[0][1], score,
+                                    True, mode)
+        t0 = time.perf_counter()
+        want = BatchAligner(mode=mode, device=dev,
+                            longseq_cells=1).align_pairs([(qry, ref)])[0]
+        t_long = time.perf_counter() - t0
+        if (got.aligned1, got.aligned2, got.score) != (
+                want.aligned1, want.aligned2, want.score):
+            fail(f"phase 14 {mname}: striped_align's alignment differs from "
+                 "the long route's")
+        say(f"phase 14 {mname}: {n} x {m} protein pair, striped_fill equal "
+            f"to K3's stats at D=1 (K13) and D=4 on one card (K12)"
+            + (", striped_fill_ckpt's (i, j) too" if mode == LOCAL else "")
+            + f"; striped_align (D=1) warm wall {walls[mname]:.4f} s, peak "
+            f"device memory {peaks[mname] / 1e9:.3f} GB above the "
+            f"{held / 1e9:.3f} GB held before (S is "
+            f"{S.numel() * 4 / 1e9:.3f} GB), score {got.score}, "
+            f"strings ({len(got.aligned1)} columns) equal to the long "
+            f"route's ({t_long:.3f} s); on {card}")
+    say(f"phase 14 launches of the striped calls (3 modes x striped_fill at "
+        f"D=1 and D=4, striped_fill_ckpt LOCAL at D=4, striped_align at "
+        f"D=1): {json.dumps(c)}")
+
+    # K12 and K13 at these shapes beside their plain versions (LOCAL)
+    pen = seq_tiled.make_pen(LOCAL, og, eg)
+    seq_tiled.grid_fill(S, nt, mt, mode=LOCAL, pen=pen)
+    k13_ms, out = timed(lambda: seq_tiled.grid_fill(S, nt, mt, mode=LOCAL,
+                                                     pen=pen), 3)
+    ref13 = [torch.empty_like(a) for a in out[:3]]
+    k13_plain_ms, _ = event_ms(lambda: seq_tiled.grid_fill_ref(
+        S, nt, mt, *ref13, None, C=None, mode=LOCAL, pen=pen))
+    k13_err = max(StripedLockstep.diff(a, r) for a, r in zip(out[:3], ref13))
+    del out, ref13
+    with StripedLockstep() as ls:
+        seq_tiled.striped_fill(S, nv, mv, mode=LOCAL, mesh=mesh4, **kw)
+    k12 = (ls.ms["K12"], ls.plain_ms["K12"], ls.calls["K12"], ls.err)
+    _, ck = seq_tiled.striped_fill_ckpt(S, nv, mv, mode=GLOBAL,
+                                        ckpt_rows=C, mesh=mesh1, **kw)
+    sk = STRIPED_NP // C - 1
+    with StripedLockstep() as lb:
+        seq_tiled.striped_band_tb(S[:, sk * C:], nv, mv, sk * C,
+                                  *(a[:, sk - 1] for a in ck),
+                                  mode=GLOBAL, mesh=mesh1, **kw)
+    if max(k13_err, k12[3], lb.err) != 0.0:
+        fail(f"phase 14 kernels against plain: K13 {k13_err}, K12 {k12[3]} "
+             f"(D=4 fill), {lb.err} (band)")
+    cells = STRIPED_NP * STRIPED_MP
+    s_bytes = 4 * cells
+    k13_bound = bound(STRIPED_CELL_OPS[LOCAL] * cells,
+                      s_bytes + 8 * STRIPED_MP + 16)
+    # K12 at D=4: the scores, each shard's edge row out and in, the state
+    k12_bound = bound(STRIPED_CELL_OPS[LOCAL] * cells,
+                      s_bytes + 2 * 16 * 4 * STRIPED_NP + 8 * STRIPED_MP)
+    # the band re-fill: its scores, seeds and pointer bytes
+    kb_bound = bound((STRIPED_CELL_OPS[GLOBAL] + STRIPED_TB_OPS) * C
+                     * STRIPED_MP, 5 * C * STRIPED_MP + 12 * STRIPED_MP)
+    say(f"phase 14 kernels at these shapes ({n} x {m}, LOCAL) on {card}: "
+        f"K13 {k13_ms:.3f} ms ({k13_ms * 1e6 / STRIPED_NP:.1f} ns a row) vs "
+        f"plain {k13_plain_ms:.3f} ms, bound {k13_bound[0]:.4f} ms; K12 at "
+        f"D=4 on one card {k12[0]:.3f} ms over {k12[2]} launches vs plain "
+        f"{k12[1]:.3f} ms, bound {k12_bound[0]:.4f} ms; K12 at B=1, D=1, "
+        f"one band re-fill of {C} rows with pointer bytes (GLOBAL) "
+        f"{lb.ms['K12']:.3f} ms over {lb.calls['K12']} launches vs plain "
+        f"{lb.plain_ms['K12']:.3f} ms, bound {kb_bound[0]:.4f} ms; all equal "
+        "to the plain versions")
+    return [
+        {"name": "K12 striped block fill (B7; B8 at B = 1)", "route": "cuda",
+         "source": "smithwaterman_tpu_torch/csrc/striped_fill.cu",
+         "replaces": "smithwaterman_tpu/parallel/seq_tiled.py:821",
+         "launches": launches["K12"], "max_abs_err": max(k12[3], lb.err),
+         "ms": k12[0], "plain_ms": k12[1], "bound_ms": k12_bound[0],
+         "bound_by": k12_bound[1], "library_ms": None},
+        {"name": "K13 striped grid fill (B9)", "route": "cuda",
+         "source": "smithwaterman_tpu_torch/csrc/striped_fill.cu",
+         "replaces": "smithwaterman_tpu/parallel/seq_tiled.py:765",
+         "launches": launches["K13"], "max_abs_err": k13_err,
+         "ms": k13_ms, "plain_ms": k13_plain_ms, "bound_ms": k13_bound[0],
+         "bound_by": k13_bound[1], "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -1597,6 +1935,12 @@ def main() -> int:
                        walls, walk_steps, times, pair_masks, fill_err,
                        walk_err)
     say(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 13: K12, K13 against their plain versions
+    phase13(dev, card, modes)
+    say(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 14: the striped path at a real size
+    records += phase14(dev, card, modes)
+    say(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}"
         f" s on {card}")
     say(json.dumps({"kernels": records}))

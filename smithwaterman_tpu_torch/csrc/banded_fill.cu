@@ -35,22 +35,6 @@ namespace bd = sw::banded;
 
 constexpr int kWarps = bd::THREADS / 32;
 
-// The maximum of v over the threads before this one in the block (BNEG for
-// thread 0).  Max is exact in any grouping.
-__device__ float block_excl_max(float v, float* warp_max) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int d = 1; d < 32; d <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v = sw::mx(v, o);
-  }
-  float e = __shfl_up_sync(0xffffffffu, v, 1);
-  if (lane == 0) e = bd::BNEG;
-  if (lane == 31) warp_max[warp] = v;
-  __syncthreads();
-  for (int q = 0; q < warp; ++q) e = sw::mx(e, warp_max[q]);
-  return e;
-}
-
 template <int MODE>
 __global__ void __launch_bounds__(bd::THREADS)
     banded_fill_kernel(const float* __restrict__ S,
@@ -81,7 +65,7 @@ __global__ void __launch_bounds__(bd::THREADS)
     uint8_t* row_tb = tbp + (int64_t)(i - 1) * W;
     bd::Left left;
     const float own = bd::phase_a<MODE>(t, g, p, r, up, cur, row_tb, &left);
-    const float excl = block_excl_max(own, warp_max);
+    const float excl = bd::block_excl_max<kWarps>(own, warp_max, bd::BNEG);
     bd::phase_c<MODE>(t, g, p, r, excl, left, cur, row_tb, best, best_i,
                       st + 3);
     __syncthreads();

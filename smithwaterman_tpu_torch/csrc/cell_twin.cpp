@@ -1,6 +1,7 @@
 // Host twin of the GPU kernels K1 and K10 (fill.cu), K2 (walk.cu), K3 and
 // K4 (longseq_fill.cu), K5 (seg_walk.cu), K7 (banded_fill.cu), K8
-// (banded_walk.cu), K9 (diag_fill.cu) and K11 (token_walk.cu).
+// (banded_walk.cu), K9 (diag_fill.cu), K11 (token_walk.cu), and K12 and K13
+// (striped_fill.cu).
 //
 // It includes the kernels' own headers and runs them over a batch in the
 // kernels' loop order, one pair after another, with the same per-pair
@@ -10,11 +11,13 @@
 // after each step.  For K7 it runs each band row's phase A for every thread,
 // the block's prefix in thread order, then phase C for every thread
 // (sw_banded.cuh), where the card's threads wait for each other between
-// the phases.  For K9 it runs every lane of a warp in turn at each step,
+// the phases; K12 and K13 likewise, each striped row (sw_striped.cuh).
+// For K9 it runs every lane of a warp in turn at each step,
 // handing each lane its left neighbour's values from before the step, as
 // the card's shuffles do (sw_diag.cuh).  The tier-1 tests hold its
 // outputs against the JAX package (ops/scan_dp.py, ops/pallas_dp.py,
-// ops/device_walk.py, ops/longseq.py, ops/banded.py, ops/diag_dp.py),
+// ops/device_walk.py, ops/longseq.py, ops/banded.py, ops/diag_dp.py,
+// parallel/seq_tiled.py),
 // which is the only check of the card's cell code that runs without a
 // card.
 // Build: g++ -O2 -fPIC -std=c++17 -ffp-contract=off -c, then g++ -shared.
@@ -25,6 +28,7 @@
 #include "sw_banded.cuh"
 #include "sw_cell.cuh"
 #include "sw_diag.cuh"
+#include "sw_striped.cuh"
 #include "sw_walk.cuh"
 
 namespace {
@@ -248,6 +252,122 @@ void banded_all(const float* S, const int32_t* n, const int32_t* m,
                       tb + b * NP * W, stats + b * sw::STATS_W, og, eg);
 }
 
+namespace st = sw::striped;
+
+// Row r of a striped shard as a block of THREADS threads would run it,
+// tile by tile: phase A for every thread, the block's prefix in thread
+// order (after the earlier tiles' maximum), phase C for every thread.
+template <int MODE, bool TB, typename SCORE>
+void striped_row(int W, const st::Pen& p, const st::Row& r, const SCORE* s,
+                 const st::Buf& up, const st::Buf& cur, uint8_t* tb,
+                 float* best, int32_t* best_i, float* acc, float* edge_out) {
+  std::vector<float> own(st::THREADS);
+  std::vector<st::Left> left(st::THREADS);
+  float excl = sw::NEG;  // h's maximum over the lanes done so far
+  for (int j = 0; j < st::tiles(W); ++j) {
+    for (int t = 0; t < st::THREADS; ++t)
+      own[t] =
+          st::phase_a<MODE, TB>(t, j, W, p, r, s, up, cur, tb, &left[t]);
+    for (int t = 0; t < st::THREADS; ++t) {
+      st::phase_c<MODE, TB>(t, j, W, p, r, excl, left[t], cur, tb, best,
+                            best_i, acc, edge_out);
+      excl = sw::mx(excl, own[t]);
+    }
+  }
+}
+
+// One K12 block: shard d of pair b at step a.t (striped_fill.cu).
+template <int MODE, bool TB>
+void striped_block_pair(const st::BlockArgs& a, int d, int64_t b) {
+  const st::Block k = st::block_at(a, d, b);
+  const int n = a.n[b], m = a.m[b];
+  sw::Cell ab = k.in ? sw::Cell{k.above[0], k.above[1], k.above[2]}
+                     : st::column0(k.i_start, a.p);
+  for (int q = 0; q < a.K; ++q) {
+    const int i = k.i_start + q + 1;
+    const float* in = k.in ? k.in + 4 * q : nullptr;
+    const st::Row r = st::row_begin<MODE>(a.p, i, k.col0, n, m, ab, in);
+    striped_row<MODE, TB>(
+        a.W, a.p, r, st::block_scores(a, k, b, i),
+        st::row_buf(a.rows, a.B, a.MP, b, k.col0, i - 1),
+        st::row_buf(a.rows, a.B, a.MP, b, k.col0, i),
+        TB ? st::block_tb(a, k, b, i) : nullptr, a.best + b * a.MP + k.col0,
+        a.best_i + b * a.MP + k.col0, k.acc, k.out + 4 * q);
+    ab = in ? sw::Cell{in[0], in[1], in[2]} : st::column0(i, a.p);
+  }
+  if (k.in) {
+    k.above[0] = ab.m;
+    k.above[1] = ab.x;
+    k.above[2] = ab.y;
+  }
+}
+
+template <int MODE>
+void striped_block_all(bool tb, const int32_t* ds, int nds,
+                       const st::BlockArgs& a) {
+  for (int q = 0; q < nds; ++q)
+    for (int64_t b = 0; b < a.B; ++b) {
+      if (tb)
+        striped_block_pair<MODE, true>(a, ds[q], b);
+      else
+        striped_block_pair<MODE, false>(a, ds[q], b);
+    }
+}
+
+// One K13 block: pair b's whole fill (striped_fill.cu).
+template <int MODE, typename SCORE>
+void striped_grid_pair(const SCORE* S, int64_t B, int64_t NP, int64_t MP,
+                       const int32_t* n, const int32_t* m, int C, int64_t b,
+                       float* rows, float* best, int32_t* best_i, float* acc,
+                       float* ckm, float* ckx, float* cky, const st::Pen& p) {
+  const int W = (int)MP;
+  float* bst = best + b * MP;
+  int32_t* bsi = best_i + b * MP;
+  float* ac = acc + b * 4;
+  const st::Buf r0 = st::row_buf(rows, B, MP, b, 0, 0);
+  for (int w = 0; w < W; ++w) {
+    const sw::Cell c = st::row0(w + 1, p);
+    r0.m[w] = c.m;
+    r0.x[w] = c.x;
+    r0.y[w] = c.y;
+    bst[w] = sw::NEG;
+    bsi[w] = st::BIGI;
+  }
+  for (int q = 0; q < 4; ++q) ac[q] = 0.0f;
+  const int64_t nck = C ? NP / C : 0;
+  for (int i = 1; i <= (int)NP; ++i) {
+    const st::Row r =
+        st::row_begin<MODE>(p, i, 0, n[b], m[b], st::column0(i - 1, p), nullptr);
+    const st::Buf cur = st::row_buf(rows, B, MP, b, 0, i);
+    striped_row<MODE, false>(W, p, r, S + (b * NP + i - 1) * MP,
+                             st::row_buf(rows, B, MP, b, 0, i - 1), cur,
+                             nullptr, bst, bsi, ac, nullptr);
+    if (C && i % C == 0) {
+      const int64_t o = (b * nck + i / C - 1) * MP;
+      for (int w = 0; w < W; ++w) {
+        ckm[o + w] = cur.m[w];
+        ckx[o + w] = cur.x[w];
+        cky[o + w] = cur.y[w];
+      }
+    }
+  }
+}
+
+template <int MODE>
+void striped_grid_all(bool s_int8, const void* S, int64_t B, int64_t NP,
+                      int64_t MP, const int32_t* n, const int32_t* m, int C,
+                      float* rows, float* best, int32_t* best_i, float* acc,
+                      float* ckm, float* ckx, float* cky, const st::Pen& p) {
+  for (int64_t b = 0; b < B; ++b) {
+    if (s_int8)
+      striped_grid_pair<MODE>((const int8_t*)S, B, NP, MP, n, m, C, b, rows,
+                              best, best_i, acc, ckm, ckx, cky, p);
+    else
+      striped_grid_pair<MODE>((const float*)S, B, NP, MP, n, m, C, b, rows,
+                              best, best_i, acc, ckm, ckx, cky, p);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -440,6 +560,83 @@ int sw_twin_banded_walk(int local, const uint8_t* tb, const int32_t* off,
                           idx2 + b * L, cnt + b, flags + b);
   }
   return 0;
+}
+
+// Same arguments and layout as sw_striped_block_launch (striped_fill.cu),
+// host pointers, no stream.  Returns 0, or 1 for an unknown mode.
+int sw_twin_striped_block(int mode, int emit_tb, const int32_t* ds, int nds,
+                          int t, int i0, int K, int W, int D, int64_t B,
+                          int64_t MP, const float* S, int64_t s_b,
+                          int64_t s_r, int64_t s_lo, const int32_t* n,
+                          const int32_t* m, float* rows, float* box,
+                          float* above, float* best, int32_t* best_i,
+                          float* acc, uint8_t* tb, int64_t tb_rows, float og,
+                          float eg, float so, float se, float sent,
+                          float sose) {
+  st::BlockArgs a;
+  a.t = t;
+  a.i0 = i0;
+  a.K = K;
+  a.W = W;
+  a.D = D;
+  a.B = B;
+  a.MP = MP;
+  a.S = S;
+  a.s_b = s_b;
+  a.s_r = s_r;
+  a.s_lo = s_lo;
+  a.n = n;
+  a.m = m;
+  a.rows = rows;
+  a.box = box;
+  a.above = above;
+  a.best = best;
+  a.best_i = best_i;
+  a.acc = acc;
+  a.tb = emit_tb ? tb : nullptr;
+  a.tb_rows = tb_rows;
+  a.p = st::Pen{og, eg, so, se, sent, sose};
+  switch (mode) {
+    case sw::LOCAL:
+      striped_block_all<sw::LOCAL>(emit_tb != 0, ds, nds, a);
+      return 0;
+    case sw::GLOCAL:
+      striped_block_all<sw::GLOCAL>(emit_tb != 0, ds, nds, a);
+      return 0;
+    case sw::GLOBAL:
+      striped_block_all<sw::GLOBAL>(emit_tb != 0, ds, nds, a);
+      return 0;
+    default:
+      return 1;
+  }
+}
+
+// Same arguments and layout as sw_striped_grid_launch (striped_fill.cu),
+// host pointers, no stream.  Returns 0, or 1 for an unknown mode.
+int sw_twin_striped_grid(int mode, int s_int8, const void* S, int64_t B,
+                         int64_t NP, int64_t MP, const int32_t* n,
+                         const int32_t* m, int C, float* rows, float* best,
+                         int32_t* best_i, float* acc, float* ckm, float* ckx,
+                         float* cky, float og, float eg, float so, float se,
+                         float sent, float sose) {
+  const st::Pen p{og, eg, so, se, sent, sose};
+  const bool i8 = s_int8 != 0;
+  switch (mode) {
+    case sw::LOCAL:
+      striped_grid_all<sw::LOCAL>(i8, S, B, NP, MP, n, m, C, rows, best,
+                                  best_i, acc, ckm, ckx, cky, p);
+      return 0;
+    case sw::GLOCAL:
+      striped_grid_all<sw::GLOCAL>(i8, S, B, NP, MP, n, m, C, rows, best,
+                                   best_i, acc, ckm, ckx, cky, p);
+      return 0;
+    case sw::GLOBAL:
+      striped_grid_all<sw::GLOBAL>(i8, S, B, NP, MP, n, m, C, rows, best,
+                                   best_i, acc, ckm, ckx, cky, p);
+      return 0;
+    default:
+      return 1;
+  }
 }
 
 }  // extern "C"

@@ -272,6 +272,35 @@ struct LaneBest {
   int i, w;
 };
 
+#if defined(__CUDACC__)
+// The maximum of v over the threads before this one in a block of WARPS
+// warps (`neg` for thread 0): warp shuffles, then the warp totals through
+// `warp_max` (WARPS floats of shared memory) and one barrier; `total`, when
+// given, receives the maximum over the whole block.  Max is exact in any
+// grouping.  K7 and the striped kernels K12 / K13 scan with it.
+template <int WARPS>
+__device__ __forceinline__ float block_excl_max(float v, float* warp_max,
+                                                float neg,
+                                                float* total = nullptr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int d = 1; d < 32; d <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v = mx(v, o);
+  }
+  float e = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) e = neg;
+  if (lane == 31) warp_max[warp] = v;
+  __syncthreads();
+  for (int q = 0; q < warp; ++q) e = mx(e, warp_max[q]);
+  if (total) {
+    float all = neg;
+    for (int q = 0; q < WARPS; ++q) all = mx(all, warp_max[q]);
+    *total = all;
+  }
+  return e;
+}
+#endif
+
 // The first of two by the JAX kernel's _finish: the larger value, then the
 // smaller row, then the smaller lane.
 SW_HD LaneBest lane_better(LaneBest a, LaneBest b) {

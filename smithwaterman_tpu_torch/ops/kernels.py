@@ -3,8 +3,9 @@
 ``csrc/fill.cu`` (K1, and K10 with run bytes), ``csrc/walk.cu`` (K2),
 ``csrc/longseq_fill.cu`` (K3, K4), ``csrc/seg_walk.cu`` (K5),
 ``csrc/banded_scores.cu`` (K6), ``csrc/banded_fill.cu`` (K7),
-``csrc/banded_walk.cu`` (K8), ``csrc/diag_fill.cu`` (K9) and
-``csrc/token_walk.cu`` (K11) are compiled on first use with
+``csrc/banded_walk.cu`` (K8), ``csrc/diag_fill.cu`` (K9),
+``csrc/token_walk.cu`` (K11) and ``csrc/striped_fill.cu`` (K12, K13) are
+compiled on first use with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per source, all
 started together, and linked into one shared library with a plain C
 interface under the package's ``_build/`` directory, loaded with ctypes.
@@ -13,12 +14,13 @@ No PyTorch header is compiled, so the build takes seconds.
 Every launch goes through one wrapper here (:func:`fill`, :func:`walk`,
 :func:`ckpt_fill`, :func:`band_fill`, :func:`seg_walk`,
 :func:`banded_scores`, :func:`banded_fill`, :func:`banded_walk`,
-:func:`diag_fill`, :func:`walk_tokens`), which
+:func:`diag_fill`, :func:`walk_tokens`, :func:`striped_block`,
+:func:`striped_grid`), which
 checks the tensors the kernel takes, passes each pointer and the current
 stream as ``c_void_p``, and raises when the C entry point reports a CUDA
 error.  The callers (``ops/fill_dp.py``, ``ops/device_walk.py``,
-``ops/longseq.py``, ``ops/banded.py``, ``ops/diag_dp.py``) count
-launches.  This module
+``ops/longseq.py``, ``ops/banded.py``, ``ops/diag_dp.py``,
+``parallel/seq_tiled.py``) count launches.  This module
 imports nothing CUDA-specific until a kernel is built.
 """
 
@@ -37,7 +39,7 @@ KERNEL_SOURCES = tuple(
     os.path.join(native.CSRC, f)
     for f in ("fill.cu", "walk.cu", "longseq_fill.cu", "seg_walk.cu",
               "banded_scores.cu", "banded_fill.cu", "banded_walk.cu",
-              "diag_fill.cu", "token_walk.cu")
+              "diag_fill.cu", "token_walk.cu", "striped_fill.cu")
 )
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH + (
@@ -135,6 +137,10 @@ def lib() -> ctypes.CDLL:
     so.sw_walk_tokens_launch.argtypes = [
         i32, vp, vp, vp, vp, i64, i64, vp, vp, vp,
     ]
+    so.sw_striped_block_launch.restype = i32
+    so.sw_striped_block_launch.argtypes = native.STRIPED_BLOCK_ARGS + [vp]
+    so.sw_striped_grid_launch.restype = i32
+    so.sw_striped_grid_launch.argtypes = native.STRIPED_GRID_ARGS + [vp]
     _LIB = so
     return so
 
@@ -422,3 +428,98 @@ def walk_tokens(tb, run, desc, stats, cnt, toks, *, local: bool,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K11 (token walk)")
+
+
+# shards one K12 launch takes (csrc/sw_striped.cuh MAX_SHARDS)
+MAX_SHARDS = 64
+
+
+def striped_block(S, n, m, rows, box, above, best, best_i, acc, tb, *,
+                  ds, t: int, i0: int, K: int, W: int, s_lo: int, mode: int,
+                  pen) -> None:
+    """Launch K12 (csrc/striped_fill.cu) on the current stream: step ``t``
+    of the wavefront for the shards ``ds``; see parallel/seq_tiled.
+    ``S`` (B, rows, cols) f32 with unit column stride holds row i0 + 1 of
+    the fill at column ``s_lo``; ``tb`` is None or (B, tb_rows, MP)
+    uint8."""
+    dev = S.device
+    if dev.type != "cuda":
+        raise ValueError(f"K12 runs on CUDA tensors, got {dev}")
+    D = above.shape[0]
+    B = n.shape[0]
+    MP = D * W
+    if not 0 < len(ds) <= MAX_SHARDS:
+        raise ValueError(f"K12 takes 1..{MAX_SHARDS} shards, got {len(ds)}")
+    if S.dtype != torch.float32 or S.dim() != 3 or S.stride(2) != 1:
+        raise ValueError(f"S must be (B, rows, cols) f32 with unit column "
+                         f"stride, got {S.dtype} {tuple(S.stride())}")
+    if S.shape[0] != B or not s_lo <= min(ds) * W or \
+            (max(ds) + 1) * W - s_lo > S.shape[2]:
+        raise ValueError(f"S {tuple(S.shape)} at column {s_lo} does not hold "
+                         f"shards {ds} of width {W}")
+    _check_lengths(B, dev, "K12", n=n, m=m)
+    _check(rows, "rows", torch.float32, dev, (2, 3, B, MP))
+    _check(box, "box", torch.float32, dev, (2, D, B, K, 4))
+    _check(above, "above", torch.float32, dev, (D, B, 4))
+    _check(best, "best", torch.float32, dev, (B, MP))
+    _check(best_i, "best_i", torch.int32, dev, (B, MP))
+    _check(acc, "acc", torch.float32, dev, (D, B, 4))
+    rows_needed = (t - min(ds) + 1) * K  # S's (and tb's) rows from i0 + 1
+    if S.shape[1] < rows_needed:
+        raise ValueError(f"S has {S.shape[1]} rows, step {t} needs "
+                         f"{rows_needed}")
+    if tb is not None:
+        _check(tb, "tb", torch.uint8, dev)
+        if tb.dim() != 3 or tuple(tb.shape)[::2] != (B, MP) or \
+                tb.shape[1] < rows_needed:
+            raise ValueError(f"tb has shape {tuple(tb.shape)}, expected "
+                             f"({B}, >= {rows_needed}, {MP})")
+    dsa = (ctypes.c_int32 * len(ds))(*ds)
+    with torch.cuda.device(dev):
+        rc = lib().sw_striped_block_launch(
+            int(mode), 0 if tb is None else 1, dsa, len(ds), int(t), int(i0),
+            int(K), int(W), D, B, MP, S.data_ptr(), S.stride(0), S.stride(1),
+            int(s_lo), n.data_ptr(), m.data_ptr(), rows.data_ptr(),
+            box.data_ptr(), above.data_ptr(), best.data_ptr(),
+            best_i.data_ptr(), acc.data_ptr(),
+            None if tb is None else tb.data_ptr(),
+            0 if tb is None else tb.shape[1], *pen,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "K12 (striped block fill)")
+
+
+def striped_grid(S, n, m, rows, best, best_i, acc, ck, *, C: int, mode: int,
+                 pen) -> None:
+    """Launch K13 (csrc/striped_fill.cu) on the current stream: the whole
+    single-device fill of ``S`` (B, NP, MP) f32 or int8; ``ck`` is None or
+    the (ckm, ckx, cky) checkpoints (B, NP // C, MP) f32; see
+    parallel/seq_tiled."""
+    dev = S.device
+    if dev.type != "cuda":
+        raise ValueError(f"K13 runs on CUDA tensors, got {dev}")
+    if S.dtype not in (torch.float32, torch.int8) or S.dim() != 3:
+        raise ValueError(f"K13 reads (B, NP, MP) f32 or int8 scores, got "
+                         f"{S.dtype} {tuple(S.shape)}")
+    B, NP, MP = S.shape
+    _check(S, "S", S.dtype, dev)
+    _check_lengths(B, dev, "K13", n=n, m=m)
+    _check(rows, "rows", torch.float32, dev, (2, 3, B, MP))
+    _check(best, "best", torch.float32, dev, (B, MP))
+    _check(best_i, "best_i", torch.int32, dev, (B, MP))
+    _check(acc, "acc", torch.float32, dev, (B, 4))
+    if ck is not None:
+        if not (C > 0 and NP % C == 0):
+            raise ValueError(f"checkpoint rows C={C} must divide NP={NP}")
+        for name, a in zip(("ckm", "ckx", "cky"), ck):
+            _check(a, name, torch.float32, dev, (B, NP // C, MP))
+    cks = (None,) * 3 if ck is None else tuple(a.data_ptr() for a in ck)
+    with torch.cuda.device(dev):
+        rc = lib().sw_striped_grid_launch(
+            int(mode), 1 if S.dtype == torch.int8 else 0, S.data_ptr(), B, NP,
+            MP, n.data_ptr(), m.data_ptr(), 0 if ck is None else int(C),
+            rows.data_ptr(), best.data_ptr(), best_i.data_ptr(),
+            acc.data_ptr(), *cks, *pen,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "K13 (striped grid fill)")

@@ -89,6 +89,27 @@ def row0_carries(B: int, mp: int, mode: int, og: float, eg: float
     return m0.copy(), x0.copy(), y0.copy()
 
 
+# walk_band's status: path complete, walked off the top of the band, or off
+# the left edge of the column window
+WALK_DONE = 0
+WALK_UP = 1
+WALK_LEFT = 2
+
+
+def walk_band(tb_band: np.ndarray, i_top: int, j_off: int, i: int, j: int,
+              s: int, local: bool):
+    """Walk within one band window on the host: ``tb_band[r, c]`` (C,
+    width) uint8 holds DP cell (i_top + r + 1, j_off + c + 1), ``i_top``
+    the global row above the band.  Returns (idx1_chunk, idx2_chunk, i, j,
+    s, status), the chunks in walk (reverse-path) order with global 0-based
+    indices (-1 a gap), status :data:`WALK_DONE`, :data:`WALK_UP` or
+    :data:`WALK_LEFT` (the JAX ``walk_band`` contract).  The shared C++
+    walker ``sw_walk_band`` (``ops/traceback.native_walk_band``)."""
+    from .traceback import native_walk_band
+
+    return native_walk_band(tb_band, i_top, j_off, i, j, s, local)
+
+
 def _device(table: torch.Tensor) -> str:
     dev = table.device.type
     if dev not in ("cpu", "cuda"):

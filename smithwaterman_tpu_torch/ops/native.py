@@ -8,8 +8,8 @@ Two libraries, each compiled with g++ on first use into the package's
   its own copy through ``csrc/Makefile``; this module does not use it);
 * the cell twin: ``csrc/cell_twin.cpp`` of this package, which runs the
   GPU kernels' own headers (``sw_cell.cuh``, ``sw_walk.cuh``,
-  ``sw_band.cuh``, ``sw_banded.cuh``, ``sw_diag.cuh``) on the host so the tier-1 tests
-  check the code the card runs.
+  ``sw_band.cuh``, ``sw_banded.cuh``, ``sw_diag.cuh``, ``sw_striped.cuh``)
+  on the host so the tier-1 tests check the code the card runs.
 
 Every library (these two and the CUDA kernels of ``ops/kernels.py``) is
 built by :func:`build_shared`: one compiler process per source, all
@@ -44,6 +44,21 @@ TWIN_FLAGS = GXX_FLAGS + ("-ffp-contract=off",)
 GXX_LINK = ("g++", "-shared")
 
 _LIBS: dict = {}
+
+_vp, _i32, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+# the striped fills' C signatures (csrc/striped_fill.cu), shared by the
+# kernels' launchers and the twin's entry points; the launchers add the
+# stream.  ds is a host array of int32 shard indices.
+STRIPED_BLOCK_ARGS = [
+    _i32, _i32, _vp, _i32, _i32, _i32, _i32, _i32, _i32,  # .. K, W, D
+    _i64, _i64, _vp, _i64, _i64, _i64, _vp, _vp,        # B .. n, m
+    _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,             # rows .. tb_rows
+] + [_f32] * 6
+STRIPED_GRID_ARGS = [
+    _i32, _i32, _vp, _i64, _i64, _i64, _vp, _vp, _i32,   # .. n, m, C
+    _vp, _vp, _vp, _vp, _vp, _vp, _vp,                   # rows .. cky
+] + [_f32] * 6
 
 
 def build_shared(name: str, compile_cmd: Sequence[str],
@@ -115,6 +130,10 @@ def host_lib() -> ctypes.CDLL:
     lib.sw_walk_banded.restype = i64
     lib.sw_walk_banded.argtypes = [
         pu8, i64, pi32, i64, i64, i64, i64, i64, pi64, pi64, i64, pi64,
+    ]
+    lib.sw_walk_band.restype = i64
+    lib.sw_walk_band.argtypes = [
+        pu8, i64, i64, i64, pi64, i64, pi64, pi64, i64, pi64,
     ]
     # the token rebuild takes the move rebuild's arguments, with one
     # token byte an entry and cnt counting tokens
@@ -198,5 +217,9 @@ def twin_lib() -> ctypes.CDLL:
     lib.sw_twin_walk_tokens.argtypes = [
         i32, vp, vp, vp, vp, i64, i64, vp, vp,
     ]
+    lib.sw_twin_striped_block.restype = i32
+    lib.sw_twin_striped_block.argtypes = STRIPED_BLOCK_ARGS
+    lib.sw_twin_striped_grid.restype = i32
+    lib.sw_twin_striped_grid.argtypes = STRIPED_GRID_ARGS
     _LIBS["twin"] = lib
     return lib

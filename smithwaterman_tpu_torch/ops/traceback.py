@@ -4,8 +4,9 @@ The counterpart of ``smithwaterman_tpu/ops/traceback.py``: the single-pair
 ``Aligner`` walks the full pointer matrix of ``scan_dp.fill`` (boundary row
 and column included) on the host, through the shared C++ walker
 ``csrc/traceback.cpp``; the tests also use it as an oracle independent of
-the device walk, and :func:`native_walk_banded` walks one pair's band of
-pointers (``ops/banded.walk_banded``).  Pointer bytes: prev-state of M in
+the device walk, :func:`native_walk_banded` walks one pair's band of
+pointers (``ops/banded.walk_banded``) and :func:`native_walk_band` one
+pair's window of a striped band (``ops/longseq.walk_band``).  Pointer bytes: prev-state of M in
 bits 0-1, of X in bits 2-3, of Y in bits 4-5 (3 = LOCAL "score is zero,
 stop here").
 
@@ -135,3 +136,36 @@ def native_walk_banded(tb: np.ndarray, off: np.ndarray, si: int, sj: int,
     if count < 0:
         return None
     return o1[:count][::-1].tolist(), o2[:count][::-1].tolist(), bool(edge[0])
+
+
+def native_walk_band(tb_band: np.ndarray, i_top: int, j_off: int, i: int,
+                     j: int, s: int, local: bool):
+    """Walk one pair's (C, width) window of band pointer bytes from
+    (i, j, s) with the shared C++ walker ``sw_walk_band``; ``tb_band[r, c]``
+    holds DP cell (i_top + r + 1, j_off + c + 1).  Returns (idx1_chunk,
+    idx2_chunk, i, j, s, status) with ``ops/longseq.walk_band``'s contract:
+    chunks in walk (reverse-path) order, status ``WALK_DONE`` /
+    ``WALK_UP`` / ``WALK_LEFT``.  Raises ``RuntimeError`` when the walker
+    fails (out of capacity or a corrupt pointer); there is no Python walk
+    to fall back to."""
+    tbc = np.ascontiguousarray(tb_band, dtype=np.uint8)
+    if tbc.ndim != 2:
+        raise ValueError(f"band window must be 2-D, got {tbc.shape}")
+    lib = native.host_lib()
+    cap = int(i + j + 2)
+    o1 = np.empty(cap, dtype=np.int64)
+    o2 = np.empty(cap, dtype=np.int64)
+    ijs = np.array([i, j, s], dtype=np.int64)
+    status = np.zeros(1, dtype=np.int64)
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    count = lib.sw_walk_band(
+        tbc.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), tbc.shape[1],
+        int(i_top), int(j_off), ijs.ctypes.data_as(p64), 1 if local else 0,
+        o1.ctypes.data_as(p64), o2.ctypes.data_as(p64), cap,
+        status.ctypes.data_as(p64),
+    )
+    if count < 0:
+        raise RuntimeError(f"band walk failed (status {count}) from "
+                           f"({i}, {j}, {s})")
+    return (o1[:count].tolist(), o2[:count].tolist(), int(ijs[0]),
+            int(ijs[1]), int(ijs[2]), int(status[0]))

@@ -589,3 +589,200 @@ def test_banded_kernels_write_only_their_outputs(cuda, mode):
                                      L=L)
     for g, w in zip(out, want):
         assert torch.equal(g, w)
+
+
+def _striped_case(seed, NP=128, MP=512):
+    """Three ragged pairs (lengths down to 1, one shared stretch) as dense
+    BLOSUM62 scores (B, NP, MP) f32 with their lengths."""
+    rng = np.random.default_rng(seed)
+    table = SubstitutionMatrix.blosum62().table
+    c1 = rng.integers(0, 20, size=(3, NP))
+    c2 = rng.integers(0, 20, size=(3, MP))
+    k = min(100, NP - 10)
+    c2[0, 40:40 + k] = c1[0, 10:10 + k]
+    S = np.stack([table[a[:, None], b[None, :]] for a, b in zip(c1, c2)])
+    n = np.array([NP, 1, NP - 29], np.int32)
+    m = np.array([MP - 7, MP, 1], np.int32)
+    return S.astype(np.float32), n, m
+
+
+class _Lockstep:
+    """Every K12 / K13 launch of parallel/seq_tiled beside its plain version
+    on copies of the same inputs; ``err`` is the largest |difference| of
+    any output (state, edges, pointer bytes, checkpoints)."""
+
+    def __init__(self):
+        from smithwaterman_tpu_torch.parallel import seq_tiled
+
+        self.st = seq_tiled
+        self.err = 0.0
+        self.launches = 0
+
+    def _diff(self, a, b):
+        if a is None:
+            return 0.0
+        d = (a.double() - b.double()).abs()
+        return float(d.max()) if d.numel() else 0.0
+
+    def __enter__(self):
+        st, real_block, real_grid = self.st, self.st.block_fill, \
+            self.st.grid_fill
+        self.real = (real_block, real_grid)
+
+        def block(*state, ds, **kw):
+            ref = [None if a is None else a.clone() for a in state]
+            st.block_ref(*ref, ds=ds, **kw)
+            real_block(*state, ds=ds, **kw)
+            self.launches += 1
+            self.err = max([self.err] + [self._diff(a, r) for a, r in
+                                         zip(state[3:], ref[3:])])
+
+        def grid(S, n, m, *, mode, pen, C=None):
+            out = real_grid(S, n, m, mode=mode, pen=pen, C=C)
+            ref = [torch.empty_like(a) for a in out[:3]]
+            rck = None if out[3] is None else tuple(
+                torch.empty_like(a) for a in out[3])
+            st.grid_fill_ref(S, n, m, *ref, rck, C=C, mode=mode, pen=pen)
+            self.launches += 1
+            self.err = max([self.err] + [self._diff(a, r) for a, r in
+                                         zip(out[:3], ref)]
+                           + [self._diff(a, r) for a, r in
+                              zip(out[3] or (), rck or ())])
+            return out
+
+        st.block_fill, st.grid_fill = block, grid
+        return self
+
+    def __exit__(self, *exc):
+        self.st.block_fill, self.st.grid_fill = self.real
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_striped_kernels_match_plain(cuda, mode):
+    """K12 (D = 1, 2, 4 shards on one card: the checkpointed fill at D > 1
+    and a seeded band re-fill with pointer bytes at every D) and K13 (the
+    D = 1 checkpointed fill, f32, int8 and folded S) against their plain
+    versions, launch by launch."""
+    from smithwaterman_tpu_torch.parallel import make_mesh, seq_tiled
+
+    S, n, m = _striped_case(90 + mode)
+    St = torch.from_numpy(S).to(cuda)
+    before = dict(seq_tiled.LAUNCHES)
+    with _Lockstep() as ls:
+        for D in (1, 2, 4):
+            mesh = make_mesh(devices=[cuda] * D)
+            for K, og, eg in ((8, -10.0, -0.5), (64, -10.3, -0.7),
+                              (16, 0.0, 0.0)):
+                kw = dict(mode=mode, og=og, eg=eg, block_rows=K, mesh=mesh)
+                st, ck = seq_tiled.striped_fill_ckpt(St, n, m, ckpt_rows=64,
+                                                     **kw)
+                seq_tiled.striped_band_tb(St[:, 64:], n, m, 64,
+                                          *(a[:, 0] for a in ck), **kw)
+        mesh = make_mesh(devices=[cuda])
+        S8 = torch.from_numpy(S[:1].astype(np.int8)).to(cuda)
+        for x, folded in ((S8, False), (seq_tiled.fold_S(S8), True)):
+            seq_tiled.striped_fill(x, n[:1], m[:1], mode=mode, og=-10.0,
+                                   eg=-0.5, block_rows=8, mesh=mesh,
+                                   folded=folded)
+    torch.cuda.synchronize()
+    assert ls.err == 0.0 and ls.launches > 0
+    assert all(seq_tiled.LAUNCHES[k] > before[k] for k in before)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_striped_cuda_matches_cpu(cuda, mode):
+    """striped_fill, striped_fill_ckpt and striped_align on a card (one and
+    four shards) and on a mesh that alternates the card and the CPU (edges
+    copied between devices every step, outputs gathered) equal the CPU
+    mesh's plain versions."""
+    from smithwaterman_tpu_torch.parallel import make_mesh, seq_tiled
+
+    S, n, m = _striped_case(95 + mode, NP=96, MP=256)
+    kw = dict(mode=mode, og=-10.0, eg=-0.5, block_rows=16)
+    for devs in ([cuda], [cuda] * 4, [cuda, "cpu"] * 2):
+        gm = make_mesh(devices=devs)
+        cm = make_mesh(devices=["cpu"] * len(devs))
+        assert torch.equal(seq_tiled.striped_fill(S, n, m, mesh=gm, **kw).cpu(),
+                           seq_tiled.striped_fill(S, n, m, mesh=cm, **kw))
+        gst, gck = seq_tiled.striped_fill_ckpt(S, n, m, ckpt_rows=32,
+                                               mesh=gm, **kw)
+        cst, cck = seq_tiled.striped_fill_ckpt(S, n, m, ckpt_rows=32,
+                                               mesh=cm, **kw)
+        assert torch.equal(gst.cpu(), cst)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(gck, cck))
+        gi, gs = seq_tiled.striped_align(S, n, m, mesh=gm, ckpt_rows=32, **kw)
+        ci, cs = seq_tiled.striped_align(S, n, m, mesh=cm, ckpt_rows=32, **kw)
+        assert gi == ci and np.array_equal(gs, cs)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_striped_kernels_write_only_their_outputs(cuda, mode):
+    """K12 (one step of shards 1 and 2 of four, with pointer bytes) and K13
+    (with checkpoints) launched on outputs fenced by canary bytes: every
+    canary stays intact and the outputs equal the plain versions'."""
+    from smithwaterman_tpu_torch.ops import kernels
+    from smithwaterman_tpu_torch.parallel import seq_tiled
+
+    S, n, m = _striped_case(99 + mode, NP=64, MP=256)
+    B, NP, MP = S.shape
+    D, K, W = 4, 16, 64
+    St = torch.from_numpy(S).to(cuda)
+    nt, mt = (torch.from_numpy(a).to(cuda) for a in (n, m))
+    pen = seq_tiled.make_pen(mode, -10.0, -0.5)
+    rng = np.random.default_rng(mode)
+
+    def filled(shape, dtype, fill_fn):
+        nbytes = int(np.prod(shape)) * torch.tensor([], dtype=dtype)\
+            .element_size()
+        arena, t = _fenced(nbytes, dtype, cuda)
+        t = t.view(shape)
+        t.copy_(fill_fn(shape).to(dtype))
+        return arena, t
+
+    rnd = lambda shape: torch.from_numpy(
+        rng.uniform(-30, 30, size=shape).astype(np.float32)).round()
+    arenas, state = {}, {}
+    for name, shape, dtype, fn in (
+            ("rows", (2, 3, B, MP), torch.float32, rnd),
+            ("box", (2, D, B, K, 4), torch.float32, rnd),
+            ("above", (D, B, 4), torch.float32, rnd),
+            ("best", (B, MP), torch.float32, rnd),
+            ("best_i", (B, MP), torch.int32,
+             lambda s: torch.full(s, 1 << 30)),
+            ("acc", (D, B, 4), torch.float32, lambda s: torch.zeros(s)),
+            ("tb", (B, NP, MP), torch.uint8, lambda s: torch.zeros(s))):
+        arenas[name], state[name] = filled(shape, dtype, fn)
+    ref = {k: v.clone() for k, v in state.items()}
+    args = dict(ds=[1, 2], t=2, i0=0, K=K, W=W, s_lo=0, mode=mode, pen=pen)
+    order = ("rows", "box", "above", "best", "best_i", "acc", "tb")
+    kernels.striped_block(St, nt, mt, *(state[k] for k in order), **args)
+    seq_tiled.block_ref(St, nt, mt, *(ref[k] for k in order), **args)
+    outs = {}
+    for name, shape, dtype in (("rows", (2, 3, B, MP), torch.float32),
+                               ("best", (B, MP), torch.float32),
+                               ("best_i", (B, MP), torch.int32),
+                               ("acc", (B, 4), torch.float32),
+                               ("ckm", (B, NP // 16, MP), torch.float32),
+                               ("ckx", (B, NP // 16, MP), torch.float32),
+                               ("cky", (B, NP // 16, MP), torch.float32)):
+        nbytes = int(np.prod(shape)) * torch.tensor([], dtype=dtype)\
+            .element_size()
+        arenas["k13 " + name], t = _fenced(nbytes, dtype, cuda)
+        outs[name] = t.view(shape)
+    kernels.striped_grid(St, nt, mt, outs["rows"], outs["best"],
+                         outs["best_i"], outs["acc"],
+                         (outs["ckm"], outs["ckx"], outs["cky"]), C=16,
+                         mode=mode, pen=pen)
+    torch.cuda.synchronize()
+    for name, arena in arenas.items():
+        assert bool((arena[:GUARD] == CANARY).all()), name
+        assert bool((arena[-GUARD:] == CANARY).all()), name
+    for k in order:
+        assert torch.equal(state[k], ref[k]), k
+    want = [torch.empty_like(outs[k]) for k in ("best", "best_i", "acc")]
+    wck = tuple(torch.empty_like(outs[k]) for k in ("ckm", "ckx", "cky"))
+    seq_tiled.grid_fill_ref(St, nt, mt, *want, wck, C=16, mode=mode, pen=pen)
+    for a, w in zip((outs["best"], outs["best_i"], outs["acc"]), want):
+        assert torch.equal(a, w)
+    for a, w in zip((outs["ckm"], outs["ckx"], outs["cky"]), wck):
+        assert torch.equal(a, w)
