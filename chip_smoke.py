@@ -27,9 +27,13 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
 6. the long-sequence kernels K3 (checkpointed fill), K4 (band refill) and
    K5 (segment walk) against their plain versions: 8 ragged pairs up to
    1024 x 1024 (lengths down to 1, one pair with tied maxima), all three
-   modes, the default band height C and C = 64.  Stats, checkpoints,
-   every band pointer byte, walk state, move count and move byte must be
-   equal;
+   modes, the default band height C and C = 64, K4 band by band and every
+   band in one launch.  Stats, checkpoints, every band pointer byte, walk
+   state, move count and move byte must be equal.  Then tables of 65 and
+   300 symbols (read from device memory; int16 codes past 255): K1, K3,
+   K4, K6 and K9 against their plain versions, and 12 pairs over the
+   table's letters (past Latin-1 for 300) through ``BatchAligner`` on the
+   card, ordinary and long route, equal to the CPU path in three modes;
 7. the long route against the ordinary one: 16 protein pairs of 1500..4000
    residues a side through ``BatchAligner(device=dev,
    longseq_cells=1)`` and ``BatchAligner(device=dev)``, every field of
@@ -40,10 +44,11 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    go = 10, ge = 0.5, default pointer budget, in all three modes.  Only
    K3, K4 and K5 may launch; each alignment re-scored from its strings
    must equal its score, GLOBAL and GLOCAL alignments must consume every
-   residue and LOCAL ones reach 90 % identity.  Then K4 and K5 run at
-   these shapes beside their plain versions, and K3 at a cut depth (4
-   such pairs of 16,000 bp: its plain version runs ~60 launches a row),
-   equal and timed;
+   residue and LOCAL ones reach 90 % identity.  Then K3 (LOCAL, about a
+   minute for its plain version), K4 (one group of bands in one launch,
+   one band alone, every band in the route's groups) and K5 run at these
+   shapes beside their plain versions, equal and timed, with the SM clock
+   read during K3;
 9. the banded kernels K6 (scores), K7 (fill) and K8 (walk) against their
    plain versions: 8 ragged protein pairs up to 2048 a side (lengths down
    to 1, m - n from -300 to +300, one pair with tied maxima), bands of 128
@@ -106,8 +111,8 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
 
 The last two stdout lines are the kernels' JSON record and the result
 line; each kernel's ``max_abs_err`` is its comparison at its main path's
-shapes (phase 5 for K1 and K2, phase 8 for K3-K5 with K3 at its cut
-depth, phase 10a for K6-K8, phase 12 for K9-K11, phase 14 for K12-K13),
+shapes (phase 5 for K1 and K2, phase 8 for K3-K5, phase 10a for K6-K8,
+phase 12 for K9-K11, phase 14 for K12-K13),
 its ``launches`` the
 count from that path's run, and ``bound_ms`` the least time the card could
 take for the same work on this run's inputs (the larger of its f32
@@ -129,7 +134,6 @@ LETTERS = "ARNDCQEGHILKMFPSTWYV"
 CHECKED = 64
 LONGEST = 3685  # the reference suite's longest sequence
 DNA_PAIRS, DNA_LEN = 4, 70000
-DNA_CMP_LEN = 16000  # phase 8's K3-against-plain depth
 # phase 10: (a) 8 protein pairs of 12,000 at band 512, (b) one of 32,768
 BANDED_PAIRS, BANDED_LEN, BANDED_BAND = 8, 12000, 512
 GIANT_LEN, GIANT_BAND = 32768, 1024
@@ -274,7 +278,8 @@ def one_chunk(pairs, sm):
         bk.codes2.append(sm.seq_to_index(b))
     if len(bks) != 1:
         fail(f"{len(pairs)} pairs fell into {len(bks)} buckets")
-    return next(iter(bks.values())).chunk()
+    return next(iter(bks.values())).chunk(
+        np.uint8 if len(sm.letters) <= 255 else np.int16)
 
 
 def rescore(a1: str, a2: str, sm, og: float, eg: float, mode: int,
@@ -1331,6 +1336,130 @@ def phase14(dev, card, modes):
     ]
 
 
+def wide_letters(K):
+    """K single-character symbols, those past 65 beyond Latin-1."""
+    ascii_ = ("ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+              "0123456789@$%")
+    if K <= len(ascii_):
+        return list(ascii_[:K])
+    return [chr(0x100 + i) for i in range(K - len(ascii_))] + list(ascii_)
+
+
+def phase6_wide(dev, modes):
+    """Tables past 64 and 255 symbols (read from device memory; int16
+    codes past 255): K1, K3, K4, K6 and K9 against their plain versions,
+    and ``BatchAligner`` on the card (both routes) against the CPU path."""
+    import torch
+
+    from smithwaterman_tpu_torch import LOCAL, BatchAligner
+    from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
+    from smithwaterman_tpu_torch.ops import banded, batch, diag_dp, fill_dp
+    from smithwaterman_tpu_torch.ops import longseq
+
+    rng = np.random.default_rng(SEED + 60)
+    summary = []
+    for K in (65, 300):
+        tabn = rng.integers(-4, 5, size=(K, K)).astype(np.float32)
+        np.fill_diagonal(tabn, 7.0)
+        tab = torch.from_numpy(tabn).to(dev)
+        ct = batch.code_dtype(K)
+        B, NP, MP = 8, 600, 520
+        c1 = rng.integers(0, K, size=(B, NP)).astype(ct)
+        c2 = rng.integers(0, K, size=(B, MP)).astype(ct)
+        n = rng.integers(1, NP + 1, size=B).astype(np.int32)
+        m = rng.integers(1, MP + 1, size=B).astype(np.int32)
+        n[:3], m[:3] = (NP, 1, 256), (MP, MP, 1)
+        c2[0, 40:400] = c1[0, 100:460]
+        ch = batch.Chunk(c1, c2, n, m)
+        t1, t2, tn, tm = (torch.from_numpy(a).to(dev) for a in ch)
+        err = 0.0
+        for mode, _ in modes:
+            got = fill_dp.fill_many(tab, [ch], mode=mode, og=-10.0, eg=-0.5)
+            ref = fill_dp.fill_many_ref(tab, [ch], mode=mode, og=-10.0,
+                                        eg=-0.5)
+            err = max(err, float((got.stats - ref.stats).abs().max()))
+            for b in range(B):  # pointer bytes inside each pair's [:n, :m]
+                d = (got.tb_view(0)[:n[b], :m[b], b].int()
+                     - ref.tb_view(0)[:n[b], :m[b], b].int())
+                err = max(err, float(d.abs().max()))
+            for C in (256, 64):
+                args = dict(mode=mode, og=-10.0, eg=-0.5, C=C)
+                st, ck = longseq.fill_checkpointed(tab, t1, t2, tn, tm, **args)
+                rst, rck = longseq.fill_checkpointed_ref(tab, t1, t2, tn, tm,
+                                                         **args)
+                err = max(err, float((st - rst).abs().max()))
+                for b in range(B):
+                    k = int(n[b]) // C
+                    for a, r in zip(ck, rck):
+                        if k:
+                            err = max(err, float((a[b, :k, :m[b]]
+                                                  - r[b, :k, :m[b]])
+                                                 .abs().max()))
+                nck = longseq.n_ckpts(NP, C)
+                bands = torch.zeros((nck, B, longseq.band_bytes(C, MP)),
+                                    dtype=torch.uint8, device=dev)
+                rbands = bands.clone()
+                longseq.fill_bands(tab, t1, t2, tn, tm, ck, bands, sk0=0,
+                                   **args)
+                longseq.fill_bands_ref(tab, t1, t2, tn, tm, ck, rbands, sk0=0,
+                                       **args)
+                for sk in range(nck):
+                    g, r = (longseq.band_view(x[sk], C, MP)
+                            for x in (bands, rbands))
+                    for b in range(B):
+                        rows = min(max(int(n[b]) - sk * C, 0), C)
+                        d = (g[b, :rows, :int(m[b])].int()
+                             - r[b, :rows, :int(m[b])].int())
+                        if rows:
+                            err = max(err, float(d.abs().max()))
+        got = diag_dp.fill_diag(tab, [ch], og=-10.0, eg=-0.5)
+        ref = diag_dp.fill_diag_ref(tab, t1, t2, tn, tm, og=-10.0, eg=-0.5)
+        err = max(err, float((got - ref).abs().max()))
+        pk = banded.pack([(c1[b, :n[b]], c2[b, :m[b]]) for b in range(B)],
+                         128, K)
+        u1, u2, un, um = (torch.from_numpy(a).to(dev)
+                          for a in (pk.codes1, pk.codes2, pk.n, pk.m))
+        S = banded.banded_scores(tab, u1, u2, un, um, W=pk.W)
+        err = max(err, float((S - banded.banded_scores_ref(
+            tab, u1, u2, un, um, W=pk.W)).abs().max()))
+        if err != 0.0:
+            fail(f"phase 6 wide table of {K} symbols: kernels differ from "
+                 f"their plain versions by {err}")
+        # BatchAligner on the card, ordinary and long route, against the
+        # CPU path, on a from_lines table of these scores
+        sym = wide_letters(K)
+        lines = ["  ".join(sym)] + [
+            s_ + " " + " ".join(str(int(v)) for v in tabn[i])
+            for i, s_ in enumerate(sym)]
+        sm = SubstitutionMatrix.from_lines(lines)
+        letters = np.array(sym)
+        pairs = []
+        for k in range(12):
+            a = "".join(rng.choice(letters, int(rng.integers(1, 900))))
+            b = "".join(rng.choice(letters, int(rng.integers(1, 900))))
+            if k % 2 == 0 and len(a) > 300:
+                b = b[:50] + a[100:300] + b[50:]
+            pairs.append((a, b))
+        for mode, mname in modes:
+            want = [(r.aligned1, r.aligned2, r.score, r.start1, r.end1,
+                     r.start2, r.end2) for r in BatchAligner(
+                scoring_matrix=sm, mode=mode, device="cpu").align_pairs(pairs)]
+            for cells in (None, 1):
+                got = BatchAligner(scoring_matrix=sm, mode=mode, device="cuda",
+                                   longseq_cells=cells).align_pairs(pairs)
+                if [(r.aligned1, r.aligned2, r.score, r.start1, r.end1,
+                     r.start2, r.end2) for r in got] != want:
+                    fail(f"phase 6 wide table of {K} symbols, {mname}: "
+                         f"BatchAligner on the card (longseq_cells={cells}) "
+                         "differs from the CPU path")
+        summary.append(f"{K} symbols ({np.dtype(ct).name} codes)")
+    say("phase 6 wide tables: " + ", ".join(summary) + ": K1 (3 modes), "
+        "K3 and K4 (3 modes x C in (256, 64), every band in one K4 launch), "
+        "K9 and K6 equal to their plain versions; 12 pairs through "
+        "BatchAligner on the card (ordinary and long route) equal to the "
+        "CPU path in 3 modes")
+
+
 def main() -> int:
     import torch
 
@@ -1534,7 +1663,7 @@ def main() -> int:
         bk.indices.append(len(bk.indices))
         bk.codes1.append(sm.seq_to_index(a.seq))
         bk.codes2.append(sm.seq_to_index(b.seq))
-    chunks = [buckets[k].chunk() for k in sorted(buckets)]
+    chunks = [buckets[k].chunk(np.uint8) for k in sorted(buckets)]
     tab = torch.from_numpy(blosum).to(dev)
     masks = pair_masks(chunks)
     L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in
@@ -1681,7 +1810,10 @@ def main() -> int:
             band = torch.zeros((B6, longseq.band_bytes(C, NP6)),
                                dtype=torch.uint8, device=dev)
             rband = band.clone()
-            for sk in range(longseq.n_ckpts(NP6, C) - 1, -1, -1):
+            nck6 = longseq.n_ckpts(NP6, C)
+            rbands = torch.zeros((nck6,) + tuple(band.shape),
+                                 dtype=torch.uint8, device=dev)
+            for sk in range(nck6 - 1, -1, -1):
                 ms, _ = event_ms(lambda: longseq.fill_band(
                     tab, t1, t2, tn, tm, ck, band, sk=sk, **args))
                 pms, _ = event_ms(lambda: longseq.fill_band_ref(
@@ -1691,6 +1823,7 @@ def main() -> int:
                 if band_err(band, rband, n6, m6, C, NP6, sk) != 0.0:
                     fail(f"K4 {mname} C={C} band {sk}: differs from the "
                          "plain refill")
+                rbands[sk] = rband
                 kw = dict(sk=sk, C=C, MP=NP6, L=L, local=mode == LOCAL)
                 ms, _ = event_ms(lambda: longseq.walk_segments(
                     band, walk, cnt, mv, **kw))
@@ -1703,12 +1836,22 @@ def main() -> int:
                          "plain walk")
             if not bool((walk[:, 3] == 1).all()) or int(cnt.max()) == 0:
                 fail(f"long route {mname} C={C}: a walk did not finish")
+            # every band in one K4 launch (most pairs have no rows in the
+            # lower bands) against the plain refills above
+            bands = torch.zeros_like(rbands)
+            longseq.fill_bands(tab, t1, t2, tn, tm, ck, bands, sk0=0, **args)
+            for sk in range(nck6):
+                if band_err(bands[sk], rbands[sk], n6, m6, C, NP6, sk):
+                    fail(f"K4 {mname} C={C}: band {sk} of a {nck6}-band "
+                         "launch differs from the plain refill")
     say("phase 6 K3/K4/K5: 3 modes x C in "
         f"({longseq.DEFAULT_CKPT_ROWS}, 64), {B6} pairs up to "
-        f"{NP6}x{NP6}: stats, checkpoints, band bytes, walk states, counts "
-        "and moves equal to the plain versions; summed ms kernel / plain: "
+        f"{NP6}x{NP6}: stats, checkpoints, band bytes (band by band and "
+        "every band in one K4 launch), walk states, counts and moves equal "
+        "to the plain versions; summed ms kernel / plain: "
         + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in p6.items()))
-    del got, ref, band, rband
+    del got, ref, band, rband, bands, rbands
+    phase6_wide(dev, modes)
     say(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phase 7: the long route against the ordinary route
@@ -1810,67 +1953,99 @@ def main() -> int:
             f"launches {json.dumps(counts)}; every alignment re-scores to "
             f"its score; on {card}")
 
-    # K3 beside its plain version at a cut depth, 4 DNA pairs of 16 kb (the
-    # plain fill runs ~60 launches a row: at 70 kb it took 65-89 s), in
-    # LOCAL (the argmax over every band); K4 and K5 at phase 8's own shapes
-    # in GLOBAL, on the first full band the walks cross (every walk starts
-    # at (n, m))
+    # K3 beside its plain version at phase 8's shapes, in LOCAL (the argmax
+    # over every band; the plain fill runs ~60 launches a row, about a
+    # minute); K4 and K5 at phase 8's own shapes in GLOBAL: one group of
+    # bands as the route refills them (the first group the walks cross,
+    # every walk starts at (n, m)), one band alone, and every band of the
+    # bucket in the route's groups
     sm8 = dna
     ch8 = one_chunk(pairs8, sm8)
     B8, NP8, MP8 = ch8.shape
     u1, u2, un, um = (torch.from_numpy(a).to(dev) for a in ch8)
     tab8 = torch.from_numpy(np.asarray(sm8.table, np.float32)).to(dev)
     C = longseq.DEFAULT_CKPT_ROWS
-    pairs8c = [mutated_pair(DNA_CMP_LEN, rng8, "ACGT")
-               for _ in range(DNA_PAIRS)]
-    ch8c = one_chunk(pairs8c, sm8)
-    v1, v2, vn, vm = (torch.from_numpy(a).to(dev) for a in ch8c)
     args = dict(mode=LOCAL, og=-10.0, eg=-0.5, C=C)
-    longseq.fill_checkpointed(tab8, v1, v2, vn, vm, **args)
-    k3_ms, got = event_ms(lambda: longseq.fill_checkpointed(
-        tab8, v1, v2, vn, vm, **args))
+    longseq.fill_checkpointed(tab8, u1, u2, un, um, **args)
+    k3_ms, got = timed(lambda: longseq.fill_checkpointed(
+        tab8, u1, u2, un, um, **args), 3)
     k3_plain_ms, ref = event_ms(lambda: longseq.fill_checkpointed_ref(
-        tab8, v1, v2, vn, vm, **args))
-    k3_err = ckpt_err(got, ref, ch8c.n, ch8c.m, C)
+        tab8, u1, u2, un, um, **args))
+    k3_err = ckpt_err(got, ref, ch8.n, ch8.m, C)
     if k3_err != 0.0:
-        fail(f"K3 at 16 kb: max error {k3_err}")
+        fail(f"K3 at phase 8's shapes: max error {k3_err}")
     del got, ref
-    lengths8c = list(zip(ch8c.n.tolist(), ch8c.m.tolist()))
-    ck_rows = sum((x // C) * y for x, y in lengths8c)
-    k3_bound = bound(CELL_FLOPS[LOCAL] * sum(x * y for x, y in lengths8c),
-                     sum(x + y for x, y in lengths8c) + 12 * ck_rows
+    lengths8 = list(zip(ch8.n.tolist(), ch8.m.tolist()))
+    ck_rows = sum((x // C) * y for x, y in lengths8)
+    k3_bound = bound(CELL_FLOPS[LOCAL] * sum(x * y for x, y in lengths8),
+                     sum(x + y for x, y in lengths8) + 12 * ck_rows
                      + 32 * B8)
     args = dict(mode=GLOBAL, og=-10.0, eg=-0.5, C=C)
-    # K3 at phase 8's shapes lasts seconds: the SM clock is read while it
-    # runs
-    st, ck = longseq.fill_checkpointed(tab8, u1, u2, un, um, **args)
+    # the SM clock, read while ten K3 launches run back to back
+    for _ in range(10):
+        st, ck = longseq.fill_checkpointed(tab8, u1, u2, un, um, **args)
     clock_mhz = sm_clock_mhz()
+    torch.cuda.synchronize()
     L8 = NP8 + MP8 + 2
     walk = longseq.walk_start(st, un, um, GLOBAL)
     cnt = torch.zeros(B8, dtype=torch.int32, device=dev)
     mv = torch.zeros((-(-L8 // 4), B8), dtype=torch.uint8, device=dev)
-    band = torch.empty((B8, longseq.band_bytes(C, MP8)), dtype=torch.uint8,
-                       device=dev)
-    top = longseq.n_ckpts(NP8, C) - 1
-    sk = top
-    while sk * C + C > int(ch8.n.min()):  # walk down to the first full band
-        longseq.fill_band(tab8, u1, u2, un, um, ck, band, sk=sk, **args)
-        longseq.walk_segments(band, walk, cnt, mv, sk=sk, C=C, MP=MP8, L=L8,
-                              local=False)
-        sk -= 1
-    k4_ms, _ = event_ms(lambda: longseq.fill_band(
-        tab8, u1, u2, un, um, ck, band, sk=sk, **args))
-    rband = torch.zeros_like(band)
-    k4_plain_ms, _ = event_ms(lambda: longseq.fill_band_ref(
-        tab8, u1, u2, un, um, ck, rband, sk=sk, **args))
-    k4_err = band_err(band, rband, ch8.n, ch8.m, C, MP8, sk)
+    nck8 = longseq.n_ckpts(NP8, C)
+    G8 = longseq.group_bands(NP8, MP8, C)
+    bands = torch.empty((G8, B8, longseq.band_bytes(C, MP8)),
+                        dtype=torch.uint8, device=dev)
+    top = nck8 - 1
+    while True:  # the route's groups, top down, to the first full group
+        sk0 = max(0, top - G8 + 1)
+        if top - sk0 + 1 == G8 and (top + 1) * C <= int(ch8.n.min()):
+            break
+        if sk0 == 0:
+            fail("phase 8: no group of full bands")
+        longseq.fill_bands(tab8, u1, u2, un, um, ck, bands[:top - sk0 + 1],
+                           sk0=sk0, **args)
+        for sk in range(top, sk0 - 1, -1):
+            longseq.walk_segments(bands[sk - sk0], walk, cnt, mv, sk=sk, C=C,
+                                  MP=MP8, L=L8, local=False)
+        top = sk0 - 1
+    k4_ms, _ = event_ms(lambda: longseq.fill_bands(
+        tab8, u1, u2, un, um, ck, bands, sk0=sk0, **args))
+    rbands = torch.zeros_like(bands)
+    k4_plain_ms, _ = event_ms(lambda: longseq.fill_bands_ref(
+        tab8, u1, u2, un, um, ck, rbands, sk0=sk0, **args))
+    k4_err = max(band_err(bands[g], rbands[g], ch8.n, ch8.m, C, MP8, sk0 + g)
+                 for g in range(G8))
     if k4_err != 0.0:
-        fail(f"K4 at phase 8's shapes, band {sk}: max error {k4_err}")
-    band_cells = sum(min(C, int(x) - sk * C) * int(y)
-                     for x, y in zip(ch8.n, ch8.m))
+        fail(f"K4 at phase 8's shapes, bands {sk0}..{top}: max error "
+             f"{k4_err}")
+    del rbands
+    band_cells = sum(min(C, max(int(x) - (sk0 + g) * C, 0)) * int(y)
+                     for g in range(G8) for x, y in zip(ch8.n, ch8.m))
     k4_bound = bound(CELL_FLOPS[GLOBAL] * band_cells,
-                     band_cells + 12 * int(ch8.m.sum())
-                     + B8 * C + int(ch8.m.sum()))
+                     band_cells + G8 * (12 * int(ch8.m.sum())
+                                        + B8 * C + int(ch8.m.sum())))
+    one = torch.empty_like(bands[0])
+    k4_one_ms, _ = event_ms(lambda: longseq.fill_band(
+        tab8, u1, u2, un, um, ck, one, sk=top, **args))
+    if band_err(one, bands[G8 - 1], ch8.n, ch8.m, C, MP8, top) != 0.0:
+        fail(f"K4 at phase 8's shapes: band {top} alone differs from its "
+             "group's")
+    del one
+
+    def all_bands():
+        for hi in range(nck8 - 1, -1, -G8):
+            lo = max(0, hi - G8 + 1)
+            longseq.fill_bands(tab8, u1, u2, un, um, ck, bands[:hi - lo + 1],
+                               sk0=lo, **args)
+
+    k4_all_ms, _ = event_ms(all_bands)
+    # walk the group timed above, then K5 on the next band down
+    longseq.fill_bands(tab8, u1, u2, un, um, ck, bands, sk0=sk0, **args)
+    for sk in range(top, sk0 - 1, -1):
+        longseq.walk_segments(bands[sk - sk0], walk, cnt, mv, sk=sk, C=C,
+                              MP=MP8, L=L8, local=False)
+    sk = sk0 - 1
+    band = bands[0]
+    longseq.fill_band(tab8, u1, u2, un, um, ck, band, sk=sk, **args)
     rwalk, rcnt, rmv = walk.clone(), cnt.clone(), mv.clone()
     cnt0 = int(cnt.sum())
     kw = dict(sk=sk, C=C, MP=MP8, L=L8, local=False)
@@ -1883,24 +2058,30 @@ def main() -> int:
         fail(f"K5 at phase 8's shapes, band {sk}: max error {k5_err}")
     steps = int(cnt.sum()) - cnt0
     k5_bound = bound(STEP_OPS * steps, steps + steps / 4 + 20 * B8)
-    # wavefront steps of the slowest block (sw_band.cuh band_steps: m + rows
-    # - 1 a band) and SM cycles per step at the clock read during K3
-    k3_steps = max(-(-x // C) * (y - 1) + x for x, y in lengths8c)
-    k4_steps = max(int(y) + min(C, int(x) - sk * C) - 1
-                   for x, y in zip(ch8.n, ch8.m))
+    del bands, band
+    # K3: SM-cycles a band-step (one warp's step over its band's C rows),
+    # the card's SMs over every band's steps (sw_band.cuh band_steps:
+    # m + 31 a band); K4 alone: a block of C / 32 one-row warps a band,
+    # cycles a block step (block_steps: m + 31 a warp, LAG = 96 steps
+    # between its warps)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k3_band_steps = sum(-(-x // C) * (y + 31) for x, y in lengths8)
+    k3_cyc = k3_ms * 1e3 * clock_mhz * sms / k3_band_steps
+    k4_steps = max(int(y) + 31 + (C // 32 - 1) * 96 for y in ch8.m)
+    k4_cyc = k4_one_ms * 1e3 * clock_mhz / k4_steps
     say(f"phase 8 kernels at the long route's shapes ({B8} pairs, "
-        f"{NP8}x{MP8}, C={C}; K3 at {B8} pairs of {DNA_CMP_LEN} bp, "
-        f"{ch8c.shape[1]}x{ch8c.shape[2]}) on {card}: K3 (LOCAL) "
-        f"{k3_ms:.3f} ms vs plain "
-        f"{k3_plain_ms:.3f} ms, bound {k3_bound[0]:.4f} ms; K4 (GLOBAL, band "
-        f"{sk}) {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms, bound "
-        f"{k4_bound[0]:.6f} ms; K5 (band {sk}, {steps} steps) {k5_ms:.3f} "
-        f"ms vs plain {k5_plain_ms:.3f} ms, bound {k5_bound[0]:.6f} ms; "
-        "all equal to the plain versions; SM clock during K3 at 70 kb "
-        f"{clock_mhz:.0f} MHz: K3 {k3_steps} steps, "
-        f"{k3_ms * 1e3 * clock_mhz / k3_steps:.1f} cycles a step; K4 "
-        f"{k4_steps} steps, {k4_ms * 1e3 * clock_mhz / k4_steps:.1f} cycles "
-        "a step")
+        f"{NP8}x{MP8}, C={C}, {nck8} bands a pair, {G8} a K4 launch) on "
+        f"{card}: K3 (LOCAL) {k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms, "
+        f"bound {k3_bound[0]:.4f} ms; K4 (GLOBAL, bands {sk0}..{top} in one "
+        f"launch) {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms, bound "
+        f"{k4_bound[0]:.6f} ms; K4 one band {k4_one_ms:.3f} ms; K4 over all "
+        f"{nck8} bands in {-(-nck8 // G8)} launches {k4_all_ms:.3f} ms; K5 "
+        f"(band {sk}, {steps} steps) {k5_ms:.3f} ms vs plain "
+        f"{k5_plain_ms:.3f} ms, bound {k5_bound[0]:.6f} ms; all equal to "
+        f"the plain versions; SM clock during K3 {clock_mhz:.0f} MHz: K3 "
+        f"{k3_band_steps} band-steps on {sms} SMs, {k3_cyc:.1f} SM-cycles a "
+        f"band-step; K4 one band {k4_steps} block steps, {k4_cyc:.1f} "
+        "cycles a block step")
     launches8 = {k: sum(run8[mn][k] for _, mn in modes)
                  for k in ("K3", "K4", "K5")}
     for name, src, repl, k, err, ms, pms, bd in (

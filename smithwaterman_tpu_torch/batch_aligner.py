@@ -71,20 +71,21 @@ class _Bucket:
     codes1: List[np.ndarray] = field(default_factory=list)
     codes2: List[np.ndarray] = field(default_factory=list)
 
-    def chunk(self) -> batch_ops.Chunk:
-        """The bucket's padded codes and lengths."""
+    def chunk(self, dtype: np.dtype) -> batch_ops.Chunk:
+        """The bucket's padded codes (of ``dtype``) and lengths."""
         count = len(self.indices)
         n = np.fromiter((len(c) for c in self.codes1), np.int32, count)
         m = np.fromiter((len(c) for c in self.codes2), np.int32, count)
-        return batch_ops.Chunk(_pack(self.codes1, n, self.np_pad),
-                               _pack(self.codes2, m, self.mp_pad), n, m)
+        return batch_ops.Chunk(_pack(self.codes1, n, self.np_pad, dtype),
+                               _pack(self.codes2, m, self.mp_pad, dtype), n, m)
 
 
-def _pack(codes: List[np.ndarray], lens: np.ndarray, width: int):
-    """Rows of ragged codes into a zero-padded (count, width) uint8 array
-    with one fancy-index scatter."""
+def _pack(codes: List[np.ndarray], lens: np.ndarray, width: int,
+          dtype: np.dtype):
+    """Rows of ragged codes into a zero-padded (count, width) array of
+    ``dtype`` with one fancy-index scatter."""
     count = len(codes)
-    out = np.zeros((count, width), np.uint8)
+    out = np.zeros((count, width), dtype)
     total = int(lens.sum())
     if total:
         starts = np.zeros(count, np.int64)
@@ -152,9 +153,6 @@ class BatchAligner:
     # ------------------------------------------------------------------
     def _table_on_device(self) -> torch.Tensor:
         table = np.asarray(self.scoring_matrix.table, np.float32)
-        if table.shape[0] > 255:
-            raise NotImplementedError(
-                f"{table.shape[0]} symbols do not fit the uint8 codes")
         return torch.from_numpy(table.copy()).to(self.device)
 
     def _run(self, pairs: Sequence[Tuple], retain_all: bool,
@@ -194,8 +192,10 @@ class BatchAligner:
             bk.codes2.append(c2)
         order = sorted(buckets.values(), key=lambda b: (b.np_pad, b.mp_pad))
         table = self._table_on_device() if order else None
+        ctype = batch_ops.code_dtype(np.shape(sm.table)[0])
         flushes = batch_ops.plan_flushes(
-            [bk.chunk() for bk in order], batch_ops.tb_budget(), score_only,
+            [bk.chunk(ctype) for bk in order], batch_ops.tb_budget(),
+            score_only,
             long_cells=self.longseq_cells,
             runs=self.token_walk and not score_only)
         # caller positions of each pair, in flush order

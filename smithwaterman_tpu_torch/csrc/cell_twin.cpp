@@ -5,10 +5,14 @@
 //
 // It includes the kernels' own headers and runs them over a batch in the
 // kernels' loop order, one pair after another, with the same per-pair
-// descriptors and memory layout.  For K3 and K4 it runs the band
-// wavefront's per-thread functions (sw_band.cuh) for every thread of a
-// block at each step, where the card runs them in parallel with a barrier
-// after each step.  For K7 it runs each band row's phase A for every thread,
+// descriptors and memory layout.  For K3 and K4 it runs the warp band's
+// per-lane functions (sw_band.cuh) for lane 0 .. 31 in turn at each step,
+// handing each lane its neighbour's values from before the step, as the
+// card's shuffles do.  K3's bands begin in ticket order (band-major over
+// the pairs) and advance a step each in turn, every band reading its seed
+// tiles as soon as they are published (the LOCAL merge in the pair's last
+// band); K4's bands of a group run one after another.  Both are orders the
+// card may take.  For K7 it runs each band row's phase A for every thread,
 // the block's prefix in thread order, then phase C for every thread
 // (sw_banded.cuh), where the card's threads wait for each other between
 // the phases; K12 and K13 likewise, each striped row (sw_striped.cuh).
@@ -22,6 +26,8 @@
 // card.
 // Build: g++ -O2 -fPIC -std=c++17 -ffp-contract=off -c, then g++ -shared.
 #include <cstdint>
+#include <type_traits>
+#include <utility>
 #include <vector>
 
 #include "sw_band.cuh"
@@ -33,25 +39,24 @@
 
 namespace {
 
-template <int MODE, bool TB>
-void fill_all(const float* table, int K, const uint8_t* codes1,
-              const uint8_t* codes2, const int64_t* desc, int64_t B,
+template <int MODE, bool TB, typename CODE>
+void fill_all(const float* table, int K, const CODE* codes1,
+              const CODE* codes2, const int64_t* desc, int64_t B,
               uint8_t* tb, float* carry, float* stats, float og, float eg) {
   for (int64_t b = 0; b < B; ++b) {
     const int64_t* d = desc + b * sw::DESC_W;
-    sw::fill_pair<MODE, TB>(table, K, codes1 + d[sw::D_OFF1],
-                            codes2 + d[sw::D_OFF2], (int)d[sw::D_N],
-                            (int)d[sw::D_M], TB ? tb + d[sw::D_TB] : nullptr,
-                            d[sw::D_RS], d[sw::D_CS], carry + d[sw::D_CARRY],
-                            3 * d[sw::D_CS], og, eg, stats + b * sw::STATS_W);
+    sw::fill_pair<MODE, TB, false, CODE>(
+        table, K, codes1 + d[sw::D_OFF1], codes2 + d[sw::D_OFF2],
+        (int)d[sw::D_N], (int)d[sw::D_M], TB ? tb + d[sw::D_TB] : nullptr,
+        d[sw::D_RS], d[sw::D_CS], carry + d[sw::D_CARRY], 3 * d[sw::D_CS],
+        og, eg, stats + b * sw::STATS_W);
   }
 }
 
-template <int MODE>
-void fill_mode(int traceback, const float* table, int K,
-               const uint8_t* codes1, const uint8_t* codes2,
-               const int64_t* desc, int64_t B, uint8_t* tb, float* carry,
-               float* stats, float og, float eg) {
+template <int MODE, typename CODE>
+void fill_mode(int traceback, const float* table, int K, const CODE* codes1,
+               const CODE* codes2, const int64_t* desc, int64_t B,
+               uint8_t* tb, float* carry, float* stats, float og, float eg) {
   if (traceback)
     fill_all<MODE, true>(table, K, codes1, codes2, desc, B, tb, carry, stats,
                          og, eg);
@@ -60,14 +65,14 @@ void fill_mode(int traceback, const float* table, int K,
                           stats, og, eg);
 }
 
-template <int MODE>
-void fill_runs_all(const float* table, int K, const uint8_t* codes1,
-                   const uint8_t* codes2, const int64_t* desc, int64_t B,
+template <int MODE, typename CODE>
+void fill_runs_all(const float* table, int K, const CODE* codes1,
+                   const CODE* codes2, const int64_t* desc, int64_t B,
                    uint8_t* tb, uint8_t* run, float* carry, float* stats,
                    float og, float eg) {
   for (int64_t b = 0; b < B; ++b) {
     const int64_t* d = desc + b * sw::DESC_W;
-    sw::fill_pair<MODE, true, true>(
+    sw::fill_pair<MODE, true, true, CODE>(
         table, K, codes1 + d[sw::D_OFF1], codes2 + d[sw::D_OFF2],
         (int)d[sw::D_N], (int)d[sw::D_M], tb + d[sw::D_TB], d[sw::D_RS],
         d[sw::D_CS], carry + d[sw::D_CARRY], 3 * d[sw::D_CS], og, eg,
@@ -75,10 +80,26 @@ void fill_runs_all(const float* table, int K, const uint8_t* codes1,
   }
 }
 
+// Calls f(codes) with the codes of code_bytes width (1: uint8, 2: int16)
+// typed; returns 1 for another width.
+template <typename F>
+int with_codes(int code_bytes, const void* codes1, const void* codes2,
+               F&& f) {
+  if (code_bytes == 1) {
+    f((const uint8_t*)codes1, (const uint8_t*)codes2);
+    return 0;
+  }
+  if (code_bytes == 2) {
+    f((const int16_t*)codes1, (const int16_t*)codes2);
+    return 0;
+  }
+  return 1;
+}
+
 // One pair's wavefront fill as a warp would run it (diag_fill.cu).
-float diag_pair(const float* table, int K, const uint8_t* c1,
-                const uint8_t* c2, int n, int m, float* edge, float og,
-                float eg) {
+template <typename CODE>
+float diag_pair(const float* table, int K, const CODE* c1, const CODE* c2,
+                int n, int m, float* edge, float og, float eg) {
   namespace dg = sw::diag;
   constexpr int W = dg::LANES;
   float best = 0.0f;
@@ -125,86 +146,332 @@ float diag_pair(const float* table, int K, const uint8_t* c1,
   return best;
 }
 
-// One band of one pair as a block of C threads would run it.
-template <int MODE>
-void run_band(int C, const sw::BandIO& io, const sw::Pen& p, sw::Best* best) {
-  std::vector<sw::Cell> up(2 * C), seed(2 * C);
-  std::vector<uint8_t> code(4 * C);
-  const sw::BandSmem sm{up.data(), seed.data(), code.data()};
-  std::vector<sw::Lane> lanes;
-  for (int t = 0; t < C; ++t) {
-    lanes.push_back(sw::lane_begin<MODE>(t, C, io, p));
-    sw::tile_put(t, C, 0, lanes[t], sm);
-  }
-  const int steps = sw::band_steps(C, io);
-  for (int k = 0; k < steps; ++k)
-    for (int t = 0; t < C; ++t)
-      sw::band_step<MODE>(t, C, k, io, p, &lanes[t], sm,
-                          best ? best + t : nullptr);
-}
+// One warp of a band as the card runs it (longseq_fill.cu run_band), a
+// step at a time: every lane in turn at each step, each handed its
+// neighbour's values from before the step, as the shuffles hand them.
+template <int MODE, int R, bool TB, typename CODE>
+struct TwinWarp {
+  static constexpr int W = sw::WARP;
+  sw::BandIO<CODE> io;
+  sw::Pen p;
+  std::vector<sw::Lane<R>> L;
+  std::vector<sw::TileReg> cur, nxt;
+  int k = 0, steps = 0;
+  int fetched = -1;  // the seed tile this step fetched, or -1
 
-sw::BandIO pair_io(const float* table, int K, const uint8_t* codes1,
-                   const uint8_t* codes2, const int32_t* n, const int32_t* m,
-                   int64_t b, int64_t NP, int64_t MP) {
-  sw::BandIO io{};
+  void begin() {
+    for (int l = 0; l < W; ++l) L.push_back(sw::lane_begin<MODE, R>(l, io, p));
+    cur.assign(W, sw::TileReg{});
+    nxt = cur;
+    steps = sw::band_steps<R>(io);
+  }
+
+  // Step k.  Returns false, changing nothing, where the card would wait for
+  // a seed tile not yet published.
+  bool advance() {
+    const int q = k % W;
+    fetched = -1;
+    if (k == 0 || q == W / 2) {
+      const int T = k == 0 ? 0 : k / W + 1;
+      if (!sw::seed_ready(T, io)) return false;
+      for (int l = 0; l < W; ++l)
+        (k == 0 ? cur : nxt)[l] = sw::tile_fetch(l, T, io, p);
+      fetched = T;
+    }
+    sw::Cell bottom[W];
+    int code[W];
+    for (int l = 0; l < W; ++l) {  // the shuffles' sources
+      bottom[l] = L[l].left[R - 1];
+      code[l] = L[l].code;
+    }
+    for (int l = 0; l < W; ++l) {
+      L[l].code = l ? code[l - 1] : cur[q].code;
+      sw::lane_step<MODE, R, TB>(l, k, &L[l], l ? bottom[l - 1] : cur[q].seed,
+                                 io, p);
+      if (TB) sw::ring_put<R>(l, k, L[l], io);
+    }
+    if (!TB && io.out_m) {
+      const sw::Cell b = L[sw::warp_lanes<R>(io) - 1].left[R - 1];
+      int T = -1;
+      for (int l = 0; l < W; ++l) T = sw::ck_collect<R>(l, k, &L[l], b, io);
+      if (T >= 0) {
+        for (int l = 0; l < W; ++l) sw::ck_store<R>(l, T, L[l], io);
+        sw::st_release(io.publish, T + 1);
+      }
+    }
+    if (q == W - 1) cur = nxt;
+    ++k;
+    return true;
+  }
+
+  sw::Best best() const {
+    sw::Best b = sw::no_best();
+    for (const auto& lane : L) b = sw::better(b, lane.best);
+    return b;
+  }
+};
+
+// A band's block of NW warps, a block step at a time: warp w's step
+// K - w * LAG for w = 0 .. NW-1 (K3: NW = 1).  The rings between the warps
+// are checked against the card's barriers, which follow every block step K
+// with K mod 32 == 31: a tile's last column must be stored before a
+// barrier that precedes its fetch, and the tile fetched before a barrier
+// that precedes the first store over it, four tiles later.
+template <int MODE, int R, bool TB, typename CODE>
+struct TwinBlock {
+  static constexpr int SLOTS = sw::RING / sw::WARP;  // tiles a ring
+  std::vector<TwinWarp<MODE, R, TB, CODE>> warps;
+  std::vector<float> rings;
+  // per ring slot: the tile in it, the block step of its last store and of
+  // its fetch (-1: not fetched yet)
+  std::vector<int> tile, put_at, got_at;
+  int K = 0, total = 0;
+  bool broken = false;  // a ring access the barriers would not order
+
+  // The band's warps, R rows a lane: warp 0 reads and the last warp writes
+  // as `io` says, rings in between.
+  void begin(const sw::BandIO<CODE>& io, const sw::Pen& p, int NW) {
+    rings.assign((size_t)(NW - 1) * 3 * sw::RING, 0.0f);
+    tile.assign((NW - 1) * SLOTS, -1);
+    put_at = got_at = tile;
+    for (int w = 0; w < NW; ++w) {
+      TwinWarp<MODE, R, TB, CODE> t;
+      t.p = p;
+      t.io = io;
+      t.io.r0 = w * sw::WARP * R;
+      t.io.rows_w = io.C >= sw::WARP ? sw::WARP * R : io.C;
+      if (w > 0) {
+        t.io.ring_in = rings.data() + (w - 1) * 3 * sw::RING;
+        t.io.seed_m = t.io.seed_x = t.io.seed_y = nullptr;
+        t.io.wait = nullptr;
+      }
+      if (w < NW - 1) t.io.ring_out = rings.data() + w * 3 * sw::RING;
+      t.begin();
+      warps.push_back(std::move(t));
+    }
+    total = TB ? sw::block_steps(NW, warps[0].io) : warps[0].steps;
+  }
+
+  bool done() const { return K >= total; }
+
+  // Block step K.  Returns false, changing nothing, where warp 0 would wait
+  // for a seed tile of the band above.
+  bool advance() {
+    const int NW = (int)warps.size();
+    const int barriers = K / sw::WARP;  // barriers passed before this step
+    for (int w = 0; w < NW; ++w) {
+      auto& t = warps[w];
+      const int k = K - w * sw::LAG;
+      if (k < 0 || k >= t.steps) continue;
+      if (!t.advance()) {
+        if (w == 0) return false;
+        broken = true;  // a ring tile is always "published"
+        continue;
+      }
+      if (w > 0 && t.fetched >= 0 && t.fetched * sw::WARP < t.io.m) {
+        const int slot = (w - 1) * SLOTS + t.fetched % SLOTS;
+        if (tile[slot] != t.fetched || put_at[slot] / sw::WARP >= barriers)
+          broken = true;
+        got_at[slot] = K;
+      }
+      // the bottom lane's column of this step (ring_put)
+      const int cb = k - (sw::warp_lanes<R>(t.io) - 1);
+      if (w < NW - 1 && cb >= 0 && cb < t.io.m) {
+        const int T = cb / sw::WARP;
+        const int slot = w * SLOTS + T % SLOTS;
+        if (cb % sw::WARP == 0 && tile[slot] >= 0 &&
+            (got_at[slot] < 0 || got_at[slot] / sw::WARP >= barriers))
+          broken = true;  // overwrites a tile not yet fetched
+        tile[slot] = T;
+        put_at[slot] = K;
+        if (cb % sw::WARP == 0) got_at[slot] = -1;
+      }
+    }
+    ++K;
+    return true;
+  }
+
+  sw::Best best() const {
+    sw::Best b = sw::no_best();
+    for (const auto& t : warps) b = sw::better(b, t.best());
+    return b;
+  }
+};
+
+template <typename CODE>
+sw::BandIO<CODE> pair_io(const float* table, int K, const CODE* codes1,
+                         const CODE* codes2, const int32_t* n,
+                         const int32_t* m, int64_t b, int64_t NP, int64_t MP,
+                         int C, int kb, const float* ckm, const float* ckx,
+                         const float* cky) {
+  sw::BandIO<CODE> io{};
   io.tab = table;
   io.K = K;
   io.c1 = codes1 + b * NP;
   io.c2 = codes2 + b * MP;
   io.n = n[b];
   io.m = m[b];
+  io.C = C;
+  io.base = kb * C;
+  const int64_t NCK = (NP + C - 1) / C;
+  const int64_t prev = (b * NCK + kb - 1) * MP;
+  io.seed_m = kb ? ckm + prev : nullptr;
+  io.seed_x = kb ? ckx + prev : nullptr;
+  io.seed_y = kb ? cky + prev : nullptr;
   return io;
 }
 
-template <int MODE>
-void ckpt_all(const float* table, int K, const uint8_t* codes1,
-              const uint8_t* codes2, const int32_t* n, const int32_t* m,
-              int64_t B, int64_t NP, int64_t MP, int C, float* ckm,
-              float* ckx, float* cky, float* stats, float og, float eg) {
+// K3 (longseq_fill.cu ckpt_kernel): a block for every ticket, begun in
+// ticket order, and every begun band advanced one block step in turn, so
+// each band reads its seed tiles as early as their publication allows (a
+// schedule the card may take; a band that would read an unpublished tile
+// waits its turn).  The LOCAL merge runs in the pair's last band to finish.
+// Returns 2 if no band can advance (the card would hang), 3 if a ring
+// access is not ordered by the card's barriers.
+template <int MODE, int R, typename CODE>
+int ckpt_all(const float* table, int K, const CODE* codes1,
+             const CODE* codes2, const int32_t* n, const int32_t* m,
+             int64_t B, int64_t NP, int64_t MP, int C, float* ckm, float* ckx,
+             float* cky, float* stats, int32_t* scratch, float og, float eg) {
   const sw::Pen p = sw::make_pen<MODE>(og, eg);
   const int64_t NCK = (NP + C - 1) / C;
-  for (int64_t b = 0; b < B; ++b) {
-    float* st = stats + b * sw::STATS_W;
-    for (int q = 0; q < sw::STATS_W; ++q) st[q] = 0.0f;
-    sw::BandIO io = pair_io(table, K, codes1, codes2, n, m, b, NP, MP);
-    io.fin = MODE == sw::LOCAL ? nullptr : st + 3;
-    std::vector<sw::Best> best(C, sw::no_best());
-    for (int kb = 0; kb * C < io.n; ++kb) {
-      io.base = kb * C;
-      const int64_t prev = (b * NCK + kb - 1) * MP, row = (b * NCK + kb) * MP;
-      io.seed_m = kb ? ckm + prev : nullptr;
-      io.seed_x = kb ? ckx + prev : nullptr;
-      io.seed_y = kb ? cky + prev : nullptr;
+  const sw::CkptScratch s = sw::ckpt_scratch(scratch, B, NCK);
+  for (int64_t q = 0; q < B * sw::STATS_W; ++q) stats[q] = 0.0f;
+  std::vector<TwinBlock<MODE, R, false, CODE>> blocks;
+  std::vector<std::pair<int64_t, int>> at;  // (pair, band) of each block
+  for (int64_t t = (*s.ticket)++; t < NCK * B; t = (*s.ticket)++) {
+    const int kb = (int)(t / B);
+    const int64_t b = t % B;
+    if (kb * C >= n[b]) continue;
+    sw::BandIO<CODE> io = pair_io(table, K, codes1, codes2, n, m, b, NP, MP,
+                                  C, kb, ckm, ckx, cky);
+    io.wait = kb ? s.prog + b * NCK + kb - 1 : nullptr;
+    if (io.base + C <= io.n) {
+      const int64_t row = (b * NCK + kb) * MP;
       io.out_m = ckm + row;
       io.out_x = ckx + row;
       io.out_y = cky + row;
-      run_band<MODE>(C, io, p, best.data());
+      io.publish = s.prog + b * NCK + kb;
     }
-    sw::finish_stats(MODE == sw::LOCAL, best.data(), C, st);
+    if (MODE != sw::LOCAL && io.n <= io.base + C)
+      io.fin = stats + b * sw::STATS_W + 3;
+    blocks.emplace_back();
+    blocks.back().begin(io, p, 1);
+    at.push_back({b, kb});
   }
+  for (size_t left = blocks.size(); left;) {
+    bool moved = false;
+    for (size_t q = 0; q < blocks.size(); ++q) {
+      auto& blk = blocks[q];
+      if (blk.done() || !blk.advance()) continue;
+      moved = true;
+      if (blk.broken) return 3;
+      if (!blk.done()) continue;
+      --left;
+      if (MODE != sw::LOCAL) continue;
+      const int64_t b = at[q].first;
+      sw::put_best(s.best + 3 * (b * NCK + at[q].second), blk.best());
+      const int nb = (n[b] + C - 1) / C;
+      if (s.done[b]++ != nb - 1) continue;
+      sw::Best all = sw::no_best();
+      for (int kb = 0; kb < nb; ++kb)
+        all = sw::better(all, sw::get_best(s.best + 3 * (b * NCK + kb)));
+      sw::local_stats(all, stats + b * sw::STATS_W);
+    }
+    if (!moved) return 2;
+  }
+  return 0;
 }
 
-template <int MODE>
-void band_all(const float* table, int K, const uint8_t* codes1,
-              const uint8_t* codes2, const int32_t* n, const int32_t* m,
-              int64_t B, int64_t NP, int64_t MP, int C, int sk,
-              const float* ckm, const float* ckx, const float* cky,
-              uint8_t* band, float og, float eg) {
+// K4 (longseq_fill.cu band_kernel): bands sk0 .. sk0+G-1 of every pair,
+// band-major, each block of one-row warps to its end (they do not wait on
+// each other).  Returns 3 if a ring access is not ordered by the card's
+// barriers.
+template <int MODE, typename CODE>
+int band_all(const float* table, int K, const CODE* codes1,
+             const CODE* codes2, const int32_t* n, const int32_t* m,
+             int64_t B, int64_t NP, int64_t MP, int C, int sk0, int G,
+             const float* ckm, const float* ckx, const float* cky,
+             uint8_t* band, float og, float eg) {
   const sw::Pen p = sw::make_pen<MODE>(og, eg);
-  const int64_t NCK = (NP + C - 1) / C;
-  const int base = sk * C;
-  for (int64_t b = 0; b < B; ++b) {
-    if (base >= n[b]) continue;
-    sw::BandIO io = pair_io(table, K, codes1, codes2, n, m, b, NP, MP);
-    io.base = base;
-    const int64_t prev = (b * NCK + sk - 1) * MP;
-    io.seed_m = sk ? ckm + prev : nullptr;
-    io.seed_x = sk ? ckx + prev : nullptr;
-    io.seed_y = sk ? cky + prev : nullptr;
-    io.tb = band + b * sw::band_bytes(C, MP);
-    run_band<MODE>(C, io, p, nullptr);
+  for (int64_t w = 0; w < G * B; ++w) {
+    const int sk = sk0 + (int)(w / B);
+    const int64_t b = w % B;
+    if (sk * C >= n[b]) continue;
+    sw::BandIO<CODE> io = pair_io(table, K, codes1, codes2, n, m, b, NP, MP,
+                                  C, sk, ckm, ckx, cky);
+    io.tb = band + w * sw::band_bytes(C, MP);
+    TwinBlock<MODE, 1, true, CODE> blk;
+    blk.begin(io, p, sw::refill_warps(C));
+    while (!blk.done())
+      if (!blk.advance() || blk.broken) return 3;
   }
+  return 0;
 }
+
+// Calls f.run<MODE, R>() for the mode and R = r (1, 2, 4 or 8); returns 1
+// for another mode or r.
+template <typename F>
+int dispatch(int mode, int r, const F& f) {
+#define SW_R(MODE)                      \
+  switch (r) {                          \
+    case 1:                             \
+      return f.template run<MODE, 1>(); \
+    case 2:                             \
+      return f.template run<MODE, 2>(); \
+    case 4:                             \
+      return f.template run<MODE, 4>(); \
+    case 8:                             \
+      return f.template run<MODE, 8>(); \
+    default:                            \
+      return 1;                         \
+  }
+  if (mode == sw::LOCAL) SW_R(sw::LOCAL)
+  if (mode == sw::GLOCAL) SW_R(sw::GLOCAL)
+  if (mode == sw::GLOBAL) SW_R(sw::GLOBAL)
+#undef SW_R
+  return 1;
+}
+
+// Whether the twin takes a band of C rows: a power of two up to 256 (below
+// 32, one warp of C lanes with rows).
+bool twin_c(int C) { return C > 0 && C <= 256 && !(C & (C - 1)); }
+
+template <typename CODE>
+struct CkptRun {
+  const float* table;
+  int K;
+  const CODE *codes1, *codes2;
+  const int32_t *n, *m;
+  int64_t B, NP, MP;
+  int C;
+  float *ckm, *ckx, *cky, *stats;
+  int32_t* scratch;
+  float og, eg;
+  template <int MODE, int R>
+  int run() const {
+    return ckpt_all<MODE, R, CODE>(table, K, codes1, codes2, n, m, B, NP, MP,
+                                   C, ckm, ckx, cky, stats, scratch, og, eg);
+  }
+};
+
+template <typename CODE>
+struct BandRun {
+  const float* table;
+  int K;
+  const CODE *codes1, *codes2;
+  const int32_t *n, *m;
+  int64_t B, NP, MP;
+  int C, sk0, G;
+  const float *ckm, *ckx, *cky;
+  uint8_t* band;
+  float og, eg;
+  template <int MODE, int R>
+  int run() const {  // K4 runs one row a lane
+    return band_all<MODE, CODE>(table, K, codes1, codes2, n, m, B, NP, MP, C,
+                                sk0, G, ckm, ckx, cky, band, og, eg);
+  }
+};
 
 // One pair's banded fill as a block of THREADS threads would run it.
 template <int MODE>
@@ -373,68 +640,63 @@ void striped_grid_all(bool s_int8, const void* S, int64_t B, int64_t NP,
 extern "C" {
 
 // Same arguments and layout as sw_fill_launch (fill.cu), host pointers,
-// no stream.  Returns 0, or 1 for an unknown mode.
+// no stream.  Returns 0, or 1 for an unknown mode or code width.
 int sw_twin_fill(int mode, int traceback, const float* table, int K,
-                 const uint8_t* codes1, const uint8_t* codes2,
+                 int code_bytes, const void* codes1, const void* codes2,
                  const int64_t* desc, int64_t B, uint8_t* tb, float* carry,
                  float* stats, float og, float eg) {
-  switch (mode) {
-    case sw::LOCAL:
-      fill_mode<sw::LOCAL>(traceback, table, K, codes1, codes2, desc, B, tb,
-                           carry, stats, og, eg);
-      return 0;
-    case sw::GLOCAL:
-      fill_mode<sw::GLOCAL>(traceback, table, K, codes1, codes2, desc, B, tb,
-                            carry, stats, og, eg);
-      return 0;
-    case sw::GLOBAL:
-      fill_mode<sw::GLOBAL>(traceback, table, K, codes1, codes2, desc, B, tb,
-                            carry, stats, og, eg);
-      return 0;
-    default:
-      return 1;
-  }
+  if (mode != sw::LOCAL && mode != sw::GLOCAL && mode != sw::GLOBAL) return 1;
+  return with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
+    if (mode == sw::LOCAL)
+      fill_mode<sw::LOCAL>(traceback, table, K, c1, c2, desc, B, tb, carry,
+                           stats, og, eg);
+    else if (mode == sw::GLOCAL)
+      fill_mode<sw::GLOCAL>(traceback, table, K, c1, c2, desc, B, tb, carry,
+                            stats, og, eg);
+    else
+      fill_mode<sw::GLOBAL>(traceback, table, K, c1, c2, desc, B, tb, carry,
+                            stats, og, eg);
+  });
 }
 
 // Same arguments and layout as sw_fill_launch (fill.cu) with a run pool
-// (K10), host pointers, no stream.  Returns 0, or 1 for an unknown mode.
-int sw_twin_fill_runs(int mode, const float* table, int K,
-                      const uint8_t* codes1, const uint8_t* codes2,
+// (K10), host pointers, no stream.  Returns 0, or 1 for an unknown mode or
+// code width.
+int sw_twin_fill_runs(int mode, const float* table, int K, int code_bytes,
+                      const void* codes1, const void* codes2,
                       const int64_t* desc, int64_t B, uint8_t* tb,
                       uint8_t* run, float* carry, float* stats, float og,
                       float eg) {
-  switch (mode) {
-    case sw::LOCAL:
-      fill_runs_all<sw::LOCAL>(table, K, codes1, codes2, desc, B, tb, run,
-                               carry, stats, og, eg);
-      return 0;
-    case sw::GLOCAL:
-      fill_runs_all<sw::GLOCAL>(table, K, codes1, codes2, desc, B, tb, run,
-                                carry, stats, og, eg);
-      return 0;
-    case sw::GLOBAL:
-      fill_runs_all<sw::GLOBAL>(table, K, codes1, codes2, desc, B, tb, run,
-                                carry, stats, og, eg);
-      return 0;
-    default:
-      return 1;
-  }
+  if (mode != sw::LOCAL && mode != sw::GLOCAL && mode != sw::GLOBAL) return 1;
+  return with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
+    if (mode == sw::LOCAL)
+      fill_runs_all<sw::LOCAL>(table, K, c1, c2, desc, B, tb, run, carry,
+                               stats, og, eg);
+    else if (mode == sw::GLOCAL)
+      fill_runs_all<sw::GLOCAL>(table, K, c1, c2, desc, B, tb, run, carry,
+                                stats, og, eg);
+    else
+      fill_runs_all<sw::GLOBAL>(table, K, c1, c2, desc, B, tb, run, carry,
+                                stats, og, eg);
+  });
 }
 
 // Same arguments and layout as sw_diag_fill_launch (diag_fill.cu), host
-// pointers.  Returns 0.
-int sw_twin_diag_fill(const float* table, int K, const uint8_t* codes1,
-                      const uint8_t* codes2, const int64_t* desc, int64_t B,
-                      float* scratch, float* stats, float og, float eg) {
-  for (int64_t b = 0; b < B; ++b) {
-    const int64_t* d = desc + b * sw::DESC_W;
-    float* st = stats + b * sw::STATS_W;
-    for (int q = 0; q < sw::STATS_W; ++q) st[q] = 0.0f;
-    st[0] = diag_pair(table, K, codes1 + d[sw::D_OFF1],
-                      codes2 + d[sw::D_OFF2], (int)d[sw::D_N],
-                      (int)d[sw::D_M], scratch + d[sw::D_CARRY], og, eg);
-  }
-  return 0;
+// pointers.  Returns 0, or 1 for an unknown code width.
+int sw_twin_diag_fill(const float* table, int K, int code_bytes,
+                      const void* codes1, const void* codes2,
+                      const int64_t* desc, int64_t B, float* scratch,
+                      float* stats, float og, float eg) {
+  return with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
+    for (int64_t b = 0; b < B; ++b) {
+      const int64_t* d = desc + b * sw::DESC_W;
+      float* st = stats + b * sw::STATS_W;
+      for (int q = 0; q < sw::STATS_W; ++q) st[q] = 0.0f;
+      st[0] = diag_pair(table, K, c1 + d[sw::D_OFF1], c2 + d[sw::D_OFF2],
+                        (int)d[sw::D_N], (int)d[sw::D_M],
+                        scratch + d[sw::D_CARRY], og, eg);
+    }
+  });
 }
 
 // Same arguments and layout as sw_walk_tokens_launch (token_walk.cu).
@@ -465,53 +727,48 @@ int sw_twin_walk(int local, const uint8_t* tb, const int64_t* desc,
 }
 
 // Same arguments and layout as sw_ckpt_fill_launch (longseq_fill.cu), host
-// pointers.  Returns 0, or 1 for an unknown mode.
-int sw_twin_ckpt_fill(int mode, const float* table, int K,
-                      const uint8_t* codes1, const uint8_t* codes2,
+// pointers, C a power of two up to 256 (below 32, one warp of C lanes with
+// rows).  Returns 0, 1 for an unknown mode, C or code width, 2 if no band
+// could advance (the card would hang) or 3 if a ring access between a
+// band's warps is not ordered by the card's barriers.
+int sw_twin_ckpt_fill(int mode, const float* table, int K, int code_bytes,
+                      const void* codes1, const void* codes2,
                       const int32_t* n, const int32_t* m, int64_t B,
                       int64_t NP, int64_t MP, int C, float* ckm, float* ckx,
-                      float* cky, float* stats, float og, float eg) {
-  switch (mode) {
-    case sw::LOCAL:
-      ckpt_all<sw::LOCAL>(table, K, codes1, codes2, n, m, B, NP, MP, C, ckm,
-                          ckx, cky, stats, og, eg);
-      return 0;
-    case sw::GLOCAL:
-      ckpt_all<sw::GLOCAL>(table, K, codes1, codes2, n, m, B, NP, MP, C, ckm,
-                           ckx, cky, stats, og, eg);
-      return 0;
-    case sw::GLOBAL:
-      ckpt_all<sw::GLOBAL>(table, K, codes1, codes2, n, m, B, NP, MP, C, ckm,
-                           ckx, cky, stats, og, eg);
-      return 0;
-    default:
-      return 1;
-  }
+                      float* cky, float* stats, int32_t* scratch, float og,
+                      float eg) {
+  if (!twin_c(C)) return 1;
+  int rc = 1;
+  if (with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
+        using CODE = std::remove_const_t<std::remove_pointer_t<decltype(c1)>>;
+        rc = dispatch(mode, sw::ckpt_r(C),
+                      CkptRun<CODE>{table, K, c1, c2, n, m, B, NP, MP, C, ckm,
+                                    ckx, cky, stats, scratch, og, eg});
+      }))
+    return 1;
+  return rc;
 }
 
-// Same arguments and layout as sw_band_fill_launch (longseq_fill.cu).
-int sw_twin_band_fill(int mode, const float* table, int K,
-                      const uint8_t* codes1, const uint8_t* codes2,
+// Same arguments and layout as sw_band_fill_launch (longseq_fill.cu), host
+// pointers, C as for sw_twin_ckpt_fill.  Same return convention.
+int sw_twin_band_fill(int mode, const float* table, int K, int code_bytes,
+                      const void* codes1, const void* codes2,
                       const int32_t* n, const int32_t* m, int64_t B,
-                      int64_t NP, int64_t MP, int C, int sk,
+                      int64_t NP, int64_t MP, int C, int sk0, int G,
                       const float* ckm, const float* ckx, const float* cky,
                       uint8_t* band, float og, float eg) {
-  switch (mode) {
-    case sw::LOCAL:
-      band_all<sw::LOCAL>(table, K, codes1, codes2, n, m, B, NP, MP, C, sk,
-                          ckm, ckx, cky, band, og, eg);
-      return 0;
-    case sw::GLOCAL:
-      band_all<sw::GLOCAL>(table, K, codes1, codes2, n, m, B, NP, MP, C, sk,
-                           ckm, ckx, cky, band, og, eg);
-      return 0;
-    case sw::GLOBAL:
-      band_all<sw::GLOBAL>(table, K, codes1, codes2, n, m, B, NP, MP, C, sk,
-                           ckm, ckx, cky, band, og, eg);
-      return 0;
-    default:
-      return 1;
-  }
+  if (!twin_c(C)) return 1;
+  const int64_t NCK = (NP + C - 1) / C;
+  if (sk0 < 0 || G < 1 || sk0 + G > NCK) return 1;
+  int rc = 1;
+  if (with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
+        using CODE = std::remove_const_t<std::remove_pointer_t<decltype(c1)>>;
+        rc = dispatch(mode, 1,
+                      BandRun<CODE>{table, K, c1, c2, n, m, B, NP, MP, C, sk0,
+                                    G, ckm, ckx, cky, band, og, eg});
+      }))
+    return 1;
+  return rc;
 }
 
 // Same arguments and layout as sw_seg_walk_launch (seg_walk.cu).

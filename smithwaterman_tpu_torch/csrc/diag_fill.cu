@@ -22,8 +22,10 @@
 // per-pair scratch (row r's W and fx at 8 bytes), written by lane 31 and
 // read back by lane 0 in the next strip.  The codes of seq1 and the edge
 // are loaded 32 rows at a time, one per lane, and handed to lane 0 by
-// shuffles; the score comes from a shared-memory copy of the (K, K) table,
-// so no skewed score tensor is built.  The best is a warp maximum at the
+// shuffles; the score comes from a shared-memory copy of the (K, K) table
+// (device memory past sw::SMEM_K symbols; codes uint8, or int16 past 255
+// symbols: the CODE template parameter), so no skewed score tensor is
+// built.  The best is a warp maximum at the
 // end.  The TPU kernel's edge rings and their slot groups are Mosaic
 // layout and are not carried over.
 #include <cuda_runtime.h>
@@ -37,21 +39,21 @@ namespace dg = sw::diag;
 constexpr int kWarps = 4;  // pairs a block
 constexpr unsigned kFull = 0xffffffffu;
 
+template <typename CODE>
 __global__ void __launch_bounds__(kWarps * dg::LANES)
     diag_kernel(const float* __restrict__ table, int K,
-                const uint8_t* __restrict__ codes1,
-                const uint8_t* __restrict__ codes2,
+                const CODE* __restrict__ codes1,
+                const CODE* __restrict__ codes2,
                 const int64_t* __restrict__ desc, int64_t B, float* scratch,
                 float* stats, float og, float eg) {
-  extern __shared__ float tab[];
-  for (int t = threadIdx.x; t < K * K; t += blockDim.x) tab[t] = table[t];
-  __syncthreads();
+  extern __shared__ float smem[];
+  const float* tab = sw::block_table(table, K, smem);
   const int lane = threadIdx.x % dg::LANES;
   const int64_t b = (int64_t)blockIdx.x * kWarps + threadIdx.x / dg::LANES;
   if (b >= B) return;  // the whole warp: b is the warp's
   const int64_t* dd = desc + b * sw::DESC_W;
-  const uint8_t* c1 = codes1 + dd[sw::D_OFF1];
-  const uint8_t* c2 = codes2 + dd[sw::D_OFF2];
+  const CODE* c1 = codes1 + dd[sw::D_OFF1];
+  const CODE* c2 = codes2 + dd[sw::D_OFF2];
   const int n = (int)dd[sw::D_N], m = (int)dd[sw::D_M];
   float* edge = scratch + dd[sw::D_CARRY];
   float best = 0.0f;
@@ -107,19 +109,28 @@ extern "C" {
 
 // Launches K9 on `stream` over B pairs described by desc (B, 8) int64 (the
 // fill's layout: codes offsets, n, m; D_CARRY the offset in floats of the
-// pair's edge scratch, 2 * n floats).  table: (K, K) f32, K <= 64; stats:
-// (B, 8) f32, written [best, 0, ...].  Returns cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue for arguments the kernel
-// does not take (og <= eg <= 0 is the caller's to check).
-int sw_diag_fill_launch(const float* table, int K, const uint8_t* codes1,
-                        const uint8_t* codes2, const int64_t* desc, int64_t B,
-                        float* scratch, float* stats, float og, float eg,
-                        void* stream) {
-  if (B <= 0 || K <= 0 || K > 64) return (int)cudaErrorInvalidValue;
+// pair's edge scratch, 2 * n floats).  table: (K, K) f32; codes: flat
+// buffers of code_bytes-wide codes (1: uint8, 2: int16), each below K;
+// stats: (B, 8) f32, written [best, 0, ...].  Returns cudaGetLastError()
+// after the launch (0 = launched), or cudaErrorInvalidValue for arguments
+// the kernel does not take (og <= eg <= 0 is the caller's to check).
+int sw_diag_fill_launch(const float* table, int K, int code_bytes,
+                        const void* codes1, const void* codes2,
+                        const int64_t* desc, int64_t B, float* scratch,
+                        float* stats, float og, float eg, void* stream) {
+  if (B <= 0 || K <= 0 || (code_bytes != 1 && code_bytes != 2))
+    return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)((B + kWarps - 1) / kWarps);
-  const size_t smem = (size_t)K * K * sizeof(float);
-  diag_kernel<<<grid, kWarps * dg::LANES, smem, (cudaStream_t)stream>>>(
-      table, K, codes1, codes2, desc, B, scratch, stats, og, eg);
+  const size_t smem = sw::table_smem(K);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (code_bytes == 1)
+    diag_kernel<uint8_t><<<grid, kWarps * dg::LANES, smem, st>>>(
+        table, K, (const uint8_t*)codes1, (const uint8_t*)codes2, desc, B,
+        scratch, stats, og, eg);
+  else
+    diag_kernel<int16_t><<<grid, kWarps * dg::LANES, smem, st>>>(
+        table, K, (const int16_t*)codes1, (const int16_t*)codes2, desc, B,
+        scratch, stats, og, eg);
   return (int)cudaGetLastError();
 }
 

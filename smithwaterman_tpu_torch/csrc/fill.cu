@@ -19,7 +19,9 @@
 // lanes, so a warp's lanes step through similar row lengths, and the
 // pointer bytes and carries keep pairs innermost so a warp's stores to
 // one cell coalesce.  The substitution score comes from a shared-memory
-// copy of the (K, K) table, so the dense score tensor is never built.
+// copy of the (K, K) table (device memory past sw::SMEM_K symbols), so the
+// dense score tensor is never built; codes are uint8, or int16 for tables
+// past 255 symbols (the CODE template parameter).
 // One launch covers every bucket-chunk of a flush through per-pair
 // descriptors (sw_cell.cuh Desc).  Latency is hidden only across the
 // pairs in flight: a batch of a few thousand pairs leaves most of each SM
@@ -45,53 +47,72 @@ namespace {
 
 constexpr int kThreads = 32;
 
-template <int MODE, bool TB, bool RUNS>
+template <int MODE, bool TB, bool RUNS, typename CODE>
 __global__ void __launch_bounds__(kThreads)
     fill_kernel(const float* __restrict__ table, int K,
-                const uint8_t* __restrict__ codes1,
-                const uint8_t* __restrict__ codes2,
+                const CODE* __restrict__ codes1,
+                const CODE* __restrict__ codes2,
                 const int64_t* __restrict__ desc, int64_t B, uint8_t* tb,
                 uint8_t* run, float* carry, float* stats, float og,
                 float eg) {
-  extern __shared__ float tab[];
-  for (int t = threadIdx.x; t < K * K; t += blockDim.x) tab[t] = table[t];
-  __syncthreads();
+  extern __shared__ float smem[];
+  const float* tab = sw::block_table(table, K, smem);
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int64_t* d = desc + b * sw::DESC_W;
-  sw::fill_pair<MODE, TB, RUNS>(
+  sw::fill_pair<MODE, TB, RUNS, CODE>(
       tab, K, codes1 + d[sw::D_OFF1], codes2 + d[sw::D_OFF2],
       (int)d[sw::D_N], (int)d[sw::D_M], TB ? tb + d[sw::D_TB] : nullptr,
       d[sw::D_RS], d[sw::D_CS], carry + d[sw::D_CARRY], 3 * d[sw::D_CS], og,
       eg, stats + b * sw::STATS_W, RUNS ? run + d[sw::D_TB] : nullptr);
 }
 
-template <int MODE, bool TB, bool RUNS = false>
-void launch(const float* table, int K, const uint8_t* codes1,
-            const uint8_t* codes2, const int64_t* desc, int64_t B,
-            uint8_t* tb, uint8_t* run, float* carry, float* stats, float og,
-            float eg, cudaStream_t stream) {
+template <int MODE, bool TB, bool RUNS, typename CODE>
+void launch(const float* table, int K, const void* codes1,
+            const void* codes2, const int64_t* desc, int64_t B, uint8_t* tb,
+            uint8_t* run, float* carry, float* stats, float og, float eg,
+            cudaStream_t stream) {
   const unsigned grid = (unsigned)((B + kThreads - 1) / kThreads);
-  const size_t smem = (size_t)K * K * sizeof(float);
-  fill_kernel<MODE, TB, RUNS><<<grid, kThreads, smem, stream>>>(
-      table, K, codes1, codes2, desc, B, tb, run, carry, stats, og, eg);
+  const size_t smem = sw::table_smem(K);
+  fill_kernel<MODE, TB, RUNS, CODE><<<grid, kThreads, smem, stream>>>(
+      table, K, (const CODE*)codes1, (const CODE*)codes2, desc, B, tb, run,
+      carry, stats, og, eg);
 }
 
-template <int MODE>
+template <int MODE, typename CODE>
 void launch_mode(int traceback, const float* table, int K,
-                 const uint8_t* codes1, const uint8_t* codes2,
-                 const int64_t* desc, int64_t B, uint8_t* tb, uint8_t* run,
-                 float* carry, float* stats, float og, float eg,
-                 cudaStream_t st) {
+                 const void* codes1, const void* codes2, const int64_t* desc,
+                 int64_t B, uint8_t* tb, uint8_t* run, float* carry,
+                 float* stats, float og, float eg, cudaStream_t st) {
   if (run)
-    launch<MODE, true, true>(table, K, codes1, codes2, desc, B, tb, run,
-                             carry, stats, og, eg, st);
+    launch<MODE, true, true, CODE>(table, K, codes1, codes2, desc, B, tb,
+                                   run, carry, stats, og, eg, st);
   else if (traceback)
-    launch<MODE, true>(table, K, codes1, codes2, desc, B, tb, nullptr, carry,
-                       stats, og, eg, st);
+    launch<MODE, true, false, CODE>(table, K, codes1, codes2, desc, B, tb,
+                                    nullptr, carry, stats, og, eg, st);
   else
-    launch<MODE, false>(table, K, codes1, codes2, desc, B, nullptr, nullptr,
-                        carry, stats, og, eg, st);
+    launch<MODE, false, false, CODE>(table, K, codes1, codes2, desc, B,
+                                     nullptr, nullptr, carry, stats, og, eg,
+                                     st);
+}
+
+template <typename CODE>
+int launch_code(int mode, int traceback, const float* table, int K,
+                const void* codes1, const void* codes2, const int64_t* desc,
+                int64_t B, uint8_t* tb, uint8_t* run, float* carry,
+                float* stats, float og, float eg, cudaStream_t st) {
+  if (mode == sw::LOCAL)
+    launch_mode<sw::LOCAL, CODE>(traceback, table, K, codes1, codes2, desc,
+                                 B, tb, run, carry, stats, og, eg, st);
+  else if (mode == sw::GLOCAL)
+    launch_mode<sw::GLOCAL, CODE>(traceback, table, K, codes1, codes2, desc,
+                                  B, tb, run, carry, stats, og, eg, st);
+  else if (mode == sw::GLOBAL)
+    launch_mode<sw::GLOBAL, CODE>(traceback, table, K, codes1, codes2, desc,
+                                  B, tb, run, carry, stats, og, eg, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -99,32 +120,28 @@ void launch_mode(int traceback, const float* table, int K,
 extern "C" {
 
 // Launches K1 on `stream` over B pairs described by desc (B, 8) int64.
-// table: (K, K) f32, K <= 64; codes: flat uint8 buffers; tb: uint8 pool
-// (ignored when traceback == 0); run: NULL, or a second uint8 pool in tb's
-// layout that receives each cell's match-run byte (K10, which needs
-// traceback); carry: f32 scratch; stats: (B, 8) f32.
+// table: (K, K) f32; codes: flat buffers of code_bytes-wide codes (1:
+// uint8, 2: int16), each below K; tb: uint8 pool (ignored when
+// traceback == 0); run: NULL, or a second uint8 pool in tb's layout that
+// receives each cell's match-run byte (K10, which needs traceback); carry:
+// f32 scratch; stats: (B, 8) f32.
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int sw_fill_launch(int mode, int traceback, const float* table, int K,
-                   const uint8_t* codes1, const uint8_t* codes2,
+                   int code_bytes, const void* codes1, const void* codes2,
                    const int64_t* desc, int64_t B, uint8_t* tb, uint8_t* run,
                    float* carry, float* stats, float og, float eg,
                    void* stream) {
-  if (B <= 0 || K <= 0 || K > 64 || (run && !traceback))
+  if (B <= 0 || K <= 0 || (run && !traceback) ||
+      (code_bytes != 1 && code_bytes != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode == sw::LOCAL)
-    launch_mode<sw::LOCAL>(traceback, table, K, codes1, codes2, desc, B, tb,
-                           run, carry, stats, og, eg, st);
-  else if (mode == sw::GLOCAL)
-    launch_mode<sw::GLOCAL>(traceback, table, K, codes1, codes2, desc, B, tb,
-                            run, carry, stats, og, eg, st);
-  else if (mode == sw::GLOBAL)
-    launch_mode<sw::GLOBAL>(traceback, table, K, codes1, codes2, desc, B, tb,
-                            run, carry, stats, og, eg, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return code_bytes == 1
+             ? launch_code<uint8_t>(mode, traceback, table, K, codes1, codes2,
+                                    desc, B, tb, run, carry, stats, og, eg, st)
+             : launch_code<int16_t>(mode, traceback, table, K, codes1, codes2,
+                                    desc, B, tb, run, carry, stats, og, eg,
+                                    st);
 }
 
 }  // extern "C"

@@ -25,6 +25,7 @@
 // reference rounds twice, and one ulp can flip a tie.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 #if defined(__CUDACC__)
@@ -46,6 +47,12 @@ constexpr int STOP = 3;
 
 constexpr float NEG = -3.0e38f;
 
+// Tables of at most SMEM_K symbols are copied into each block's shared
+// memory (16 KiB at 64); larger ones, up to any size the codes address
+// (255 symbols with uint8 codes, 32767 with int16), are read from device
+// memory, where the few hundred KiB of a wide table stay in L1 and L2.
+constexpr int SMEM_K = 64;
+
 // stats row per pair: [best, best_i, best_j, finalM, finalX, finalY, 0, 0]
 // (the Pallas kernel's contract, smithwaterman_tpu/ops/pallas_dp.py:105)
 constexpr int STATS_W = 8;
@@ -66,6 +73,24 @@ enum Desc {
 struct Cell {
   float m, x, y;
 };
+
+#if defined(__CUDACC__)
+// The table a kernel reads: a shared-memory copy of up to SMEM_K symbols
+// (`smem` holds K*K floats; the block fills it, then waits), else the
+// device-memory table itself.  Every thread of the block must call it.
+__device__ __forceinline__ const float* block_table(const float* table, int K,
+                                                    float* smem) {
+  if (K > SMEM_K) return table;
+  for (int t = threadIdx.x; t < K * K; t += blockDim.x) smem[t] = table[t];
+  __syncthreads();
+  return smem;
+}
+
+// Dynamic shared memory a block needs for block_table.
+inline size_t table_smem(int K) {
+  return K <= SMEM_K ? (size_t)K * K * sizeof(float) : 0;
+}
+#endif
 
 SW_HD float mx(float a, float b) { return a >= b ? a : b; }
 
@@ -176,8 +201,10 @@ SW_HD uint32_t run_byte(uint32_t pm, uint32_t rdiag) {
 }
 
 // Fill one pair, row by row, in the kernel's loop order.
-//   tab:   (K, K) substitution table (shared memory on the card)
-//   c1/c2: the pair's codes (n and m of them)
+//   tab:   (K, K) substitution table (shared memory on the card for
+//          K <= SMEM_K, else device memory)
+//   c1/c2: the pair's codes (n and m of them), CODE uint8_t or, for
+//          tables past 255 symbols, int16_t
 //   tb:    pointer byte of cell (i, j) at tb[(i-1)*tb_rs + (j-1)*tb_cs]
 //          (only when TB; only cells i <= n, j <= m are written)
 //   run:   with RUNS (which needs TB), the run byte of cell (i, j)
@@ -189,9 +216,9 @@ SW_HD uint32_t run_byte(uint32_t pm, uint32_t rdiag) {
 //          only with TB, as in the Pallas contract), the first maximum of
 //          M in i-major, j-minor order under a strict `>`.  Otherwise the
 //          final cell's (M, X, Y) in slots 3-5.
-template <int MODE, bool TB, bool RUNS = false>
-SW_HD void fill_pair(const float* tab, int K, const uint8_t* c1,
-                     const uint8_t* c2, int n, int m, uint8_t* tb,
+template <int MODE, bool TB, bool RUNS = false, typename CODE = uint8_t>
+SW_HD void fill_pair(const float* tab, int K, const CODE* c1,
+                     const CODE* c2, int n, int m, uint8_t* tb,
                      int64_t tb_rs, int64_t tb_cs, float* carry,
                      int64_t carry_cs, float og, float eg, float* stats,
                      uint8_t* run = nullptr) {

@@ -38,6 +38,7 @@ import torch
 
 from ..config import CELL_GAPINX, CELL_GAPINY, CELL_MATCH, CELL_STOP, LOCAL
 from ..config import GLOBAL, GLOCAL
+from .batch import code_dtype
 from .fill_dp import STATS_W
 
 NEG = -1.0e30
@@ -436,8 +437,9 @@ def walk_banded(tb: np.ndarray, off: np.ndarray, si: int, sj: int,
 class Packed:
     """A batch laid out for the kernels (:func:`pack`)."""
 
-    codes1: np.ndarray  # (B, NP) uint8, NP = max n rounded up to 8
-    codes2: np.ndarray  # (B, max m) uint8
+    codes1: np.ndarray  # (B, NP) uint8 (int16 past 255 symbols), NP = max
+    #                     n rounded up to 8
+    codes2: np.ndarray  # (B, max m), codes1's dtype
     n: np.ndarray       # (B,) int32
     m: np.ndarray       # (B,) int32
     offs: np.ndarray    # (B, NP + 1) int32 band offsets, past n the last one
@@ -461,8 +463,9 @@ def pack(pairs, band: int, K: int) -> Packed:
     if W >= max(ms):
         W = -(-max(ms) // 128) * 128
     NP = -(-max(ns) // 8) * 8
-    pk = Packed(np.zeros((count, NP), np.uint8),
-                np.zeros((count, max(ms)), np.uint8),
+    ctype = code_dtype(K)
+    pk = Packed(np.zeros((count, NP), ctype),
+                np.zeros((count, max(ms)), ctype),
                 np.asarray(ns, np.int32), np.asarray(ms, np.int32),
                 np.zeros((count, NP + 1), np.int32), W)
     for k, (codes1, codes2) in enumerate(pairs):
@@ -471,9 +474,9 @@ def pack(pairs, band: int, K: int) -> Packed:
             raise ValueError("banded offsets exceed int32 range; reduce sizes")
         for c in (codes1, codes2):
             c = np.asarray(c)
-            if c.min() < 0 or c.max() >= min(K, 256):
+            if c.min() < 0 or c.max() >= K:
                 raise ValueError(f"codes must lie below the table's {K} "
-                                 "symbols (and 256)")
+                                 "symbols")
         pk.codes1[k, :n] = codes1
         pk.codes2[k, :m] = codes2
         off = band_offsets(n, m, min(W, m))

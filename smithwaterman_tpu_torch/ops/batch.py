@@ -31,6 +31,12 @@ def tb_budget() -> int:
     return int(os.environ.get("SWTPU_TB_HBM_BYTES", str(DEFAULT_TB_BUDGET)))
 
 
+def code_dtype(K: int) -> np.dtype:
+    """The codes of a K-symbol table: uint8, or int16 past 255 symbols (the
+    JAX package widens to int32 past 127; every kernel here takes both)."""
+    return np.dtype(np.uint8 if K <= 255 else np.int16)
+
+
 def is_integer_table(table: np.ndarray) -> bool:
     return bool(
         np.all(table == np.round(table))
@@ -52,7 +58,8 @@ def scores(table: torch.Tensor, codes1: torch.Tensor,
 
 class Chunk(NamedTuple):
     """Pairs of one bucket filled together: padded codes (B, NP) and
-    (B, MP) uint8 and true lengths (B,) int32, host numpy arrays."""
+    (B, MP) (:func:`code_dtype`: uint8, int16 past 255 symbols) and true
+    lengths (B,) int32, host numpy arrays."""
 
     codes1: np.ndarray
     codes2: np.ndarray

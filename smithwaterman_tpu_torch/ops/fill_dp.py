@@ -159,10 +159,11 @@ def run_bytes_ref(tb: torch.Tensor) -> torch.Tensor:
 
 
 def _validate(chunks: Sequence[batch.Chunk], K: int) -> None:
+    ctype = batch.code_dtype(K)
     for ch in chunks:
         B, NP, MP = ch.shape
-        for name, a, dt in (("codes1", ch.codes1, np.uint8),
-                            ("codes2", ch.codes2, np.uint8),
+        for name, a, dt in (("codes1", ch.codes1, ctype),
+                            ("codes2", ch.codes2, ctype),
                             ("n", ch.n, np.int32), ("m", ch.m, np.int32)):
             if a.dtype != dt:
                 raise ValueError(f"{name} has dtype {a.dtype}, expected {dt}")
@@ -174,9 +175,10 @@ def _validate(chunks: Sequence[batch.Chunk], K: int) -> None:
             raise ValueError(
                 f"lengths must lie in 1..{NP} and 1..{MP} for a "
                 f"{NP}x{MP} chunk")
-        # K1 looks scores up in a shared-memory copy of the table, where a
-        # larger code would read past it
-        if B and max(ch.codes1.max(), ch.codes2.max()) >= K:
+        # K1 looks scores up in the table, where a larger code would read
+        # past it
+        if B and (max(ch.codes1.max(), ch.codes2.max()) >= K
+                  or min(ch.codes1.min(), ch.codes2.min()) < 0):
             raise ValueError(f"codes must lie below the table's {K} symbols")
 
 

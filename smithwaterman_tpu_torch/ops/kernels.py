@@ -58,7 +58,11 @@ LINK_FLAGS = ARCH + (
     # runtime (the static default would put a second one in the process)
     "-cudart", "shared",
 )
-MAX_K = 64  # the table lives in shared memory: K*K f32 (csrc/fill.cu)
+# codes the kernels take (csrc/sw_cell.cuh SMEM_K: tables of up to 64
+# symbols are copied into shared memory, larger ones read from device
+# memory): uint8, or int16 for tables past 255 symbols, up to int16's range
+CODE_DTYPES = (torch.uint8, torch.int16)
+MAX_K = 32767
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -99,19 +103,17 @@ def lib() -> ctypes.CDLL:
                          ctypes.c_float)
     so.sw_fill_launch.restype = i32
     so.sw_fill_launch.argtypes = [
-        i32, i32, vp, i32, vp, vp, vp, i64, vp, vp, vp, vp, f32, f32, vp,
+        i32, i32, vp, i32, i32, vp, vp, vp, i64, vp, vp, vp, vp, f32, f32, vp,
     ]
     so.sw_walk_launch.restype = i32
     so.sw_walk_launch.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp, vp]
     so.sw_ckpt_fill_launch.restype = i32
-    so.sw_ckpt_fill_launch.argtypes = [
-        i32, vp, i32, vp, vp, vp, vp, i64, i64, i64, i32, vp, vp, vp, vp,
-        f32, f32, vp,
+    so.sw_ckpt_fill_launch.argtypes = native.LONG_FILL_ARGS + [
+        vp, vp, vp, vp, vp, f32, f32, vp,
     ]
     so.sw_band_fill_launch.restype = i32
-    so.sw_band_fill_launch.argtypes = [
-        i32, vp, i32, vp, vp, vp, vp, i64, i64, i64, i32, i32, vp, vp, vp,
-        vp, f32, f32, vp,
+    so.sw_band_fill_launch.argtypes = native.LONG_FILL_ARGS + [
+        i32, i32, vp, vp, vp, vp, f32, f32, vp,
     ]
     so.sw_seg_walk_launch.restype = i32
     so.sw_seg_walk_launch.argtypes = [
@@ -119,7 +121,7 @@ def lib() -> ctypes.CDLL:
     ]
     so.sw_banded_scores_launch.restype = i32
     so.sw_banded_scores_launch.argtypes = [
-        vp, i32, vp, vp, vp, vp, i64, i64, i64, i32, vp, vp,
+        vp, i32, i32, vp, vp, vp, vp, i64, i64, i64, i32, vp, vp,
     ]
     so.sw_banded_fill_launch.restype = i32
     so.sw_banded_fill_launch.argtypes = [
@@ -131,7 +133,7 @@ def lib() -> ctypes.CDLL:
     ]
     so.sw_diag_fill_launch.restype = i32
     so.sw_diag_fill_launch.argtypes = [
-        vp, i32, vp, vp, vp, i64, vp, vp, f32, f32, vp,
+        vp, i32, i32, vp, vp, vp, i64, vp, vp, f32, f32, vp,
     ]
     so.sw_walk_tokens_launch.restype = i32
     so.sw_walk_tokens_launch.argtypes = [
@@ -173,8 +175,7 @@ def fill(table, codes1, codes2, desc, tb, carry, stats, *, mode: int,
     K = _check_table(table, "K1")
     B = desc.shape[0]
     _check(table, "table", torch.float32, dev)
-    _check(codes1, "codes1", torch.uint8, dev)
-    _check(codes2, "codes2", torch.uint8, dev)
+    _check_codes(codes1, codes2, dev)
     _check(desc, "desc", torch.int64, dev, (B, 8))
     _check(carry, "carry", torch.float32, dev)
     _check(stats, "stats", torch.float32, dev, (B, 8))
@@ -188,7 +189,8 @@ def fill(table, codes1, codes2, desc, tb, carry, stats, *, mode: int,
     with torch.cuda.device(dev):
         rc = lib().sw_fill_launch(
             int(mode), 1 if traceback else 0, table.data_ptr(), K,
-            codes1.data_ptr(), codes2.data_ptr(), desc.data_ptr(), B,
+            codes1.element_size(), codes1.data_ptr(), codes2.data_ptr(),
+            desc.data_ptr(), B,
             tb.data_ptr() if traceback else None,
             None if run is None else run.data_ptr(), carry.data_ptr(),
             stats.data_ptr(), float(og), float(eg),
@@ -220,10 +222,19 @@ def walk(tb, desc, stats, cnt, moves, *, local: bool, L: int) -> None:
 def _check_table(table: torch.Tensor, what: str) -> int:
     K = table.shape[0]
     if table.dim() != 2 or table.shape[1] != K or not 1 <= K <= MAX_K:
-        raise NotImplementedError(
-            f"{what} takes a square table of at most {MAX_K} symbols, got "
+        raise ValueError(
+            f"{what} takes a square table of 1 to {MAX_K} symbols, got "
             f"{tuple(table.shape)}")
     return K
+
+
+def _check_codes(codes1, codes2, device, shape1=None, shape2=None) -> None:
+    """Both code tensors uint8, or both int16 (tables past 255 symbols)."""
+    if codes1.dtype not in CODE_DTYPES:
+        raise ValueError(f"codes have dtype {codes1.dtype}, expected uint8 "
+                         "or int16")
+    _check(codes1, "codes1", codes1.dtype, device, shape1)
+    _check(codes2, "codes2", codes1.dtype, device, shape2)
 
 
 def _check_pairs(table, codes1, codes2, n, m, C: int, what: str):
@@ -232,57 +243,72 @@ def _check_pairs(table, codes1, codes2, n, m, C: int, what: str):
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on CUDA tensors, got {dev}")
     K = _check_table(table, what)
-    if not (32 <= C <= 512 and C & (C - 1) == 0):
+    if C not in (32, 64, 128, 256):
         raise NotImplementedError(
-            f"{what} runs C threads a block: C must be a power of two in "
-            f"32..512, got {C}")
+            f"{what} fills a band of C rows with warps of 32 lanes (K3 one "
+            f"warp of C / 32 rows a lane, K4 C / 32 warps of one row a "
+            f"lane): C must be 32, 64, 128 or 256, got {C}")
     B, NP = codes1.shape
     MP = codes2.shape[1]
     _check(table, "table", torch.float32, dev)
-    _check(codes1, "codes1", torch.uint8, dev, (B, NP))
-    _check(codes2, "codes2", torch.uint8, dev, (B, MP))
+    _check_codes(codes1, codes2, dev, (B, NP), (B, MP))
     _check(n, "n", torch.int32, dev, (B,))
     _check(m, "m", torch.int32, dev, (B,))
     return K, B, NP, MP
 
 
-def ckpt_fill(table, codes1, codes2, n, m, ckm, ckx, cky, stats, *,
-              mode: int, C: int, og: float, eg: float) -> None:
+def ckpt_fill(table, codes1, codes2, n, m, ckm, ckx, cky, stats, scratch,
+              *, mode: int, C: int, og: float, eg: float) -> None:
     """Launch K3 (csrc/longseq_fill.cu) on the current stream; see
-    ops/longseq.fill_checkpointed."""
+    ops/longseq.fill_checkpointed.  ``scratch``: int32 of
+    ``ckpt_scratch_words(B, ceil(NP / C))`` words, zeroed."""
     K, B, NP, MP = _check_pairs(table, codes1, codes2, n, m, C, "K3")
     dev = table.device
+    nck = -(-NP // C)
     for name, t in (("ckm", ckm), ("ckx", ckx), ("cky", cky)):
-        _check(t, name, torch.float32, dev, (B, -(-NP // C), MP))
+        _check(t, name, torch.float32, dev, (B, nck, MP))
     _check(stats, "stats", torch.float32, dev, (B, 8))
+    _check(scratch, "scratch", torch.int32, dev,
+           (ckpt_scratch_words(B, nck),))
     with torch.cuda.device(dev):
         rc = lib().sw_ckpt_fill_launch(
-            int(mode), table.data_ptr(), K, codes1.data_ptr(),
-            codes2.data_ptr(), n.data_ptr(), m.data_ptr(), B, NP, MP, int(C),
-            ckm.data_ptr(), ckx.data_ptr(), cky.data_ptr(), stats.data_ptr(),
-            float(og), float(eg), torch.cuda.current_stream(dev).cuda_stream,
+            int(mode), table.data_ptr(), K, codes1.element_size(),
+            codes1.data_ptr(), codes2.data_ptr(), n.data_ptr(), m.data_ptr(),
+            B, NP, MP, int(C), ckm.data_ptr(), ckx.data_ptr(), cky.data_ptr(),
+            stats.data_ptr(), scratch.data_ptr(), float(og), float(eg),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K3 (checkpointed fill)")
 
 
+def ckpt_scratch_words(B: int, nck: int) -> int:
+    """K3's scratch words (the layout of csrc/sw_band.cuh ckpt_scratch):
+    the ticket, each pair's finished bands, each band's published tiles and
+    LOCAL best."""
+    return 1 + B + 4 * B * nck
+
+
 def band_fill(table, codes1, codes2, n, m, ckm, ckx, cky, band, *,
-              mode: int, C: int, sk: int, og: float, eg: float) -> None:
-    """Launch K4 (csrc/longseq_fill.cu) on the current stream; see
-    ops/longseq.fill_band."""
+              mode: int, C: int, sk0: int, og: float, eg: float) -> None:
+    """Launch K4 (csrc/longseq_fill.cu) on the current stream: bands
+    sk0 .. sk0 + G - 1 into ``band`` (G, B, (C + MP) * C); see
+    ops/longseq.fill_bands."""
     K, B, NP, MP = _check_pairs(table, codes1, codes2, n, m, C, "K4")
     dev = table.device
+    nck = -(-NP // C)
     for name, t in (("ckm", ckm), ("ckx", ckx), ("cky", cky)):
-        _check(t, name, torch.float32, dev, (B, -(-NP // C), MP))
-    _check(band, "band", torch.uint8, dev, (B, (C + MP) * C))
-    if not 0 <= sk < -(-NP // C):
-        raise ValueError(f"band {sk} outside 0..{-(-NP // C) - 1}")
+        _check(t, name, torch.float32, dev, (B, nck, MP))
+    G = band.shape[0]
+    _check(band, "band", torch.uint8, dev, (G, B, (C + MP) * C))
+    if not (G >= 1 and 0 <= sk0 and sk0 + G <= nck):
+        raise ValueError(f"bands {sk0}..{sk0 + G - 1} outside 0..{nck - 1}")
     with torch.cuda.device(dev):
         rc = lib().sw_band_fill_launch(
-            int(mode), table.data_ptr(), K, codes1.data_ptr(),
-            codes2.data_ptr(), n.data_ptr(), m.data_ptr(), B, NP, MP, int(C),
-            int(sk), ckm.data_ptr(), ckx.data_ptr(), cky.data_ptr(),
-            band.data_ptr(), float(og), float(eg),
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(mode), table.data_ptr(), K, codes1.element_size(),
+            codes1.data_ptr(), codes2.data_ptr(), n.data_ptr(), m.data_ptr(),
+            B, NP, MP, int(C), int(sk0), int(G), ckm.data_ptr(),
+            ckx.data_ptr(), cky.data_ptr(), band.data_ptr(), float(og),
+            float(eg), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K4 (band refill)")
 
@@ -324,12 +350,12 @@ def banded_scores(table, codes1, codes2, n, m, S, *, W: int) -> None:
     _check_lengths(B, dev, "K6", n=n, m=m)
     K = _check_table(table, "K6")
     _check(table, "table", torch.float32, dev)
-    _check(codes1, "codes1", torch.uint8, dev, (B, NP))
-    _check(codes2, "codes2", torch.uint8, dev, (B, MP))
+    _check_codes(codes1, codes2, dev, (B, NP), (B, MP))
     _check(S, "S", torch.float32, dev, (B, NP, W))
     with torch.cuda.device(dev):
         rc = lib().sw_banded_scores_launch(
-            table.data_ptr(), K, codes1.data_ptr(), codes2.data_ptr(),
+            table.data_ptr(), K, codes1.element_size(), codes1.data_ptr(),
+            codes2.data_ptr(),
             n.data_ptr(), m.data_ptr(), B, NP, MP, int(W), S.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -393,14 +419,14 @@ def diag_fill(table, codes1, codes2, desc, scratch, stats, *, og: float,
     K = _check_table(table, "K9")
     B = desc.shape[0]
     _check(table, "table", torch.float32, dev)
-    _check(codes1, "codes1", torch.uint8, dev)
-    _check(codes2, "codes2", torch.uint8, dev)
+    _check_codes(codes1, codes2, dev)
     _check(desc, "desc", torch.int64, dev, (B, 8))
     _check(scratch, "scratch", torch.float32, dev)
     _check(stats, "stats", torch.float32, dev, (B, 8))
     with torch.cuda.device(dev):
         rc = lib().sw_diag_fill_launch(
-            table.data_ptr(), K, codes1.data_ptr(), codes2.data_ptr(),
+            table.data_ptr(), K, codes1.element_size(), codes1.data_ptr(),
+            codes2.data_ptr(),
             desc.data_ptr(), B, scratch.data_ptr(), stats.data_ptr(),
             float(og), float(eg), torch.cuda.current_stream(dev).cuda_stream,
         )

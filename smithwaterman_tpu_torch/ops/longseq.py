@@ -8,12 +8,14 @@ only O(n/C * m) floats and O(C * m) pointer bytes:
 1. :func:`fill_checkpointed` (kernel K3): a score-only fill that keeps the
    (M, X, Y) row after every C-th row (checkpoint k holds the row after
    global row (k+1)*C) and the stats row, with the LOCAL argmax;
-2. per band sk = n_segs-1 .. 0, top band last, :func:`fill_band` (kernel
-   K4) refills rows sk*C+1 .. sk*C+C of every pair with rows there,
-   seeded from checkpoint sk-1 (row 0's closed form for sk == 0), and
-   :func:`walk_segments` (kernel K5) steps each pair's walk through the
-   band.  The walk state (i, j, state, done) and the move count stay on
-   the device between bands.
+2. per group of G bands, top group first, :func:`fill_bands` (kernel K4)
+   refills bands sk0 .. sk0+G-1 (band sk: rows sk*C+1 .. sk*C+C) of every
+   pair with rows there, each seeded from checkpoint sk-1 (row 0's closed
+   form for sk == 0), in one launch; then per band of the group, top band
+   first, :func:`walk_segments` (kernel K5) steps each pair's walk through
+   the band.  The walk state (i, j, state, done) and the move count stay
+   on the device between bands.  G (:func:`group_bands`) is as many bands
+   as fit :data:`REFILL_BYTES` a pair.
 
 The refill replays the same cell rules from the same carries, so the
 pointer bytes, and with them the path, are those of the single-pass fill.
@@ -23,9 +25,9 @@ JAX route's does; ``ops/reconstruct.reconstruct_packed`` takes both.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 PyTorch version (``*_ref``) on CPU tensors; any other device raises.
-``C`` is the card's own choice (:data:`DEFAULT_CKPT_ROWS`, the kernels'
-threads per block); the results do not depend on it, only the checkpoint
-arrays do.
+``C`` is the card's own choice (:data:`DEFAULT_CKPT_ROWS`: K3 fills a band
+with one warp of C / 32 rows a lane, K4 with C / 32 warps of one row a
+lane); the results do not depend on it, only the checkpoint arrays do.
 """
 
 from __future__ import annotations
@@ -42,8 +44,11 @@ from .device_walk import _walk_starts
 from .fill_dp import STATS_W
 from .scan_dp import fill as scan_fill
 
-# rows per band and per checkpoint: K3 and K4 run one thread per row
+# rows per band and per checkpoint
 DEFAULT_CKPT_ROWS = 256
+# device bytes a pair's refilled bands may take together: K4 refills as
+# many bands of every pair in one launch (a block a band) as fit
+REFILL_BYTES = 320 << 20
 
 # launches made through the wrappers below (plain counts, read by
 # chip_smoke.py)
@@ -62,9 +67,17 @@ def band_bytes(C: int, MP: int) -> int:
     return (C + MP) * C
 
 
+def group_bands(NP: int, MP: int, C: int = DEFAULT_CKPT_ROWS) -> int:
+    """Bands one K4 launch refills per pair: as many as fit
+    :data:`REFILL_BYTES`, at least one, at most the bucket's."""
+    return max(1, min(n_ckpts(NP, C), REFILL_BYTES // band_bytes(C, MP)))
+
+
 def pair_bytes(NP: int, MP: int, C: int = DEFAULT_CKPT_ROWS) -> int:
-    """Device bytes the route holds per pair: checkpoints and one band."""
-    return 12 * n_ckpts(NP, C) * MP + band_bytes(C, MP)
+    """Device bytes the route holds per pair: checkpoints and a group of
+    refilled bands."""
+    return (12 * n_ckpts(NP, C) * MP
+            + group_bands(NP, MP, C) * band_bytes(C, MP))
 
 
 def band_view(band: torch.Tensor, C: int, MP: int) -> torch.Tensor:
@@ -165,13 +178,16 @@ def fill_checkpointed(table, codes1, codes2, n, m, *, mode: int, og: float,
                       eg: float, C: int) -> Tuple[torch.Tensor, Ckpts]:
     """Score-only fill of B pairs that keeps every C-th row.
 
-    ``codes1`` (B, NP) / ``codes2`` (B, MP) uint8 and ``n``, ``m`` (B,)
-    int32 on ``table``'s device.  Returns ``stats`` (B, 8) f32 (LOCAL
+    ``codes1`` (B, NP) / ``codes2`` (B, MP) uint8 (int16 for tables past
+    255 symbols) and ``n``, ``m`` (B,) int32 on ``table``'s device.
+    Returns ``stats`` (B, 8) f32 (LOCAL
     ``[best, best_i, best_j, 0...]``, else ``[0, 0, 0, finalM, finalX,
     finalY, 0, 0]``) and the checkpoints ``(ckm, ckx, cky)``, each
     (B, ceil(NP/C), MP) f32: row k is the (M, X, Y) row after global row
     (k+1)*C, defined at columns < m for (k+1)*C <= n.  CUDA: one launch
-    of K3.  CPU: :func:`fill_checkpointed_ref`."""
+    of K3, with a zeroed scratch for its tickets, the bands' published
+    checkpoint tiles and their LOCAL bests.  CPU:
+    :func:`fill_checkpointed_ref`."""
     if _device(table) == "cpu":
         return fill_checkpointed_ref(table, codes1, codes2, n, m, mode=mode,
                                      og=og, eg=eg, C=C)
@@ -180,11 +196,14 @@ def fill_checkpointed(table, codes1, codes2, n, m, *, mode: int, og: float,
     dev = table.device
     B, NP = codes1.shape
     MP = codes2.shape[1]
-    ck = tuple(torch.empty((B, n_ckpts(NP, C), MP), dtype=torch.float32,
-                           device=dev) for _ in range(3))
+    nck = n_ckpts(NP, C)
+    ck = tuple(torch.empty((B, nck, MP), dtype=torch.float32, device=dev)
+               for _ in range(3))
     stats = torch.empty((B, STATS_W), dtype=torch.float32, device=dev)
-    kernels.ckpt_fill(table, codes1, codes2, n, m, *ck, stats, mode=mode,
-                      C=C, og=og, eg=eg)
+    scratch = torch.zeros(kernels.ckpt_scratch_words(B, nck),
+                          dtype=torch.int32, device=dev)
+    kernels.ckpt_fill(table, codes1, codes2, n, m, *ck, stats, scratch,
+                      mode=mode, C=C, og=og, eg=eg)
     LAUNCHES["K3"] += 1
     return stats, ck
 
@@ -209,21 +228,39 @@ def fill_band_ref(table, codes1, codes2, n, m, ck: Ckpts, band, *, sk: int,
     band_view(band, C, MP)[:, :rows].copy_(r.tb[:, 1:, 1:])
 
 
-def fill_band(table, codes1, codes2, n, m, ck: Ckpts, band, *, sk: int,
-              mode: int, og: float, eg: float, C: int) -> None:
-    """Refill band ``sk`` (rows sk*C+1 .. sk*C+C) of every pair into
-    ``band`` (B, (C + MP) * C) uint8 (:func:`band_view` reads it): the
-    pointer bytes of the single-pass fill inside each pair's [:n, :m].
-    CUDA: one launch of K4.  CPU: :func:`fill_band_ref`."""
-    if _device(table) == "cpu":
-        fill_band_ref(table, codes1, codes2, n, m, ck, band, sk=sk,
+def fill_bands_ref(table, codes1, codes2, n, m, ck: Ckpts, bands, *,
+                   sk0: int, mode: int, og: float, eg: float, C: int) -> None:
+    """Plain version of :func:`fill_bands`: :func:`fill_band_ref` for each
+    band of the group."""
+    for g in range(bands.shape[0]):
+        fill_band_ref(table, codes1, codes2, n, m, ck, bands[g], sk=sk0 + g,
                       mode=mode, og=og, eg=eg, C=C)
+
+
+def fill_bands(table, codes1, codes2, n, m, ck: Ckpts, bands, *, sk0: int,
+               mode: int, og: float, eg: float, C: int) -> None:
+    """Refill bands sk0 .. sk0 + G - 1 of every pair into ``bands``
+    (G, B, (C + MP) * C) uint8, band sk0 + g at ``bands[g]``
+    (:func:`band_view` reads each): the pointer bytes of the single-pass
+    fill inside each pair's [:n, :m].  CUDA: one launch of K4, a block a
+    band.  CPU: :func:`fill_bands_ref`."""
+    if _device(table) == "cpu":
+        fill_bands_ref(table, codes1, codes2, n, m, ck, bands, sk0=sk0,
+                       mode=mode, og=og, eg=eg, C=C)
         return
     from . import kernels
 
-    kernels.band_fill(table, codes1, codes2, n, m, *ck, band, mode=mode, C=C,
-                      sk=sk, og=og, eg=eg)
+    kernels.band_fill(table, codes1, codes2, n, m, *ck, bands, mode=mode,
+                      C=C, sk0=sk0, og=og, eg=eg)
     LAUNCHES["K4"] += 1
+
+
+def fill_band(table, codes1, codes2, n, m, ck: Ckpts, band, *, sk: int,
+              mode: int, og: float, eg: float, C: int) -> None:
+    """Refill band ``sk`` (rows sk*C+1 .. sk*C+C) of every pair into
+    ``band`` (B, (C + MP) * C) uint8: :func:`fill_bands` with one band."""
+    fill_bands(table, codes1, codes2, n, m, ck, band[None], sk0=sk, mode=mode,
+               og=og, eg=eg, C=C)
 
 
 # ---------------------------------------------------------------- K5
@@ -318,7 +355,8 @@ def align_long_packed(table: torch.Tensor, chunk: batch.Chunk, *, mode: int,
     tensors ``(stats (B, 8) f32, cnt (B,) int32, moves (ceil(L/4), B)
     uint8)`` with ``L = NP + MP + 2``: the JAX ``align_long_packed``
     contract, for ``ops/reconstruct.reconstruct_packed``.  One K3 launch,
-    then one K4 and one K5 launch per band."""
+    then one K4 launch per group of :func:`group_bands` bands and one K5
+    launch per band."""
     dev = table.device
     _device(table)
     C = ckpt_rows or DEFAULT_CKPT_ROWS
@@ -333,10 +371,14 @@ def align_long_packed(table: torch.Tensor, chunk: batch.Chunk, *, mode: int,
     walk = walk_start(stats, n, m, mode)
     cnt = torch.zeros((B,), dtype=torch.int32, device=dev)
     moves = torch.zeros((-(-L // 4), B), dtype=torch.uint8, device=dev)
-    band = torch.empty((B, band_bytes(C, MP)), dtype=torch.uint8,
-                       device=dev)
-    for sk in range(n_ckpts(NP, C) - 1, -1, -1):
-        fill_band(table, codes1, codes2, n, m, ck, band, sk=sk, **args)
-        walk_segments(band, walk, cnt, moves, sk=sk, C=C, MP=MP, L=L,
-                      local=mode == LOCAL)
+    G = group_bands(NP, MP, C)
+    bands = torch.empty((G, B, band_bytes(C, MP)), dtype=torch.uint8,
+                        device=dev)
+    for top in range(n_ckpts(NP, C) - 1, -1, -G):
+        sk0 = max(0, top - G + 1)
+        fill_bands(table, codes1, codes2, n, m, ck, bands[:top - sk0 + 1],
+                   sk0=sk0, **args)
+        for sk in range(top, sk0 - 1, -1):
+            walk_segments(bands[sk - sk0], walk, cnt, moves, sk=sk, C=C,
+                          MP=MP, L=L, local=mode == LOCAL)
     return stats, cnt, moves

@@ -50,6 +50,11 @@ _vp, _i32, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # the striped fills' C signatures (csrc/striped_fill.cu), shared by the
 # kernels' launchers and the twin's entry points; the launchers add the
 # stream.  ds is a host array of int32 shard indices.
+# the long route's fills (csrc/longseq_fill.cu): mode, table, K,
+# code_bytes, codes1, codes2, n, m, B, NP, MP, C, then each fill's own
+LONG_FILL_ARGS = [
+    _i32, _vp, _i32, _i32, _vp, _vp, _vp, _vp, _i64, _i64, _i64, _i32,
+]
 STRIPED_BLOCK_ARGS = [
     _i32, _i32, _vp, _i32, _i32, _i32, _i32, _i32, _i32,  # .. K, W, D
     _i64, _i64, _vp, _i64, _i64, _i64, _vp, _vp,        # B .. n, m
@@ -179,19 +184,17 @@ def twin_lib() -> ctypes.CDLL:
                          ctypes.c_float)
     lib.sw_twin_fill.restype = i32
     lib.sw_twin_fill.argtypes = [
-        i32, i32, vp, i32, vp, vp, vp, i64, vp, vp, vp, f32, f32,
+        i32, i32, vp, i32, i32, vp, vp, vp, i64, vp, vp, vp, f32, f32,
     ]
     lib.sw_twin_walk.restype = i32
     lib.sw_twin_walk.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp]
     lib.sw_twin_ckpt_fill.restype = i32
-    lib.sw_twin_ckpt_fill.argtypes = [
-        i32, vp, i32, vp, vp, vp, vp, i64, i64, i64, i32, vp, vp, vp, vp,
-        f32, f32,
+    lib.sw_twin_ckpt_fill.argtypes = LONG_FILL_ARGS + [
+        vp, vp, vp, vp, vp, f32, f32,  # ckm, ckx, cky, stats, scratch
     ]
     lib.sw_twin_band_fill.restype = i32
-    lib.sw_twin_band_fill.argtypes = [
-        i32, vp, i32, vp, vp, vp, vp, i64, i64, i64, i32, i32, vp, vp, vp,
-        vp, f32, f32,
+    lib.sw_twin_band_fill.argtypes = LONG_FILL_ARGS + [
+        i32, i32, vp, vp, vp, vp, f32, f32,  # sk0, G, ckm, ckx, cky, band
     ]
     lib.sw_twin_seg_walk.restype = i32
     lib.sw_twin_seg_walk.argtypes = [
@@ -207,11 +210,11 @@ def twin_lib() -> ctypes.CDLL:
     ]
     lib.sw_twin_fill_runs.restype = i32
     lib.sw_twin_fill_runs.argtypes = [
-        i32, vp, i32, vp, vp, vp, i64, vp, vp, vp, vp, f32, f32,
+        i32, vp, i32, i32, vp, vp, vp, i64, vp, vp, vp, vp, f32, f32,
     ]
     lib.sw_twin_diag_fill.restype = i32
     lib.sw_twin_diag_fill.argtypes = [
-        vp, i32, vp, vp, vp, i64, vp, vp, f32, f32,
+        vp, i32, i32, vp, vp, vp, i64, vp, vp, f32, f32,
     ]
     lib.sw_twin_walk_tokens.restype = i32
     lib.sw_twin_walk_tokens.argtypes = [

@@ -67,8 +67,14 @@ def reconstruct_packed(
     cnt32 = np.ascontiguousarray(cnt[:count], np.int32)
     i032 = np.ascontiguousarray(i0[:count], np.int32)
     j032 = np.ascontiguousarray(j0[:count], np.int32)
-    b1 = [s.encode("latin-1") for s in seq1s]
-    b2 = [s.encode("latin-1") for s in seq2s]
+    try:
+        b1 = [s.encode("latin-1") for s in seq1s]
+        b2 = [s.encode("latin-1") for s in seq2s]
+    except UnicodeEncodeError:
+        # letters past Latin-1 (a table's symbols may be any characters):
+        # the native rebuild copies bytes, so take the exact Python path
+        return reconstruct_packed_py(seq1s, seq2s, moves, cnt, i0, j0,
+                                     scores, mode, retain_all, col0, tokens)
     off1 = np.zeros(count + 1, np.int64)
     off2 = np.zeros(count + 1, np.int64)
     np.cumsum([len(s) for s in b1], out=off1[1:])

@@ -63,8 +63,8 @@ def _twin(ch, og, eg, table=None):
     scratch = np.zeros(max(floats, 1), np.float32)
     stats = np.ones((B, 8), np.float32)
     rc = native.twin_lib().sw_twin_diag_fill(
-        table.ctypes.data, table.shape[0], ch.codes1.ctypes.data,
-        ch.codes2.ctypes.data, desc.ctypes.data, B, scratch.ctypes.data,
+        table.ctypes.data, table.shape[0], ch.codes1.itemsize,
+        ch.codes1.ctypes.data, ch.codes2.ctypes.data, desc.ctypes.data, B, scratch.ctypes.data,
         stats.ctypes.data, og, eg)
     assert rc == 0
     return stats

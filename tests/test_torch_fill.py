@@ -86,7 +86,7 @@ def _twin(table, chunks, mode, og, eg, score_only):
     tab = np.ascontiguousarray(table, np.float32)
     rc = lib.sw_twin_fill(
         mode, 0 if score_only else 1, tab.ctypes.data, tab.shape[0],
-        c1.ctypes.data, c2.ctypes.data, desc.ctypes.data, B, tb.ctypes.data,
+        c1.itemsize, c1.ctypes.data, c2.ctypes.data, desc.ctypes.data, B, tb.ctypes.data,
         carry.ctypes.data, stats.ctypes.data, og, eg)
     assert rc == 0
     views = []

@@ -296,10 +296,101 @@ def test_fill_rejects_codes_past_the_table(cuda):
 
 
 def test_fill_kernel_rejects_wide_table(cuda):
+    """A 65-symbol table, once refused, is read from device memory: K1
+    equals its plain version on it."""
     chunks = _chunks(3)
-    wide = torch.zeros((65, 65), device=cuda)
-    with pytest.raises(NotImplementedError):
-        fill_dp.fill_many(wide, chunks, mode=LOCAL, og=-10.0, eg=-0.5)
+    rng = np.random.default_rng(3)
+    wide = torch.from_numpy(
+        rng.integers(-4, 6, size=(65, 65)).astype(np.float32)).to(cuda)
+    for ch in chunks:
+        ch.codes1[:, ::3] = 64
+    got = fill_dp.fill_many(wide, chunks, mode=LOCAL, og=-10.0, eg=-0.5)
+    ref = fill_dp.fill_many_ref(wide, chunks, mode=LOCAL, og=-10.0, eg=-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.stats, ref.stats)
+    _assert_tb_equal(got, ref, chunks)
+
+
+def _assert_tb_equal(got, ref, chunks):
+    """Two fills' pointer bytes inside every pair's [:n, :m]."""
+    for c, ch in enumerate(chunks):
+        for b in range(ch.shape[0]):
+            n, m = int(ch.n[b]), int(ch.m[b])
+            assert torch.equal(got.tb_view(c)[:n, :m, b],
+                               ref.tb_view(c)[:n, :m, b]), (c, b)
+
+
+def _wide(K, seed):
+    """A K-symbol integer table and ragged pairs whose codes span it, in
+    the port's code dtype (int16 past 255 symbols)."""
+    rng = np.random.default_rng(seed)
+    tab = rng.integers(-4, 5, size=(K, K)).astype(np.float32)
+    np.fill_diagonal(tab, 7.0)
+    ct = batch.code_dtype(K)
+    chunks = []
+    for B, NP, MP in ((9, 300, 280), (3, 64, 96)):
+        c1 = rng.integers(0, K, size=(B, NP)).astype(ct)
+        c2 = rng.integers(0, K, size=(B, MP)).astype(ct)
+        n = rng.integers(1, NP + 1, size=B).astype(np.int32)
+        m = rng.integers(1, MP + 1, size=B).astype(np.int32)
+        n[0], m[0] = NP, MP
+        c2[0, 20:60] = c1[0, 10:50]
+        c1[1, :3] = K - 1
+        chunks.append(batch.Chunk(c1, c2, n, m))
+    return tab, chunks
+
+
+@pytest.mark.parametrize("K", [65, 300])
+def test_kernels_take_wide_tables(cuda, K):
+    """K1 (traceback and score-only), K3, K4 (every band in one launch),
+    K6 and K9 with a K-symbol table read from device memory, int16 codes
+    past 255 symbols: each equal to its plain version."""
+    from smithwaterman_tpu_torch.ops import banded
+
+    table, chunks = _wide(K, K)
+    tab = torch.from_numpy(table).to(cuda)
+    for mode in MODES:
+        for score_only in (False, True):
+            got = fill_dp.fill_many(tab, chunks, mode=mode, og=-10.0, eg=-0.5,
+                                    score_only=score_only)
+            ref = fill_dp.fill_many_ref(tab, chunks, mode=mode, og=-10.0,
+                                        eg=-0.5, score_only=score_only)
+            assert torch.equal(got.stats, ref.stats), (mode, score_only)
+            if not score_only:
+                _assert_tb_equal(got, ref, chunks)
+    ch = chunks[0]
+    c1, c2, n, m = _on(ch, cuda)
+    B, NP, MP = ch.shape
+    for mode in MODES:
+        args = dict(mode=mode, og=-10.0, eg=-0.5, C=64)
+        st, ck = longseq.fill_checkpointed(tab, c1, c2, n, m, **args)
+        rst, rck = longseq.fill_checkpointed_ref(tab, c1, c2, n, m, **args)
+        assert torch.equal(st, rst), mode
+        for b in range(B):
+            k, mb = int(ch.n[b]) // 64, int(ch.m[b])
+            for a, r in zip(ck, rck):
+                assert torch.equal(a[b, :k, :mb], r[b, :k, :mb]), (mode, b)
+        nck = longseq.n_ckpts(NP, 64)
+        bands = torch.zeros((nck, B, longseq.band_bytes(64, MP)),
+                            dtype=torch.uint8, device=cuda)
+        rbands = bands.clone()
+        longseq.fill_bands(tab, c1, c2, n, m, ck, bands, sk0=0, **args)
+        longseq.fill_bands_ref(tab, c1, c2, n, m, ck, rbands, sk0=0, **args)
+        _assert_bands_equal(bands, rbands, ch, 64, 0)
+    got = diag_dp.fill_diag(tab, chunks, og=-10.0, eg=-0.5)
+    ref = torch.cat([diag_dp.fill_diag_ref(
+        tab, *(torch.from_numpy(a).to(cuda) for a in c), og=-10.0, eg=-0.5)
+        for c in chunks])
+    assert torch.equal(got, ref)
+    pairs = [(ch.codes1[b, :ch.n[b]], ch.codes2[b, :ch.m[b]])
+             for b in range(8)]
+    pk = banded.pack(pairs, 128, K)
+    assert pk.codes1.dtype == batch.code_dtype(K)
+    t1, t2, tn, tm = (torch.from_numpy(a).to(cuda)
+                      for a in (pk.codes1, pk.codes2, pk.n, pk.m))
+    S = banded.banded_scores(tab, t1, t2, tn, tm, W=pk.W)
+    assert torch.equal(S, banded.banded_scores_ref(tab, t1, t2, tn, tm,
+                                                   W=pk.W))
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -335,12 +426,25 @@ def _on(ch, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in ch)
 
 
-@pytest.mark.parametrize("C", [32, 64])
+def _assert_bands_equal(bands, rbands, ch, C, sk0):
+    """Every band of a (G, B, band_bytes) group in each pair's [:n, :m]."""
+    MP = ch.shape[2]
+    for g in range(bands.shape[0]):
+        got, ref = (longseq.band_view(x[g], C, MP) for x in (bands, rbands))
+        for b in range(ch.shape[0]):
+            rows = min(max(int(ch.n[b]) - (sk0 + g) * C, 0), C)
+            assert torch.equal(got[b, :rows, :int(ch.m[b])],
+                               ref[b, :rows, :int(ch.m[b])]), (sk0 + g, b)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
 @pytest.mark.parametrize("mode", MODES)
 def test_longseq_kernels_match_plain(cuda, mode, C):
-    """K3, K4 (every band) and K5 (every band, from the same walk state)
-    against their plain versions on the card."""
-    ch = _long_chunk(40 + mode)
+    """K3, K4 (every band alone, then every band but the first in one
+    launch: some pairs have no rows in most of them) and K5 (every band,
+    from the same walk state) against their plain versions on the card."""
+    ch = _long_chunk(40 + mode, NP=600, MP=280)
+    ch.n[3:6] = (256, 257, 511)
     tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
     c1, c2, n, m = _on(ch, cuda)
     B, NP, MP = ch.shape
@@ -378,6 +482,17 @@ def test_longseq_kernels_match_plain(cuda, mode, C):
         assert torch.equal(walk, rwalk) and torch.equal(cnt, rcnt), sk
         assert torch.equal(moves, rmoves), sk
     assert bool((walk[:, 3] == 1).all()) or mode == LOCAL
+    nck = longseq.n_ckpts(NP, C)
+    if nck > 1:
+        bands = torch.zeros((nck - 1, B, longseq.band_bytes(C, MP)),
+                            dtype=torch.uint8, device=cuda)
+        rbands = bands.clone()
+        before = longseq.LAUNCHES["K4"]
+        longseq.fill_bands(tab, c1, c2, n, m, ck, bands, sk0=1, **args)
+        assert longseq.LAUNCHES["K4"] == before + 1
+        longseq.fill_bands_ref(tab, c1, c2, n, m, ck, rbands, sk0=1, **args)
+        torch.cuda.synchronize()
+        _assert_bands_equal(bands, rbands, ch, C, 1)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -406,9 +521,10 @@ def test_long_route_matches_ordinary(cuda, mode):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_longseq_kernels_write_only_their_outputs(cuda, mode):
-    """K3, K4 and K5 launched on outputs fenced by canary bytes: every
-    canary stays intact and the outputs equal the wrappers' on the same
-    inputs."""
+    """K3 (with its scratch: tickets, published tiles, band bests), K4 (a
+    group of two bands) and K5 launched on outputs fenced by canary bytes:
+    every canary stays intact and the outputs equal the wrappers' on the
+    same inputs."""
     from smithwaterman_tpu_torch.ops import kernels
 
     C = 32
@@ -426,12 +542,16 @@ def test_longseq_kernels_write_only_their_outputs(cuda, mode):
         ck.append(t.view(B, nck, MP))
     arenas["stats"], stats = _fenced(4 * 8 * B, torch.float32, cuda)
     stats = stats.view(B, 8)
-    kernels.ckpt_fill(tab, c1, c2, n, m, *ck, stats, **args)
+    words = kernels.ckpt_scratch_words(B, nck)
+    arenas["scratch"], scratch = _fenced(4 * words, torch.int32, cuda,
+                                         inner=0)
+    kernels.ckpt_fill(tab, c1, c2, n, m, *ck, stats, scratch, **args)
     sk = nck - 2
     bb = longseq.band_bytes(C, MP)
-    arenas["band"], band = _fenced(B * bb, torch.uint8, cuda)
-    band = band.view(B, bb)
-    kernels.band_fill(tab, c1, c2, n, m, *ck, band, sk=sk, **args)
+    arenas["band"], bands = _fenced(2 * B * bb, torch.uint8, cuda)
+    bands = bands.view(2, B, bb)
+    kernels.band_fill(tab, c1, c2, n, m, *ck, bands, sk0=sk - 1, **args)
+    band = bands[1]
     L = NP + MP + 2
     walk0 = longseq.walk_start(wst, n, m, mode)
     walk0[:, 0] = torch.minimum(walk0[:, 0], n.new_tensor((sk + 1) * C))
@@ -453,13 +573,22 @@ def test_longseq_kernels_write_only_their_outputs(cuda, mode):
         k, mb = int(ch.n[b]) // C, int(ch.m[b])
         for a, r in zip(ck, wck):
             assert torch.equal(a[b, :k, :mb], r[b, :k, :mb])
-    wband = torch.zeros_like(band)
-    longseq.fill_band(tab, c1, c2, n, m, wck, wband, sk=sk, **args)
-    got, want = (longseq.band_view(x, C, MP) for x in (band, wband))
+    # the scratch afterwards: every ticket taken, every full band's tiles
+    # published, in LOCAL every band of a pair counted done
+    sc = scratch.cpu().numpy()
+    nb = -(-ch.n // C)
+    assert sc[0] >= nck * B
+    prog = sc[1 + B:1 + B + B * nck].reshape(B, nck)
     for b in range(B):
-        rows = min(max(int(ch.n[b]) - sk * C, 0), C)
-        assert torch.equal(got[b, :rows, :int(ch.m[b])],
-                           want[b, :rows, :int(ch.m[b])])
+        full = int(ch.n[b]) // C
+        assert (prog[b, :full] == -(-int(ch.m[b]) // 32)).all(), b
+        assert (prog[b, full:] == 0).all(), b
+    if mode == LOCAL:
+        assert (sc[1:1 + B] == nb).all()
+    wbands = torch.zeros_like(bands)
+    longseq.fill_bands(tab, c1, c2, n, m, wck, wbands, sk0=sk - 1, **args)
+    _assert_bands_equal(bands, wbands, ch, C, sk - 1)
+    wband = wbands[1]
     rwalk = walk0.clone()
     rcnt = torch.zeros(B, dtype=torch.int32, device=cuda)
     rmoves = torch.zeros_like(moves)

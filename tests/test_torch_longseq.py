@@ -207,35 +207,43 @@ def _twin_ckpt(table, ch, mode, og, eg, C):
     B, NP, MP = ch.shape
     nck = longseq.n_ckpts(NP, C)
     ck = [np.zeros((B, nck, MP), np.float32) for _ in range(3)]
-    stats = np.zeros((B, 8), np.float32)
+    stats = np.ones((B, 8), np.float32)
+    scratch = np.zeros(1 + B + 4 * B * nck, np.int32)
     tab = np.ascontiguousarray(table, np.float32)
     rc = lib.sw_twin_ckpt_fill(
-        mode, tab.ctypes.data, tab.shape[0], ch.codes1.ctypes.data,
-        ch.codes2.ctypes.data, ch.n.ctypes.data, ch.m.ctypes.data, B, NP, MP,
-        C, ck[0].ctypes.data, ck[1].ctypes.data, ck[2].ctypes.data,
-        stats.ctypes.data, og, eg)
+        mode, tab.ctypes.data, tab.shape[0], ch.codes1.itemsize,
+        ch.codes1.ctypes.data, ch.codes2.ctypes.data, ch.n.ctypes.data,
+        ch.m.ctypes.data, B, NP, MP, C, ck[0].ctypes.data, ck[1].ctypes.data,
+        ck[2].ctypes.data, stats.ctypes.data, scratch.ctypes.data, og, eg)
     assert rc == 0
     return stats, ck
 
 
-def _twin_band(table, ch, mode, og, eg, C, sk, ck, band=None):
+def _twin_bands(table, ch, mode, og, eg, C, sk0, G, ck, bands=None):
+    """K4's twin over bands sk0 .. sk0 + G - 1: (G, B, C, MP) band views."""
     lib = native.twin_lib()
     B, NP, MP = ch.shape
     tab = np.ascontiguousarray(table, np.float32)
-    if band is None:
-        band = np.zeros((B, longseq.band_bytes(C, MP)), np.uint8)
+    if bands is None:
+        bands = np.zeros((G, B, longseq.band_bytes(C, MP)), np.uint8)
     rc = lib.sw_twin_band_fill(
-        mode, tab.ctypes.data, tab.shape[0], ch.codes1.ctypes.data,
-        ch.codes2.ctypes.data, ch.n.ctypes.data, ch.m.ctypes.data, B, NP, MP,
-        C, sk, ck[0].ctypes.data, ck[1].ctypes.data, ck[2].ctypes.data,
-        band.ctypes.data, og, eg)
+        mode, tab.ctypes.data, tab.shape[0], ch.codes1.itemsize,
+        ch.codes1.ctypes.data, ch.codes2.ctypes.data, ch.n.ctypes.data,
+        ch.m.ctypes.data, B, NP, MP, C, sk0, G, ck[0].ctypes.data,
+        ck[1].ctypes.data, ck[2].ctypes.data, bands.ctypes.data, og, eg)
     assert rc == 0
-    return longseq.band_view(torch.from_numpy(band), C, MP).numpy()
+    return np.stack([longseq.band_view(torch.from_numpy(b), C, MP).numpy()
+                     for b in bands[:G]])
 
 
-def _twin_route(table, ch, mode, og, eg, C):
-    """K3, then per band K4 and K5, as align_long_packed launches them, all
-    through the twin."""
+def _twin_band(table, ch, mode, og, eg, C, sk, ck, band=None):
+    return _twin_bands(table, ch, mode, og, eg, C, sk, 1, ck,
+                       None if band is None else band[None])[0]
+
+
+def _twin_route(table, ch, mode, og, eg, C, G=1):
+    """K3, then per group of G bands one K4 launch and per band K5, as
+    align_long_packed launches them, all through the twin."""
     lib = native.twin_lib()
     B, NP, MP = ch.shape
     L = NP + MP + 2
@@ -244,14 +252,17 @@ def _twin_route(table, ch, mode, og, eg, C):
     walk = np.ascontiguousarray(walk)
     cnt = np.zeros(B, np.int32)
     moves = np.zeros((-(-L // 4), B), np.uint8)
-    band = np.zeros((B, longseq.band_bytes(C, MP)), np.uint8)
-    for sk in range(longseq.n_ckpts(NP, C) - 1, -1, -1):
-        _twin_band(table, ch, mode, og, eg, C, sk, ck, band)
-        rc = lib.sw_twin_seg_walk(1 if mode == LOCAL else 0,
-                                  band.ctypes.data, B, MP, C, sk, L,
-                                  walk.ctypes.data, cnt.ctypes.data,
-                                  moves.ctypes.data)
-        assert rc == 0
+    bands = np.zeros((G, B, longseq.band_bytes(C, MP)), np.uint8)
+    for top in range(longseq.n_ckpts(NP, C) - 1, -1, -G):
+        sk0 = max(0, top - G + 1)
+        _twin_bands(table, ch, mode, og, eg, C, sk0, top - sk0 + 1, ck,
+                    bands)
+        for sk in range(top, sk0 - 1, -1):
+            rc = lib.sw_twin_seg_walk(1 if mode == LOCAL else 0,
+                                      bands[sk - sk0].ctypes.data, B, MP, C,
+                                      sk, L, walk.ctypes.data,
+                                      cnt.ctypes.data, moves.ctypes.data)
+            assert rc == 0
     return stats, cnt, moves
 
 
@@ -291,15 +302,73 @@ def test_twin_ckpt_fill_ties(mode, C):
 @pytest.mark.parametrize("mode", MODES)
 def test_twin_route_matches_plain(mode, og, eg):
     """The whole route through the twin against the plain route, ties
-    everywhere, under the penalty edge cases."""
+    everywhere, under the penalty edge cases: at C = 32 one band a K4
+    launch and three (the last group short), at C = 64 and 256 (R = 2 and
+    8 rows a lane) every band in one launch."""
     sm = JaxSM.match_mismatch(5.0, -4.0)
     ch = _tied_chunk(11)
     st, cnt, mv = longseq.align_long_packed(_t(sm.table), ch, mode=mode,
                                             og=og, eg=eg, ckpt_rows=CKPT)
-    tst, tcnt, tmv = _twin_route(sm.table, ch, mode, og, eg, CKPT)
-    np.testing.assert_array_equal(tst, st.numpy())
-    np.testing.assert_array_equal(tcnt, cnt.numpy())
-    np.testing.assert_array_equal(tmv, mv.numpy())
+    for C, G in ((CKPT, 1), (CKPT, 3), (64, 2), (256, 1)):
+        tst, tcnt, tmv = _twin_route(sm.table, ch, mode, og, eg, C, G)
+        np.testing.assert_array_equal(tst, st.numpy(), err_msg=f"C={C}")
+        np.testing.assert_array_equal(tcnt, cnt.numpy(), err_msg=f"C={C}")
+        np.testing.assert_array_equal(tmv, mv.numpy(), err_msg=f"C={C}")
+
+
+def _ragged_chunk(seed, NP=300, MP=90):
+    """Tie-heavy pairs whose lengths end inside, at and just past band
+    edges at C = 32, 64 and 256, one pair of one row: a group of bands
+    holds empty bands for most pairs."""
+    rng = np.random.default_rng(seed)
+    B = 8
+    c1 = rng.choice([0, 2], size=(B, NP)).astype(np.uint8)
+    c2 = rng.choice([0, 2], size=(B, MP)).astype(np.uint8)
+    motif = rng.choice([0, 2], size=10).astype(np.uint8)
+    for b in range(B):
+        for r in range(7, NP - 10, 37):
+            c1[b, r:r + 10] = motif
+        c2[b, 30:40] = motif
+    n = np.array([300, 257, 256, 255, 1, 64, 299, 100], np.int32)
+    m = np.array([90, 33, 90, 1, 90, 64, 77, 89], np.int32)
+    return batch.Chunk(c1, c2, n, m)
+
+
+@pytest.mark.parametrize("C", [32, 64, 256])
+@pytest.mark.parametrize("mode", MODES)
+def test_twin_band_groups_match_plain(mode, C):
+    """K3's twin on ragged pairs (stats equal to the JAX oracle's,
+    checkpoints to the plain version's) and K4's twin refilling groups of
+    bands, every band of the bucket in one launch and a group from band 1
+    on: every band's bytes in each pair's [:n, :m] equal the plain
+    refill's, empty bands of a group included."""
+    sm = JaxSM.match_mismatch(5.0, -4.0)
+    ch = _ragged_chunk(13 + mode)
+    B, NP, MP = ch.shape
+    stats, ck = _twin_ckpt(sm.table, ch, mode, OG, EG, C)
+    np.testing.assert_array_equal(
+        stats, _jax_fill_stats(sm.table, ch, mode, OG, EG))
+    st, ours = longseq.fill_checkpointed_ref(
+        _t(sm.table), _t(ch.codes1), _t(ch.codes2), _t(ch.n), _t(ch.m),
+        mode=mode, og=OG, eg=EG, C=C)
+    np.testing.assert_array_equal(st.numpy(), stats)
+    _assert_ckpts_equal(ck, [a.numpy() for a in ours], ch, C, "twin")
+    nck = longseq.n_ckpts(NP, C)
+    ref = torch.zeros((nck, B, longseq.band_bytes(C, MP)), dtype=torch.uint8)
+    longseq.fill_bands(_t(sm.table), _t(ch.codes1), _t(ch.codes2), _t(ch.n),
+                       _t(ch.m), ours, ref, sk0=0, mode=mode, og=OG, eg=EG,
+                       C=C)
+    ref = [longseq.band_view(r, C, MP).numpy() for r in ref]
+    for sk0 in sorted({0, min(1, nck - 1)}):
+        got = _twin_bands(sm.table, ch, mode, OG, EG, C, sk0, nck - sk0, ck)
+        for g in range(nck - sk0):
+            sk = sk0 + g
+            for b in range(B):
+                rows = min(max(int(ch.n[b]) - sk * C, 0), C)
+                mb = int(ch.m[b])
+                np.testing.assert_array_equal(
+                    got[g, b, :rows, :mb], ref[sk][b, :rows, :mb],
+                    err_msg=f"band {sk} pair {b} (group from {sk0})")
 
 
 def test_twin_seg_walk_state_matches_plain():

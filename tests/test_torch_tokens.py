@@ -85,7 +85,8 @@ def _twin_runs(table, chunks, mode, og, eg):
     stats = np.zeros((B, 8), np.float32)
     tab = np.ascontiguousarray(table, np.float32)
     rc = native.twin_lib().sw_twin_fill_runs(
-        mode, tab.ctypes.data, tab.shape[0], c1.ctypes.data, c2.ctypes.data,
+        mode, tab.ctypes.data, tab.shape[0], c1.itemsize, c1.ctypes.data,
+        c2.ctypes.data,
         desc.ctypes.data, B, tb.ctypes.data, run.ctypes.data,
         carry.ctypes.data, stats.ctypes.data, og, eg)
     assert rc == 0
