@@ -1991,7 +1991,7 @@ def main() -> int:
     cnt = torch.zeros(B8, dtype=torch.int32, device=dev)
     mv = torch.zeros((-(-L8 // 4), B8), dtype=torch.uint8, device=dev)
     nck8 = longseq.n_ckpts(NP8, C)
-    G8 = longseq.group_bands(NP8, MP8, C)
+    G8 = longseq.group_bands(B8, NP8, MP8, batch.tb_budget(), C)
     bands = torch.empty((G8, B8, longseq.band_bytes(C, MP8)),
                         dtype=torch.uint8, device=dev)
     top = nck8 - 1

@@ -45,7 +45,7 @@ def one(tree: str) -> dict:
     import chip_smoke as cs
     from smithwaterman_tpu_torch import GLOBAL, LOCAL, BatchAligner
     from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
-    from smithwaterman_tpu_torch.ops import kernels, longseq
+    from smithwaterman_tpu_torch.ops import batch, kernels, longseq
 
     if not longseq.__file__.startswith(tree):
         raise SystemExit(f"imported {longseq.__file__}, not {tree}")
@@ -116,7 +116,7 @@ def one(tree: str) -> dict:
         err = max(err, float(d.abs().max()))
     out["k4_err"] = err
     if hasattr(longseq, "fill_bands"):
-        G = longseq.group_bands(NP, MP, C)
+        G = longseq.group_bands(B, NP, MP, batch.tb_budget(), C)
         bands = torch.empty((G, B, bb), dtype=torch.uint8, device=dev)
 
         def every_band():
@@ -143,6 +143,8 @@ def one(tree: str) -> dict:
         longseq.fill_band(tab, c1, c2, n, m, ck, rband, sk=s, **args)
         longseq.walk_segments(rband, walk, cnt, mv, sk=s, C=C, MP=MP, L=L,
                               local=False)
+    # every_band() may have refilled other bands into `band`
+    longseq.fill_band(tab, c1, c2, n, m, ck, band, sk=sk, **args)
     rwalk, rcnt, rmv = walk.clone(), cnt.clone(), mv.clone()
     kw = dict(sk=sk, C=C, MP=MP, L=L, local=False)
     out["k5_ms"], _ = cs.event_ms(lambda: longseq.walk_segments(

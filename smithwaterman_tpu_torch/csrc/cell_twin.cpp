@@ -383,6 +383,11 @@ int ckpt_all(const float* table, int K, const CODE* codes1,
   return 0;
 }
 
+// Whether the twin takes a band of C rows: a power of two up to 256 (below
+// 32, which the card refuses, one warp of C lanes with a row each).
+bool twin_c(int C) { return C > 0 && C <= 256 && !(C & (C - 1)); }
+int twin_r(int C) { return C < sw::WARP ? 1 : sw::band_r(C); }
+
 // K4 (longseq_fill.cu band_kernel): bands sk0 .. sk0+G-1 of every pair,
 // band-major, each block of one-row warps to its end (they do not wait on
 // each other).  Returns 3 if a ring access is not ordered by the card's
@@ -402,7 +407,7 @@ int band_all(const float* table, int K, const CODE* codes1,
                                   C, sk, ckm, ckx, cky);
     io.tb = band + w * sw::band_bytes(C, MP);
     TwinBlock<MODE, 1, true, CODE> blk;
-    blk.begin(io, p, sw::refill_warps(C));
+    blk.begin(io, p, twin_r(C));
     while (!blk.done())
       if (!blk.advance() || blk.broken) return 3;
   }
@@ -432,10 +437,6 @@ int dispatch(int mode, int r, const F& f) {
 #undef SW_R
   return 1;
 }
-
-// Whether the twin takes a band of C rows: a power of two up to 256 (below
-// 32, one warp of C lanes with rows).
-bool twin_c(int C) { return C > 0 && C <= 256 && !(C & (C - 1)); }
 
 template <typename CODE>
 struct CkptRun {
@@ -741,7 +742,7 @@ int sw_twin_ckpt_fill(int mode, const float* table, int K, int code_bytes,
   int rc = 1;
   if (with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
         using CODE = std::remove_const_t<std::remove_pointer_t<decltype(c1)>>;
-        rc = dispatch(mode, sw::ckpt_r(C),
+        rc = dispatch(mode, twin_r(C),
                       CkptRun<CODE>{table, K, c1, c2, n, m, B, NP, MP, C, ckm,
                                     ckx, cky, stats, scratch, og, eg});
       }))

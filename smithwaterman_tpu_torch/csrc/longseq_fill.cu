@@ -278,7 +278,7 @@ template <int MODE, typename CODE>
 int launch_band(const Pairs<CODE>& a, int C, int sk0, int G, const float* ckm,
                 const float* ckx, const float* cky, uint8_t* band, float og,
                 float eg, cudaStream_t st) {
-  const int NW = sw::refill_warps(C);
+  const int NW = sw::band_r(C);
   const size_t smem = sw::table_smem(a.K) +
                       (size_t)(NW - 1) * 3 * sw::RING * sizeof(float);
   band_kernel<MODE, CODE><<<(unsigned)(G * a.B), NW * sw::WARP, smem, st>>>(
@@ -303,7 +303,7 @@ template <int MODE, typename CODE>
 int launch_ckpt_r(const Pairs<CODE>& a, int C, float* ckm, float* ckx, float* cky,
            float* stats, int32_t* scratch, float og, float eg,
            cudaStream_t st) {
-  switch (sw::ckpt_r(C)) {
+  switch (sw::band_r(C)) {
     case 1:
       return launch_ckpt<MODE, 1>(a, ckm, ckx, cky, stats, scratch, og, eg,
                                   st);

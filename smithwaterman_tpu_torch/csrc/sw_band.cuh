@@ -134,10 +134,9 @@ constexpr int WARP = 32;
 constexpr int LAG = 3 * WARP;
 constexpr int RING = 4 * WARP;
 
-// Rows a K3 lane owns in a band of C rows (K4: one), and warps of a K4
-// band.
-SW_HD int ckpt_r(int C) { return C >= WARP ? C / WARP : 1; }
-SW_HD int refill_warps(int C) { return C >= WARP ? C / WARP : 1; }
+// A band of C rows (a multiple of 32) a warp's worth of rows at a time:
+// the rows a K3 lane owns, and the one-row warps of a K4 block.
+SW_HD int band_r(int C) { return C / WARP; }
 
 // Checkpoint scratch of a K3 launch over B pairs of NCK bands, int32
 // words, zeroed before the launch (ops/kernels.ckpt_scratch_words): the

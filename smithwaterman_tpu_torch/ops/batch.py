@@ -92,7 +92,9 @@ def plan_flushes(chunks: Iterable[Chunk], budget: int, score_only: bool,
     A chunk whose single pair's pointers exceed the budget, or whose NP*MP
     is at least ``long_cells`` (the JAX package's ``longseq_cells``), takes
     the long-sequence route: pieces of as many pairs as fit the budget at
-    ``longseq.pair_bytes(NP, MP)`` device bytes each, one flush apiece.  The
+    ``longseq.pair_bytes(NP, MP)`` device bytes each (checkpoints and one
+    band; the route refills as many bands at once as the rest of the
+    budget holds, ``longseq.group_bands``), one flush apiece.  The
     JAX package counts a whole tile group of pairs against the budget, the
     port one pair; both routes are exact, so the results do not depend on
     which one runs."""

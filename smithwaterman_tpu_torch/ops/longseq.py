@@ -15,7 +15,8 @@ only O(n/C * m) floats and O(C * m) pointer bytes:
    first, :func:`walk_segments` (kernel K5) steps each pair's walk through
    the band.  The walk state (i, j, state, done) and the move count stay
    on the device between bands.  G (:func:`group_bands`) is as many bands
-   as fit :data:`REFILL_BYTES` a pair.
+   as fit :data:`REFILL_BYTES` a pair and the pointer budget
+   (``batch.tb_budget``) beside the chunk's checkpoints.
 
 The refill replays the same cell rules from the same carries, so the
 pointer bytes, and with them the path, are those of the single-pass fill.
@@ -46,8 +47,9 @@ from .scan_dp import fill as scan_fill
 
 # rows per band and per checkpoint
 DEFAULT_CKPT_ROWS = 256
-# device bytes a pair's refilled bands may take together: K4 refills as
-# many bands of every pair in one launch (a block a band) as fit
+# device bytes a pair's refilled bands may take together at most: K4
+# refills as many bands of every pair in one launch (a block a band) as fit
+# this and the pointer budget
 REFILL_BYTES = 320 << 20
 
 # launches made through the wrappers below (plain counts, read by
@@ -67,17 +69,27 @@ def band_bytes(C: int, MP: int) -> int:
     return (C + MP) * C
 
 
-def group_bands(NP: int, MP: int, C: int = DEFAULT_CKPT_ROWS) -> int:
-    """Bands one K4 launch refills per pair: as many as fit
-    :data:`REFILL_BYTES`, at least one, at most the bucket's."""
-    return max(1, min(n_ckpts(NP, C), REFILL_BYTES // band_bytes(C, MP)))
+def ckpt_bytes(NP: int, MP: int, C: int = DEFAULT_CKPT_ROWS) -> int:
+    """Device bytes of one pair's checkpoints (three f32 rows a band)."""
+    return 12 * n_ckpts(NP, C) * MP
 
 
 def pair_bytes(NP: int, MP: int, C: int = DEFAULT_CKPT_ROWS) -> int:
-    """Device bytes the route holds per pair: checkpoints and a group of
-    refilled bands."""
-    return (12 * n_ckpts(NP, C) * MP
-            + group_bands(NP, MP, C) * band_bytes(C, MP))
+    """The least device bytes the route holds per pair: checkpoints and one
+    refilled band (``batch.plan_flushes`` sizes a chunk's pairs by it)."""
+    return ckpt_bytes(NP, MP, C) + band_bytes(C, MP)
+
+
+def group_bands(B: int, NP: int, MP: int, budget: int,
+                C: int = DEFAULT_CKPT_ROWS) -> int:
+    """Bands one K4 launch refills per pair of a B-pair chunk: as many as
+    fit :data:`REFILL_BYTES` a pair and, beside the checkpoints, ``budget``
+    device bytes for the chunk; at least one, at most the bucket's.  The
+    route then stays inside ``budget`` whenever B * :func:`pair_bytes`
+    does."""
+    bb = band_bytes(C, MP)
+    room = (budget // max(B, 1) - ckpt_bytes(NP, MP, C)) // bb
+    return max(1, min(n_ckpts(NP, C), REFILL_BYTES // bb, room))
 
 
 def band_view(band: torch.Tensor, C: int, MP: int) -> torch.Tensor:
@@ -355,8 +367,8 @@ def align_long_packed(table: torch.Tensor, chunk: batch.Chunk, *, mode: int,
     tensors ``(stats (B, 8) f32, cnt (B,) int32, moves (ceil(L/4), B)
     uint8)`` with ``L = NP + MP + 2``: the JAX ``align_long_packed``
     contract, for ``ops/reconstruct.reconstruct_packed``.  One K3 launch,
-    then one K4 launch per group of :func:`group_bands` bands and one K5
-    launch per band."""
+    then one K4 launch per group of :func:`group_bands` bands (at the
+    pointer budget ``batch.tb_budget``) and one K5 launch per band."""
     dev = table.device
     _device(table)
     C = ckpt_rows or DEFAULT_CKPT_ROWS
@@ -371,7 +383,7 @@ def align_long_packed(table: torch.Tensor, chunk: batch.Chunk, *, mode: int,
     walk = walk_start(stats, n, m, mode)
     cnt = torch.zeros((B,), dtype=torch.int32, device=dev)
     moves = torch.zeros((-(-L // 4), B), dtype=torch.uint8, device=dev)
-    G = group_bands(NP, MP, C)
+    G = group_bands(B, NP, MP, batch.tb_budget(), C)
     bands = torch.empty((G, B, band_bytes(C, MP)), dtype=torch.uint8,
                         device=dev)
     for top in range(n_ckpts(NP, C) - 1, -1, -G):

@@ -437,7 +437,7 @@ def _assert_bands_equal(bands, rbands, ch, C, sk0):
                                ref[b, :rows, :int(ch.m[b])]), (sk0 + g, b)
 
 
-@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
 @pytest.mark.parametrize("mode", MODES)
 def test_longseq_kernels_match_plain(cuda, mode, C):
     """K3, K4 (every band alone, then every band but the first in one

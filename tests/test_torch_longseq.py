@@ -481,6 +481,31 @@ def test_plan_flushes_long_pieces_keep_order():
     ]
 
 
+@pytest.mark.parametrize("budget", [200 << 20, 512 << 20, 1 << 30, 4 << 30,
+                                    512 * 512 - 1])
+def test_long_pieces_stay_inside_budget(budget):
+    """Each long piece plan_flushes cuts, with the bands group_bands lets
+    one K4 launch refill, holds at most the budget whenever its pairs'
+    checkpoints and one band each fit it; the group is capped by
+    REFILL_BYTES a pair and by the bucket's bands."""
+    for B, NP, MP in [(17, 70144, 70144), (4, 70144, 70144), (5, 512, 512),
+                      (6, 600, 280)]:
+        ch = batch.Chunk(np.zeros((B, NP), np.uint8),
+                         np.zeros((B, MP), np.uint8),
+                         np.full(B, NP, np.int32), np.full(B, MP, np.int32))
+        bb = longseq.band_bytes(longseq.DEFAULT_CKPT_ROWS, MP)
+        for fl in batch.plan_flushes([ch], budget, False, long_cells=1):
+            Bp = fl.chunks[0].shape[0]
+            G = longseq.group_bands(Bp, NP, MP, budget)
+            assert 1 <= G <= min(longseq.n_ckpts(NP, 256),
+                                 longseq.REFILL_BYTES // bb)
+            if Bp * longseq.pair_bytes(NP, MP) <= budget:
+                assert Bp * (longseq.ckpt_bytes(NP, MP) + G * bb) <= budget
+    # four 70 kb pairs at the default budget: the cap sets the group
+    assert longseq.group_bands(4, 70144, 70144, 4 << 30) == \
+        longseq.REFILL_BYTES // longseq.band_bytes(256, 70144)
+
+
 # ------------------------------------------------------------ calc_score
 def test_recalc_score_matches_jax():
     pairs = [("HEAG-AWGHE-E", "--PAWHE-AE--"), ("ACDEF", "ACDEF"),
