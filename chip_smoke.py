@@ -8,22 +8,26 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
 2. the builds: the hand-written CUDA kernels (``nvcc``, one process per
    source, started together) and the shared host library (``g++``), from
    the checkout's sources, with build seconds;
-3. K1 (the fill kernel) against its plain PyTorch version on the card:
-   all three modes, traceback and score-only, ragged lengths down to 1,
-   one 3685 x 3685 pair, a non-integer table and og = ge = 0.  Every
-   pair's pointer bytes and stats must be equal;
+3. K1 (the fill kernel, a warp a pair) against its plain PyTorch version
+   on the card: all three modes, traceback and score-only, ragged lengths
+   down to 1, one 3685 x 3685 pair, a non-integer table and og = ge = 0.
+   Every pair's pointer bytes and stats must be equal; K1's time on the
+   3685 x 3685 pair alone (a block of a warp a stripe) is printed;
 4. K2 (the walk kernel) against its plain version on K1's own pointers:
    move counts and packed moves must be equal;
 5. the main path at a size users run: 3200 protein pairs, lengths uniform
    in 150..700, BLOSUM62, go = 10, ge = 0.5, through
    ``BatchAligner(device=dev)`` in all three modes plus one
    ``score_pairs``; a random 64-pair subset per mode must equal the CPU
-   path exactly and every kernel must have launched.  Then, per mode,
+   path exactly and every kernel must have launched; each mode's warm
+   wall is printed beside the one measured with K1 a thread a pair, and
+   the rows a lane R and warps a pair each K1 launch takes.  Then, per mode,
    each kernel runs at the main path's shapes (the same pairs, bucketed
    alike, every chunk in one launch) beside its plain version on the same
    inputs (K1's in GLOCAL and GLOBAL on every third chunk): every pair's
    pointer bytes and stats, every move count and move byte must be equal,
-   and both are timed;
+   and both are timed (K1 and K10 by their launches alone, inputs
+   uploaded once);
 6. the long-sequence kernels K3 (checkpointed fill), K4 (band refill) and
    K5 (segment walk) against their plain versions: 8 ragged pairs up to
    1024 x 1024 (lengths down to 1, one pair with tied maxima), all three
@@ -164,6 +168,9 @@ RUN_OPS = 10
 # step's 12 plus the run byte's fields, the marker test and the jump
 TOKEN_STEP_OPS = 18
 SWEEP_SEQS, SWEEP_CHUNK = 400, 8192
+# phase 5's warm wall a mode with K1 one thread a pair (medians of 7 calls,
+# scripts/measure_torch.py on one H100 80GB HBM3 at 700 W, PERF.md section 5)
+THREAD_A_PAIR_WALL = {"local": 0.2455, "glocal": 0.2375, "global": 0.2523}
 # phase 14: one 2048 x 65,536 protein pair, the query a mutated copy of the
 # reference's residues 30,000-32,047 (the JAX package's single-chip striped
 # shape, scripts/bench_suite.py:241)
@@ -336,6 +343,34 @@ def timed(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def relaunch(tab, chunks, got, **args):
+    """A function that refills ``got`` (a ``fill_dp.fill_many`` result on
+    the card, with run bytes or not) by ``fill_dp.launch``, the launches of
+    K1 (K10) that ``fill_many`` makes, its plan and inputs uploaded once:
+    the kernels' time without the host's uploads.  These launches are not
+    counted."""
+    import torch
+
+    from smithwaterman_tpu_torch.ops import fill_dp
+
+    dev = tab.device
+    codes1, codes2 = (torch.from_numpy(np.concatenate(
+        [getattr(ch, f).ravel() for ch in chunks])).to(dev)
+        for f in ("codes1", "codes2"))
+    carry = torch.empty(fill_dp.layout(chunks)[3], dtype=torch.float32,
+                        device=dev)
+    pools = 0 if got.tb is None else 1 if got.run is None else 2
+    plan = fill_dp.device_plan(chunks, pools, dev)
+
+    def run():
+        fill_dp.launch(plan, tab, codes1, codes2, got.desc, got.tb, carry,
+                       got.stats, traceback=got.tb is not None, run=got.run,
+                       **args)
+        return got
+
+    return run
 
 
 PHASE9_LENGTHS = ((2048, 1748), (1, 5), (1500, 1800), (700, 640),
@@ -872,9 +907,11 @@ def phase12(dev, card, modes, pairs, chunks, results, scores, walls,
     for mode, mname in modes:
         args = dict(mode=mode, og=og, eg=eg)
         k1 = fill_dp.fill_many(tab, chunks, **args)
-        fill_dp.fill_many(tab, chunks, runs=True, **args)
-        k10_ms, got = timed(lambda: fill_dp.fill_many(tab, chunks, runs=True,
-                                                      **args), 3)
+        got = fill_dp.fill_many(tab, chunks, runs=True, **args)
+        run = relaunch(tab, chunks, got, **args)
+        run()
+        k10_ms, got = timed(run, 3)
+        del run
         err, bad = fill_err(got, k1, masks)
         if err != 0.0 or bad or not torch.equal(got.stats, k1.stats):
             fail(f"K10 at the main path's shapes, {mname}: pointer bytes or "
@@ -1477,6 +1514,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     modes = [(LOCAL, "local"), (GLOCAL, "glocal"), (GLOBAL, "global")]
 
     # ---- phase 1: the card
@@ -1585,6 +1623,17 @@ def main() -> int:
                          "differ")
         say(f"phase 3 K1 {name}: 3 modes x (traceback, score-only) equal to "
             "the plain fill")
+        if len(chunks) == 1 and chunks[0].shape[0] == 1:
+            # one pair: a block of warps, its stripes overlapping
+            args = dict(mode=LOCAL, og=og, eg=eg)
+            got = fill_dp.fill_many(tab, chunks, **args)
+            run = relaunch(tab, chunks, got, **args)
+            run()
+            big_ms, _ = timed(run, 3)
+            R, NW, _ = fill_dp.launch_plan(chunks, 1, sms)[0]
+            say(f"phase 3 K1 {name}, LOCAL with pointers: {big_ms:.3f} ms, "
+                f"R = {R} rows a lane, {NW} warps; on {card}")
+            del got, run
 
     # ---- phase 4: K2 against its plain version on K1's own pointers
     for name, mode, mname, got in walk_inputs:
@@ -1640,7 +1689,8 @@ def main() -> int:
                                 r.end1, r.start2, r.end2):
                 fail(f"{mname} pair {k}: differs from the CPU path")
         wall = walls[mname]
-        say(f"phase 5 {mname}: {PAIRS} pairs warm {wall:.4f} s, "
+        say(f"phase 5 {mname}: {PAIRS} pairs warm {wall:.4f} s (K1 a "
+            f"thread a pair: {THREAD_A_PAIR_WALL[mname]:.4f} s), "
             f"{PAIRS / wall:.1f} pairs/s, {cells / wall / 1e9:.4f} GCUPS "
             f"(true cells) on {card}; {CHECKED} checked pairs equal to the "
             f"CPU path; phases " + json.dumps(
@@ -1669,14 +1719,24 @@ def main() -> int:
     L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in
             (ch.shape for ch in chunks))
 
+    say("phase 5 K1 stripes (R rows a lane, NW warps a pair: pairs) at "
+        "this flush: " + "; ".join(f"{what} " + ", ".join(
+            f"R = {R}, NW = {NW}: {len(rows)}" for R, NW, rows in
+            fill_dp.launch_plan(chunks, pools, sms))
+            for what, pools in (("score-only", 0), ("pointers", 1),
+                                ("with run bytes (K10)", 2))))
+
     main_err = {"K1": 0.0, "K2": 0.0}
     times = {}
     walk_steps = {}
     fill_dp.fill_many_ref(tab, chunks[:1], mode=LOCAL, og=-10.0, eg=-0.5)
     for mode, mname in modes:
         args = dict(mode=mode, og=-10.0, eg=-0.5)
-        fill_dp.fill_many(tab, chunks, **args)
-        k1_ms, got = timed(lambda: fill_dp.fill_many(tab, chunks, **args), 3)
+        got = fill_dp.fill_many(tab, chunks, **args)
+        run = relaunch(tab, chunks, got, **args)
+        run()
+        k1_ms, got = timed(run, 3)
+        del run
         # LOCAL, the mode recorded below, against the plain fill on every
         # chunk; GLOCAL and GLOBAL at a cut depth, on every third chunk (the
         # plain fill is host-bound: ~18 s a mode on all 25)

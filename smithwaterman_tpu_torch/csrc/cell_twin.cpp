@@ -5,10 +5,11 @@
 //
 // It includes the kernels' own headers and runs them over a batch in the
 // kernels' loop order, one pair after another, with the same per-pair
-// descriptors and memory layout.  For K3 and K4 it runs the warp band's
-// per-lane functions (sw_band.cuh) for lane 0 .. 31 in turn at each step,
-// handing each lane its neighbour's values from before the step, as the
-// card's shuffles do.  K3's bands begin in ticket order (band-major over
+// descriptors and memory layout.  For K1, K10, K3 and K4 it runs the warp
+// band's per-lane functions (sw_band.cuh) for lane 0 .. 31 in turn at each
+// step, handing each lane its neighbour's values from before the step, as
+// the card's shuffles do; K1's stripes of a pair run one after another.
+// K3's bands begin in ticket order (band-major over
 // the pairs) and advance a step each in turn, every band reading its seed
 // tiles as soon as they are published (the LOCAL merge in the pair's last
 // band); K4's bands of a group run one after another.  Both are orders the
@@ -38,47 +39,6 @@
 #include "sw_walk.cuh"
 
 namespace {
-
-template <int MODE, bool TB, typename CODE>
-void fill_all(const float* table, int K, const CODE* codes1,
-              const CODE* codes2, const int64_t* desc, int64_t B,
-              uint8_t* tb, float* carry, float* stats, float og, float eg) {
-  for (int64_t b = 0; b < B; ++b) {
-    const int64_t* d = desc + b * sw::DESC_W;
-    sw::fill_pair<MODE, TB, false, CODE>(
-        table, K, codes1 + d[sw::D_OFF1], codes2 + d[sw::D_OFF2],
-        (int)d[sw::D_N], (int)d[sw::D_M], TB ? tb + d[sw::D_TB] : nullptr,
-        d[sw::D_RS], d[sw::D_CS], carry + d[sw::D_CARRY], 3 * d[sw::D_CS],
-        og, eg, stats + b * sw::STATS_W);
-  }
-}
-
-template <int MODE, typename CODE>
-void fill_mode(int traceback, const float* table, int K, const CODE* codes1,
-               const CODE* codes2, const int64_t* desc, int64_t B,
-               uint8_t* tb, float* carry, float* stats, float og, float eg) {
-  if (traceback)
-    fill_all<MODE, true>(table, K, codes1, codes2, desc, B, tb, carry, stats,
-                         og, eg);
-  else
-    fill_all<MODE, false>(table, K, codes1, codes2, desc, B, tb, carry,
-                          stats, og, eg);
-}
-
-template <int MODE, typename CODE>
-void fill_runs_all(const float* table, int K, const CODE* codes1,
-                   const CODE* codes2, const int64_t* desc, int64_t B,
-                   uint8_t* tb, uint8_t* run, float* carry, float* stats,
-                   float og, float eg) {
-  for (int64_t b = 0; b < B; ++b) {
-    const int64_t* d = desc + b * sw::DESC_W;
-    sw::fill_pair<MODE, true, true, CODE>(
-        table, K, codes1 + d[sw::D_OFF1], codes2 + d[sw::D_OFF2],
-        (int)d[sw::D_N], (int)d[sw::D_M], tb + d[sw::D_TB], d[sw::D_RS],
-        d[sw::D_CS], carry + d[sw::D_CARRY], 3 * d[sw::D_CS], og, eg,
-        stats + b * sw::STATS_W, run + d[sw::D_TB]);
-  }
-}
 
 // Calls f(codes) with the codes of code_bytes width (1: uint8, 2: int16)
 // typed; returns 1 for another width.
@@ -146,11 +106,14 @@ float diag_pair(const float* table, int K, const CODE* c1, const CODE* c2,
   return best;
 }
 
-// One warp of a band as the card runs it (longseq_fill.cu run_band), a
-// step at a time: every lane in turn at each step, each handed its
-// neighbour's values from before the step, as the shuffles hand them.
-template <int MODE, int R, bool TB, typename CODE>
+// One warp of a band as the card runs it (longseq_fill.cu run_band, fill.cu
+// fill_stripe), a step at a time: every lane in turn at each step, each
+// handed its neighbour's values from before the step, as the shuffles hand
+// them.  TBS is lane_step's pointer store (sw::TbStore), RUNS K10's run
+// bytes.
+template <int MODE, int R, int TBS, bool RUNS, typename CODE>
 struct TwinWarp {
+  static constexpr bool SKEW = TBS == sw::TB_SKEW;
   static constexpr int W = sw::WARP;
   sw::BandIO<CODE> io;
   sw::Pen p;
@@ -180,17 +143,21 @@ struct TwinWarp {
     }
     sw::Cell bottom[W];
     int code[W];
+    uint32_t run[W];
     for (int l = 0; l < W; ++l) {  // the shuffles' sources
       bottom[l] = L[l].left[R - 1];
       code[l] = L[l].code;
+      run[l] = L[l].rleft[R - 1];
     }
     for (int l = 0; l < W; ++l) {
       L[l].code = l ? code[l - 1] : cur[q].code;
-      sw::lane_step<MODE, R, TB>(l, k, &L[l], l ? bottom[l - 1] : cur[q].seed,
-                                 io, p);
-      if (TB) sw::ring_put<R>(l, k, L[l], io);
+      sw::lane_step<MODE, R, TBS, RUNS>(l, k, &L[l],
+                                        l ? bottom[l - 1] : cur[q].seed, io,
+                                        p, l ? run[l - 1] : cur[q].run);
+      if (SKEW) sw::ring_put<R>(l, k, L[l], io);
+      sw::stripe_put<R, RUNS>(l, k, L[l], io);
     }
-    if (!TB && io.out_m) {
+    if (!SKEW && io.out_m) {
       const sw::Cell b = L[sw::warp_lanes<R>(io) - 1].left[R - 1];
       int T = -1;
       for (int l = 0; l < W; ++l) T = sw::ck_collect<R>(l, k, &L[l], b, io);
@@ -211,6 +178,111 @@ struct TwinWarp {
   }
 };
 
+// K1's seed rows as the card's barriers order them: for each of a pair's
+// two carry rows and each 32-column tile of it, the stripe whose bottom row
+// it holds, how many of its columns that stripe has stored, and the block
+// steps of its last store and of its fetch by the stripe below.  With
+// several warps a pair, a tile must be complete, and stored before a
+// barrier that precedes its fetch; a stripe's first store into a tile must
+// follow a barrier that follows the fetch of what it overwrites.  The
+// block's barriers follow every block step K with K mod 32 == 31.
+struct SeedTiles {
+  std::vector<int> gen, cnt, put_at, got_at;
+  int tiles = 0;
+  bool broken = false;
+
+  explicit SeedTiles(int m) : tiles((m + sw::WARP - 1) / sw::WARP) {
+    gen.assign(2 * tiles, -1);
+    cnt = put_at = got_at = gen;
+  }
+  static bool apart(int a, int b) { return a / sw::WARP < b / sw::WARP; }
+
+  // stripe s fetched tile T of its seed row at block step K
+  void fetch(int s, int T, int K, int m) {
+    const int q = ((s - 1) & 1) * tiles + T;
+    const int cols = m - T * sw::WARP < sw::WARP ? m - T * sw::WARP : sw::WARP;
+    if (gen[q] != s - 1 || cnt[q] != cols || !apart(put_at[q], K))
+      broken = true;
+    got_at[q] = K;
+  }
+  // stripe s stored column c of its bottom row at block step K
+  void store(int s, int c, int K) {
+    const int q = (s & 1) * tiles + c / sw::WARP;
+    if (gen[q] != s) {
+      if (gen[q] >= 0 && (got_at[q] < 0 || !apart(got_at[q], K)))
+        broken = true;
+      gen[q] = s;
+      cnt[q] = 0;
+      got_at[q] = -1;
+    }
+    ++cnt[q];
+    put_at[q] = K;
+  }
+};
+
+// K1 / K10 (fill.cu fill_kernel): each pair a block of NW warps of R rows a
+// lane, stripe s on warp s mod NW starting at block step s * stripe_gap,
+// the stripes active at a block step advanced one step each in stripe
+// order (an order the card may take where the barriers order the seed
+// rows, which SeedTiles checks with NW > 1; one warp runs its stripes back
+// to back), the lanes' LOCAL bests merged.  Returns 3 if a seed row access
+// is not ordered by the card's barriers or a warp's next stripe would
+// start before its last one ended.
+template <int MODE, int R, bool TB, bool RUNS, typename CODE>
+int fill_all(const float* table, int K, const CODE* codes1,
+             const CODE* codes2, const int64_t* desc, int64_t B, uint8_t* tb,
+             uint8_t* run, float* carry, float* stats, float og, float eg,
+             int NW) {
+  using Warp = TwinWarp<MODE, R, TB ? sw::TB_ROWS : sw::TB_NONE, RUNS, CODE>;
+  const sw::Pen p = sw::make_pen<MODE>(og, eg);
+  for (int64_t b = 0; b < B; ++b) {
+    const int64_t* d = desc + b * sw::DESC_W;
+    float* st = stats + b * sw::STATS_W;
+    for (int q = 0; q < sw::STATS_W; ++q) st[q] = 0.0f;
+    const sw::BandIO<CODE> io = sw::fill_io<MODE>(
+        table, K, codes1, codes2, d, TB ? tb : nullptr, RUNS ? run : nullptr,
+        st);
+    float* cy = carry + d[sw::D_CARRY];
+    const int S = sw::stripes(io.n, R);
+    const int gap = sw::stripe_gap(NW, S, io.m + sw::WARP - 1);
+    std::vector<Warp> ws(S);
+    SeedTiles seeds(io.m);
+    sw::Best best = sw::no_best();
+    for (int left = S, K = 0; left; ++K) {
+      for (int s = 0; s < S; ++s) {
+        Warp& w = ws[s];
+        const int k = K - s * gap;
+        if (k < 0 || (k > 0 && w.k >= w.steps)) continue;
+        if (k == 0) {
+          if (s >= NW && ws[s - NW].k < ws[s - NW].steps) return 3;
+          w.io = sw::stripe_io<R>(io, s, cy, NW > 1);
+          w.p = p;
+          w.begin();
+        }
+        w.advance();  // no wait: the barriers order the seed rows
+        const int cb = w.k - 1 - (sw::warp_lanes<R>(w.io) - 1);
+        if (NW > 1 && s > 0 && w.fetched >= 0 &&
+            w.fetched * sw::WARP < io.m)
+          seeds.fetch(s, w.fetched, K, io.m);
+        if (NW > 1 && w.io.next_m && cb >= 0 && cb < io.m)
+          seeds.store(s, cb, K);
+        if (w.k == w.steps) {
+          best = sw::better(best, w.best());
+          --left;
+        }
+      }
+      if (seeds.broken) return 3;
+    }
+    if (MODE != sw::LOCAL) continue;
+    st[0] = best.v;
+    if (TB) {
+      st[1] = (float)best.i;
+      st[2] = (float)best.j;
+    }
+  }
+  return 0;
+}
+
 // A band's block of NW warps, a block step at a time: warp w's step
 // K - w * LAG for w = 0 .. NW-1 (K3: NW = 1).  The rings between the warps
 // are checked against the card's barriers, which follow every block step K
@@ -220,7 +292,9 @@ struct TwinWarp {
 template <int MODE, int R, bool TB, typename CODE>
 struct TwinBlock {
   static constexpr int SLOTS = sw::RING / sw::WARP;  // tiles a ring
-  std::vector<TwinWarp<MODE, R, TB, CODE>> warps;
+  using Warp = TwinWarp<MODE, R, TB ? sw::TB_SKEW : sw::TB_NONE, false,
+                        CODE>;
+  std::vector<Warp> warps;
   std::vector<float> rings;
   // per ring slot: the tile in it, the block step of its last store and of
   // its fetch (-1: not fetched yet)
@@ -235,7 +309,7 @@ struct TwinBlock {
     tile.assign((NW - 1) * SLOTS, -1);
     put_at = got_at = tile;
     for (int w = 0; w < NW; ++w) {
-      TwinWarp<MODE, R, TB, CODE> t;
+      Warp t;
       t.p = p;
       t.io = io;
       t.io.r0 = w * sw::WARP * R;
@@ -437,6 +511,34 @@ int dispatch(int mode, int r, const F& f) {
 #undef SW_R
   return 1;
 }
+
+template <typename CODE>
+struct FillRun {
+  const float* table;
+  int K;
+  const CODE *codes1, *codes2;
+  const int64_t* desc;
+  int64_t B;
+  int traceback;
+  uint8_t *tb, *runs;
+  float *carry, *stats;
+  float og, eg;
+  int NW;
+  template <int MODE, int R>
+  int run() const {
+    if (runs)
+      return fill_all<MODE, R, true, true>(table, K, codes1, codes2, desc, B,
+                                           tb, runs, carry, stats, og, eg,
+                                           NW);
+    if (traceback)
+      return fill_all<MODE, R, true, false>(table, K, codes1, codes2, desc,
+                                            B, tb, nullptr, carry, stats, og,
+                                            eg, NW);
+    return fill_all<MODE, R, false, false>(table, K, codes1, codes2, desc, B,
+                                           nullptr, nullptr, carry, stats, og,
+                                           eg, NW);
+  }
+};
 
 template <typename CODE>
 struct CkptRun {
@@ -641,45 +743,24 @@ void striped_grid_all(bool s_int8, const void* S, int64_t B, int64_t NP,
 extern "C" {
 
 // Same arguments and layout as sw_fill_launch (fill.cu), host pointers,
-// no stream.  Returns 0, or 1 for an unknown mode or code width.
-int sw_twin_fill(int mode, int traceback, const float* table, int K,
-                 int code_bytes, const void* codes1, const void* codes2,
-                 const int64_t* desc, int64_t B, uint8_t* tb, float* carry,
-                 float* stats, float og, float eg) {
-  if (mode != sw::LOCAL && mode != sw::GLOCAL && mode != sw::GLOBAL) return 1;
-  return with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
-    if (mode == sw::LOCAL)
-      fill_mode<sw::LOCAL>(traceback, table, K, c1, c2, desc, B, tb, carry,
-                           stats, og, eg);
-    else if (mode == sw::GLOCAL)
-      fill_mode<sw::GLOCAL>(traceback, table, K, c1, c2, desc, B, tb, carry,
-                            stats, og, eg);
-    else
-      fill_mode<sw::GLOBAL>(traceback, table, K, c1, c2, desc, B, tb, carry,
-                            stats, og, eg);
-  });
-}
-
-// Same arguments and layout as sw_fill_launch (fill.cu) with a run pool
-// (K10), host pointers, no stream.  Returns 0, or 1 for an unknown mode or
-// code width.
-int sw_twin_fill_runs(int mode, const float* table, int K, int code_bytes,
-                      const void* codes1, const void* codes2,
-                      const int64_t* desc, int64_t B, uint8_t* tb,
-                      uint8_t* run, float* carry, float* stats, float og,
-                      float eg) {
-  if (mode != sw::LOCAL && mode != sw::GLOCAL && mode != sw::GLOBAL) return 1;
-  return with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
-    if (mode == sw::LOCAL)
-      fill_runs_all<sw::LOCAL>(table, K, c1, c2, desc, B, tb, run, carry,
-                               stats, og, eg);
-    else if (mode == sw::GLOCAL)
-      fill_runs_all<sw::GLOCAL>(table, K, c1, c2, desc, B, tb, run, carry,
-                                stats, og, eg);
-    else
-      fill_runs_all<sw::GLOBAL>(table, K, c1, c2, desc, B, tb, run, carry,
-                                stats, og, eg);
-  });
+// pairs 0 .. B-1 in order, NW warps a pair, no stream.  Returns 0, 1 for
+// an unknown mode, R or code width, or 3 if a seed row access between a
+// pair's warps is not ordered by the card's barriers.
+int sw_twin_fill(int mode, int traceback, int R, int NW, const float* table,
+                 int K, int code_bytes, const void* codes1,
+                 const void* codes2, const int64_t* desc, int64_t B,
+                 uint8_t* tb, uint8_t* run, float* carry, float* stats,
+                 float og, float eg) {
+  if ((run && !traceback) || NW < 1) return 1;
+  int rc = 1;
+  if (with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
+        using CODE = std::remove_const_t<std::remove_pointer_t<decltype(c1)>>;
+        rc = dispatch(mode, R,
+                      FillRun<CODE>{table, K, c1, c2, desc, B, traceback, tb,
+                                    run, carry, stats, og, eg, NW});
+      }))
+    return 1;
+  return rc;
 }
 
 // Same arguments and layout as sw_diag_fill_launch (diag_fill.cu), host

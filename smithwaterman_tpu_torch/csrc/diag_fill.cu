@@ -12,12 +12,11 @@
 // shared-memory score lookup.  Bytes are negligible: the codes once, a
 // stats row, and an edge scratch of 8 bytes a row per strip (L1/L2).
 //
-// What the design does about it: unlike K1's one thread per pair, the 32
-// lanes of a warp work on 32 cells of one pair at each step, so a flush of
-// a few thousand pairs fills the card with warps (3200 pairs: 3200 warps
-// against K1's 100).  This is exact where K1's fill would not be: the
-// score-only LOCAL fill keeps no pointer and no argmax, only a maximum,
-// which is the same in any order.  The one-lane shift of the JAX kernel is
+// What the design does about it: the 32 lanes of a warp work on 32 cells
+// of one pair at each step, so a flush of a few thousand pairs fills the
+// card with warps (3200 pairs: 3200 warps).  The score-only LOCAL fill
+// keeps no pointer and no argmax, only a maximum, which is the same in any
+// order.  The one-lane shift of the JAX kernel is
 // __shfl_up_sync; lane 0 takes the previous strip's last column from a
 // per-pair scratch (row r's W and fx at 8 bytes), written by lane 31 and
 // read back by lane 0 in the next strip.  The codes of seq1 and the edge

@@ -53,29 +53,10 @@
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ sw::Cell shfl_cell(sw::Cell v, int src) {
-  return {__shfl_sync(kFull, v.m, src), __shfl_sync(kFull, v.x, src),
-          __shfl_sync(kFull, v.y, src)};
-}
-
-__device__ __forceinline__ sw::Cell shfl_up_cell(sw::Cell v) {
-  return {__shfl_up_sync(kFull, v.m, 1), __shfl_up_sync(kFull, v.x, 1),
-          __shfl_up_sync(kFull, v.y, 1)};
-}
-
-__device__ __forceinline__ sw::Best shfl_xor_best(sw::Best b, int o) {
-  return {__shfl_xor_sync(kFull, b.v, o), __shfl_xor_sync(kFull, b.i, o),
-          __shfl_xor_sync(kFull, b.j, o)};
-}
-
-// Every lane's best merged, in every lane.
-__device__ __forceinline__ sw::Best warp_best(sw::Best b) {
-  for (int o = sw::WARP / 2; o > 0; o /= 2)
-    b = sw::better(b, shfl_xor_best(b, o));
-  return b;
-}
+constexpr unsigned kFull = sw::FULL;
+using sw::shfl_cell;
+using sw::shfl_up_cell;
+using sw::warp_best;
 
 // Waits until seed tile T of the warp may be read.
 template <typename CODE>
@@ -117,7 +98,8 @@ __device__ sw::Best run_band(int l, int w, int NW, const sw::BandIO<CODE>& io,
         code = c0;
       }
       L.code = code;
-      sw::lane_step<MODE, R, TB>(l, k, &L, u, io, p);
+      sw::lane_step<MODE, R, TB ? sw::TB_SKEW : sw::TB_NONE>(l, k, &L, u,
+                                                           io, p);
       if (TB) {
         sw::ring_put<R>(l, k, L, io);
       } else if (io.out_m) {

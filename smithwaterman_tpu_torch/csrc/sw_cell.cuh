@@ -1,12 +1,14 @@
 // Per-cell rules of the three-state affine DP fill, written once.
 //
-// nvcc compiles this header into the fill kernel (fill.cu); g++ compiles
-// it into the host twin (cell_twin.cpp), which the tier-1 tests hold
-// against the JAX package's exact oracle (smithwaterman_tpu/ops/scan_dp.py).
-// So the tie-break cascades checked on a CPU are the ones the card runs.
+// nvcc compiles this header into the fill kernels (fill.cu,
+// longseq_fill.cu, through sw_band.cuh); g++ compiles it into the host twin
+// (cell_twin.cpp), which the tier-1 tests hold against the JAX package's
+// exact oracle (smithwaterman_tpu/ops/scan_dp.py).  So the tie-break
+// cascades checked on a CPU are the ones the card runs.
 //
-// Semantics are scan_dp.fill's (bit-exact, tie-breaks included), run as
-// the reference's sequential recurrence: row by row, column by column.
+// Semantics are scan_dp.fill's (bit-exact, tie-breaks included): every
+// cell gets the inputs of the reference's sequential recurrence (row by
+// row, column by column), whatever order the kernels visit cells in.
 //   * M from (i-1, j-1): max(M, X, Y) + s, ties M >= X >= Y.
 //   * Y (gap in seq2) from (i-1, j); X (gap in seq1) from (i, j-1).
 //     LOCAL breaks the extend-vs-open ties with strict `>` for the extend,
@@ -198,101 +200,6 @@ SW_HD uint32_t run_byte(uint32_t pm, uint32_t rdiag) {
   const uint32_t ecap = xd == STOP ? 14u : 15u;
   if (!diag_stop && ed < ecap) return (ed + 1u) | (xd << 4);
   return (diag_stop ? STOP : MATCH) << 4;
-}
-
-// Fill one pair, row by row, in the kernel's loop order.
-//   tab:   (K, K) substitution table (shared memory on the card for
-//          K <= SMEM_K, else device memory)
-//   c1/c2: the pair's codes (n and m of them), CODE uint8_t or, for
-//          tables past 255 symbols, int16_t
-//   tb:    pointer byte of cell (i, j) at tb[(i-1)*tb_rs + (j-1)*tb_cs]
-//          (only when TB; only cells i <= n, j <= m are written)
-//   run:   with RUNS (which needs TB), the run byte of cell (i, j)
-//          (run_byte) at the same offset as its pointer byte; the byte of
-//          the row above is read back from there, one row late
-//   carry: the previous row's (M, X, Y) at column j at
-//          carry[(j-1)*carry_cs + {0,1,2}] (scratch, m entries)
-//   stats: STATS_W floats.  LOCAL: [best, best_i, best_j] (best_i/best_j
-//          only with TB, as in the Pallas contract), the first maximum of
-//          M in i-major, j-minor order under a strict `>`.  Otherwise the
-//          final cell's (M, X, Y) in slots 3-5.
-template <int MODE, bool TB, bool RUNS = false, typename CODE = uint8_t>
-SW_HD void fill_pair(const float* tab, int K, const CODE* c1,
-                     const CODE* c2, int n, int m, uint8_t* tb,
-                     int64_t tb_rs, int64_t tb_cs, float* carry,
-                     int64_t carry_cs, float og, float eg, float* stats,
-                     uint8_t* run = nullptr) {
-  static_assert(TB || !RUNS, "run bytes come from the pointer bytes");
-  const float so = MODE == GLOBAL ? og : 0.0f;
-  const float se = MODE == GLOBAL ? eg : 0.0f;
-  const float sent = 10.0f * og + 10.0f * eg;
-
-  // boundary row i == 0, j = 1..m
-  for (int j = 1; j <= m; ++j) {
-    const Cell b = row0_cell(j, so, se, sent);
-    float* cj = carry + (int64_t)(j - 1) * carry_cs;
-    cj[0] = b.m;
-    cj[1] = b.x;
-    cj[2] = b.y;
-  }
-
-  float best = NEG;
-  int best_i = 0, best_j = 0;
-  Cell fin = {0.0f, 0.0f, 0.0f};
-  for (int i = 1; i <= n; ++i) {
-    Cell left = col0_cell(i, so, se, sent);      // (i, 0)
-    Cell diag = col0_cell(i - 1, so, se, sent);  // (i-1, 0)
-    const bool last_row = MODE != LOCAL && i == n;
-    const float po = last_row ? so : og;
-    const float pe = last_row ? se : eg;
-    const float* trow = tab + (int64_t)c1[i - 1] * K;
-    uint8_t* tbrow = TB ? tb + (int64_t)(i - 1) * tb_rs : nullptr;
-    uint8_t* runrow = RUNS ? run + (int64_t)(i - 1) * tb_rs : nullptr;
-    const uint8_t* runup = RUNS && i > 1 ? runrow - tb_rs : nullptr;
-    uint32_t rdiag = RUN_EDGE;  // column 0
-    float* cj = carry;
-    for (int j = 1; j <= m; ++j, cj += carry_cs) {
-      const Cell up = {cj[0], cj[1], cj[2]};
-      const float s = trow[c2[j - 1]];
-      const bool last_col = MODE != LOCAL && j == m;
-      const float qo = last_col ? so : og;
-      const float qe = last_col ? se : eg;
-      Cell v;
-      const uint32_t p = cell<MODE>(s, diag, up, left, og, eg, po, pe, qo,
-                                    qe, &v);
-      cj[0] = v.m;
-      cj[1] = v.x;
-      cj[2] = v.y;
-      if (TB) tbrow[(int64_t)(j - 1) * tb_cs] = (uint8_t)p;
-      if (RUNS) {
-        const int64_t at = (int64_t)(j - 1) * tb_cs;
-        const uint32_t rup = i > 1 ? runup[at] : RUN_EDGE;  // row 0
-        runrow[at] = (uint8_t)run_byte(p & 3u, rdiag);
-        rdiag = rup;
-      }
-      if (MODE == LOCAL && v.m > best) {
-        best = v.m;
-        best_i = i;
-        best_j = j;
-      }
-      diag = up;
-      left = v;
-    }
-    if (last_row) fin = left;
-  }
-
-  for (int k = 0; k < STATS_W; ++k) stats[k] = 0.0f;
-  if (MODE == LOCAL) {
-    stats[0] = best;
-    if (TB) {
-      stats[1] = (float)best_i;
-      stats[2] = (float)best_j;
-    }
-  } else {
-    stats[3] = fin.m;
-    stats[4] = fin.x;
-    stats[5] = fin.y;
-  }
 }
 
 }  // namespace sw

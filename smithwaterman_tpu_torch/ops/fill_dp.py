@@ -5,12 +5,14 @@ body ``_kernel``) with the dense score precompute of ``ops/batch.py``.
 
 One call fills every chunk of a flush (:func:`fill_many`).  Its outputs:
 
-* ``tb``: one flat uint8 pool holding each chunk's pointer bytes as a
-  ``(NP, MP, B)`` array (pairs innermost, so a warp's stores to one cell
-  coalesce); the byte of DP cell ``(i, j)``, ``1 <= i <= n``,
-  ``1 <= j <= m``, holds the predecessor state of M in bits 0-1, of X in
-  bits 2-3 and of Y in bits 4-5 (``CELL_STOP`` = 3 at LOCAL zeros).
-  Only each pair's ``[:n, :m]`` bytes are defined.
+* ``tb``: one flat uint8 pool holding each pair's pointer bytes together,
+  row-major: a chunk is a ``(B, NP, RS)`` array, ``RS`` = MP rounded up to
+  a multiple of 4 (:func:`row_stride`), so K1's lanes store four columns
+  a word (:meth:`Filled.tb_view` shows it as ``(NP, MP, B)``); the byte of
+  DP cell ``(i, j)``, ``1 <= i <= n``, ``1 <= j <= m``, holds the
+  predecessor state of M in bits 0-1, of X in bits 2-3 and of Y in bits
+  4-5 (``CELL_STOP`` = 3 at LOCAL zeros).  Only each pair's ``[:n, :m]``
+  bytes are defined.
 * ``stats`` (B, 8) f32, the Pallas contract (``pallas_dp.py:105``):
   LOCAL ``[best, best_i, best_j, 0, ...]`` with the first maximum in
   i-major, j-minor order (best_i, best_j zero for score-only fills);
@@ -23,7 +25,10 @@ One call fills every chunk of a flush (:func:`fill_many`).  Its outputs:
   4-5, ``(15, STOP)`` reserved for LOCAL zero cells.  Defined, as ``tb``,
   for each pair's ``[:n, :m]``.
 
-On CUDA tensors :func:`fill_many` launches K1 (``csrc/fill.cu``) once, or
+On CUDA tensors :func:`fill_many` launches K1 (``csrc/fill.cu``, a warp a
+pair, or a block of warps a pair when the pairs are few) once for each
+stripe depth its chunks take (:func:`stripe_rows`: from their rows, the
+pairs of the fill and the pools written; :func:`launch_plan`), or
 K10 (the same kernel writing run bytes too) with ``runs=True``; on CPU
 tensors it runs :func:`fill_ref`, the plain version built on the exact
 oracle ``ops/scan_dp.py``, and :func:`run_bytes_ref`.  There is no other
@@ -52,6 +57,52 @@ LAUNCHES = 0
 LAUNCHES_RUNS = 0
 # a run byte: (e, exit state); row 0 and column 0 read (15, M)
 RUN_EDGE = 15
+# K1's rows a lane (csrc/fill.cu template instantiations), deepest first
+STRIPE_R = (8, 4, 2, 1)
+WARP = 32
+# A K1 warp keeps one 128-byte line a row of its stripe, in each byte pool
+# it writes, half written until its lanes have passed the line's 128
+# columns; lines a launch holds past the L2 cache are written back and
+# fetched again half filled.  The lines in flight a launch is given:
+L2_LINE = 128
+L2_INFLIGHT = 32 << 20
+# warps an SM keeps resident at 128 registers a thread (K1 takes 69 to 166
+# by R and outputs); launch_plan shares a card's out among a fill's pairs
+WARPS_AN_SM = 16
+
+
+def row_stride(MP: int) -> int:
+    """Bytes between a pair's pointer rows: MP rounded up to a multiple
+    of 4 (K1 stores four columns a word)."""
+    return -(-MP // 4) * 4
+
+
+def carry_floats(rs: int) -> int:
+    """K1's carry scratch of a pair with row stride ``rs``, in floats: two
+    seed rows, each M, X, Y and its run bytes (``csrc/sw_band.cuh``)."""
+    return 2 * (3 * rs + rs // 4)
+
+
+def stripe_rows(NP: int, pairs: int = 1, pools: int = 1) -> int:
+    """K1's rows a lane R for a chunk of NP rows in a launch of ``pairs``
+    pairs that writes ``pools`` byte pools (0 score-only, 1 pointer bytes,
+    2 with run bytes): the deepest stripe of 32 R rows that the chunk fills
+    and whose lines in flight, over the launch's pairs, fit L2_INFLIGHT
+    (R = 1 when none does).  A deep stripe runs a pair in fewer steps,
+    each repeating fewer 31-step ramps, which is what a few pairs need; a
+    shallow one idles fewer lanes and, for many pairs, keeps the pools'
+    partly written lines in L2."""
+    return next((R for R in STRIPE_R if WARP * R <= NP and
+                 pairs * WARP * R * L2_LINE * pools <= L2_INFLIGHT), 1)
+
+
+def pool_view(pool: torch.Tensor, lo: int, shape) -> torch.Tensor:
+    """A chunk of shape (B, NP, MP) at offset ``lo`` of a pool in K1's
+    layout, as an (NP, MP, B) view."""
+    B, NP, MP = shape
+    rs = row_stride(MP)
+    return pool[lo:lo + B * NP * rs].view(B, NP, rs)[:, :, :MP] \
+        .permute(1, 2, 0)
 
 
 @dataclass
@@ -68,44 +119,78 @@ class Filled:
     def tb_view(self, c: int, pool: Optional[torch.Tensor] = None):
         """Chunk ``c``'s pointers (or its bytes of ``pool``, a pool in the
         same layout such as ``run``) as a (NP, MP, B) view."""
-        B, NP, MP = self.shapes[c]
-        lo = self.tb_base[c]
-        pool = self.tb if pool is None else pool
-        return pool[lo:lo + NP * MP * B].view(NP, MP, B)
+        return pool_view(self.tb if pool is None else pool,
+                         self.tb_base[c], self.shapes[c])
 
 
 def layout(chunks: Sequence[batch.Chunk]):
     """Per-pair descriptors for the pairs of ``chunks``, in order.
 
     Returns ``(desc (B, 8) int64 numpy, tb_base, tb_bytes, carry_floats)``.
-    Pair k of a chunk of shape (B, NP, MP): codes at ``c1_base + k*NP`` /
-    ``c2_base + k*MP`` of the flat code buffers; cell (i, j) pointer at
-    ``tb_base + k + (i-1)*MP*B + (j-1)*B``; row carry (M, X, Y) of column
-    j at ``carry_base + 3k + (j-1)*3B`` floats."""
+    Pair k of a chunk of shape (B, NP, MP), ``rs = row_stride(MP)``: codes
+    at ``c1_base + k*NP`` / ``c2_base + k*MP`` of the flat code buffers;
+    cell (i, j) pointer at ``tb_base + k*NP*rs + (i-1)*rs + (j-1)``
+    (``D_CS`` = 1, ``D_RS`` = rs); K1's carry scratch (:func:`carry_floats`)
+    at ``carry_base + k*carry_floats(rs)`` floats."""
     rows = []
     tb_base = []
     c1 = c2 = tb = carry = 0
     for ch in chunks:
         B, NP, MP = ch.shape
+        rs = row_stride(MP)
+        cf = carry_floats(rs)
         k = np.arange(B, dtype=np.int64)
         d = np.empty((B, DESC_W), np.int64)
         d[:, D_OFF1] = c1 + k * NP
         d[:, D_OFF2] = c2 + k * MP
         d[:, D_N] = ch.n
         d[:, D_M] = ch.m
-        d[:, D_TB] = tb + k
-        d[:, D_CS] = B
-        d[:, D_RS] = MP * B
-        d[:, D_CARRY] = carry + 3 * k
+        d[:, D_TB] = tb + k * NP * rs
+        d[:, D_CS] = 1
+        d[:, D_RS] = rs
+        d[:, D_CARRY] = carry + k * cf
         rows.append(d)
         tb_base.append(tb)
         c1 += B * NP
         c2 += B * MP
-        tb += NP * MP * B
-        carry += 3 * MP * B
+        tb += B * NP * rs
+        carry += B * cf
     desc = (np.concatenate(rows) if rows
             else np.zeros((0, DESC_W), np.int64))
     return desc, tb_base, tb, carry
+
+
+def launch_plan(chunks: Sequence[batch.Chunk], pools: int = 1,
+                sms: int = 0):
+    """K1's launches over ``chunks`` writing ``pools`` byte pools (see
+    :func:`stripe_rows`) on a card of ``sms`` SMs: ``[(R, NW, order)]``,
+    one for each R that :func:`stripe_rows` gives a chunk.  ``order`` is
+    the int32 rows of ``layout(chunks)``'s descriptors it fills, the
+    costliest pairs first (stripes times columns plus the ramp) so that the
+    last blocks to start are short.  ``NW`` is the warps a pair: one while
+    the fill's pairs fill the card's resident warps, else up to a warp a
+    stripe (with ``sms`` 0, one)."""
+    groups = {}
+    lo = 0
+    pairs = sum(ch.shape[0] for ch in chunks)
+    spare = max(1, WARPS_AN_SM * sms // max(pairs, 1))
+    for ch in chunks:
+        B, NP, _ = ch.shape
+        R = stripe_rows(NP, pairs, pools)
+        stripes = -(-ch.n.astype(np.int64) // (WARP * R))
+        cost = stripes * (ch.m.astype(np.int64) + WARP - 1)
+        g = groups.setdefault(R, ([], [], []))
+        g[0].append(np.arange(lo, lo + B, dtype=np.int32))
+        g[1].append(cost)
+        g[2].append(stripes)
+        lo += B
+    plan = []
+    for R in STRIPE_R:
+        if R in groups:
+            rows, cost, stripes = (np.concatenate(a) for a in groups[R])
+            NW = int(min(spare, stripes.max(), 32))
+            plan.append((R, NW, rows[np.argsort(-cost, kind="stable")]))
+    return plan
 
 
 def fill_ref(table: torch.Tensor, codes1: torch.Tensor, codes2: torch.Tensor,
@@ -231,10 +316,10 @@ def fill_many(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
     """Fill every chunk of a flush on ``table``'s device; with ``runs``
     the match-run bytes too (``Filled.run``).
 
-    CUDA: one launch of K1 (K10 with ``runs``) over all pairs (codes
-    uploaded as two flat buffers, the per-pair descriptors as one (B, 8)
-    array).  CPU: the plain version, :func:`fill_many_ref`.  Any other
-    device raises."""
+    CUDA: one launch of K1 (K10 with ``runs``) for each stripe depth
+    (:func:`device_plan`, :func:`launch`; codes uploaded as two flat
+    buffers, the per-pair descriptors as one (B, 8) array).  CPU: the plain
+    version, :func:`fill_many_ref`.  Any other device raises."""
     global LAUNCHES, LAUNCHES_RUNS
     dev = table.device
     if dev.type == "cpu":
@@ -242,8 +327,6 @@ def fill_many(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
                              score_only=score_only, runs=runs)
     if dev.type != "cuda":
         raise ValueError(f"no fill for device {dev}")
-    from . import kernels
-
     out, carry_floats = _alloc(chunks, table, score_only, runs)
     if out.desc.shape[0] == 0:
         return out
@@ -252,11 +335,41 @@ def fill_many(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
     codes2 = torch.from_numpy(np.concatenate(
         [ch.codes2.ravel() for ch in chunks])).to(dev)
     carry = torch.empty(carry_floats, dtype=torch.float32, device=dev)
-    kernels.fill(table.to(torch.float32).contiguous(), codes1, codes2,
-                 out.desc, out.tb, carry, out.stats, mode=mode,
-                 traceback=not score_only, og=og, eg=eg, run=out.run)
+    plan = device_plan(chunks, 0 if score_only else 2 if runs else 1, dev)
+    launch(plan, table.to(torch.float32).contiguous(), codes1, codes2,
+           out.desc, out.tb, carry, out.stats, mode=mode,
+           traceback=not score_only, og=og, eg=eg, run=out.run)
     if runs:
-        LAUNCHES_RUNS += 1
+        LAUNCHES_RUNS += len(plan)
     else:
-        LAUNCHES += 1
+        LAUNCHES += len(plan)
     return out
+
+
+def device_plan(chunks: Sequence[batch.Chunk], pools: int,
+                device: torch.device):
+    """:func:`launch_plan` for the card ``device``, each launch's descriptor
+    rows uploaded there (one copy): ``[(R, NW, order int32 tensor)]``."""
+    plan = launch_plan(chunks, pools, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    order = torch.from_numpy(np.concatenate([o for *_, o in plan])).to(
+        device)
+    out, lo = [], 0
+    for R, NW, rows in plan:
+        out.append((R, NW, order[lo:lo + len(rows)]))
+        lo += len(rows)
+    return out
+
+
+def launch(plan, table, codes1, codes2, desc, tb, carry, stats, *,
+           mode: int, traceback: bool, og: float, eg: float,
+           run=None) -> None:
+    """Launch K1 (K10 with a ``run`` pool) on the current stream once for
+    each ``(R, NW, order)`` of ``plan`` (:func:`device_plan`), given the
+    pairs' buffers in :func:`layout`'s layout on the card."""
+    from . import kernels
+
+    for R, NW, order in plan:
+        kernels.fill(table, codes1, codes2, desc, order, tb, carry, stats,
+                     mode=mode, traceback=traceback, og=og, eg=eg, rows=R,
+                     warps=NW, run=run)

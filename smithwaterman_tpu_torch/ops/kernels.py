@@ -103,7 +103,8 @@ def lib() -> ctypes.CDLL:
                          ctypes.c_float)
     so.sw_fill_launch.restype = i32
     so.sw_fill_launch.argtypes = [
-        i32, i32, vp, i32, i32, vp, vp, vp, i64, vp, vp, vp, vp, f32, f32, vp,
+        i32, i32, i32, i32, vp, i32, i32, vp, vp, vp, vp, i64, vp, vp, vp,
+        vp, f32, f32, vp,
     ]
     so.sw_walk_launch.restype = i32
     so.sw_walk_launch.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp, vp]
@@ -165,10 +166,14 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
-def fill(table, codes1, codes2, desc, tb, carry, stats, *, mode: int,
-         traceback: bool, og: float, eg: float, run=None) -> None:
-    """Launch K1 (csrc/fill.cu) on the current stream, or K10 when given a
-    ``run`` pool (tb's size; needs ``traceback``); see fill_dp."""
+def fill(table, codes1, codes2, desc, order, tb, carry, stats, *,
+         mode: int, traceback: bool, og: float, eg: float, rows: int,
+         warps: int = 1, run=None) -> None:
+    """Launch K1 (csrc/fill.cu) on the current stream over the pairs whose
+    descriptor rows ``order`` (int32) lists, ``rows`` (1, 2, 4 or 8) rows a
+    lane and ``warps`` warps a pair (capped by the kernel's registers), or
+    K10 when given a ``run`` pool (tb's size; needs ``traceback``); see
+    fill_dp.launch."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, got {dev}")
@@ -177,8 +182,16 @@ def fill(table, codes1, codes2, desc, tb, carry, stats, *, mode: int,
     _check(table, "table", torch.float32, dev)
     _check_codes(codes1, codes2, dev)
     _check(desc, "desc", torch.int64, dev, (B, 8))
+    _check(order, "order", torch.int32, dev)
     _check(carry, "carry", torch.float32, dev)
     _check(stats, "stats", torch.float32, dev, (B, 8))
+    if order.dim() != 1 or not 1 <= order.shape[0] <= B:
+        raise ValueError(f"order must list 1 to {B} descriptor rows, got "
+                         f"shape {tuple(order.shape)}")
+    if rows not in (1, 2, 4, 8):
+        raise ValueError(f"K1 runs 1, 2, 4 or 8 rows a lane, got {rows}")
+    if not 1 <= warps <= 32:
+        raise ValueError(f"K1 runs 1 to 32 warps a pair, got {warps}")
     if traceback:
         _check(tb, "tb", torch.uint8, dev)
     if run is not None:
@@ -188,9 +201,10 @@ def fill(table, codes1, codes2, desc, tb, carry, stats, *, mode: int,
     # a launch goes to the current device: make it the tensors' card
     with torch.cuda.device(dev):
         rc = lib().sw_fill_launch(
-            int(mode), 1 if traceback else 0, table.data_ptr(), K,
+            int(mode), 1 if traceback else 0, int(rows), int(warps),
+            table.data_ptr(), K,
             codes1.element_size(), codes1.data_ptr(), codes2.data_ptr(),
-            desc.data_ptr(), B,
+            desc.data_ptr(), order.data_ptr(), order.shape[0],
             tb.data_ptr() if traceback else None,
             None if run is None else run.data_ptr(), carry.data_ptr(),
             stats.data_ptr(), float(og), float(eg),

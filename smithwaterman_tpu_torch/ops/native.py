@@ -184,7 +184,8 @@ def twin_lib() -> ctypes.CDLL:
                          ctypes.c_float)
     lib.sw_twin_fill.restype = i32
     lib.sw_twin_fill.argtypes = [
-        i32, i32, vp, i32, i32, vp, vp, vp, i64, vp, vp, vp, f32, f32,
+        i32, i32, i32, i32, vp, i32, i32, vp, vp, vp, i64, vp, vp, vp, vp,
+        f32, f32,
     ]
     lib.sw_twin_walk.restype = i32
     lib.sw_twin_walk.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp]
@@ -207,10 +208,6 @@ def twin_lib() -> ctypes.CDLL:
     lib.sw_twin_banded_walk.restype = i32
     lib.sw_twin_banded_walk.argtypes = [
         i32, vp, vp, vp, vp, i64, i64, i32, i64, vp, vp, vp, vp,
-    ]
-    lib.sw_twin_fill_runs.restype = i32
-    lib.sw_twin_fill_runs.argtypes = [
-        i32, vp, i32, i32, vp, vp, vp, i64, vp, vp, vp, vp, f32, f32,
     ]
     lib.sw_twin_diag_fill.restype = i32
     lib.sw_twin_diag_fill.argtypes = [

@@ -4,9 +4,10 @@ Three implementations of the port are held against the JAX oracle
 ``smithwaterman_tpu.ops.batch.fill_scan`` (vmapped ``scan_dp.fill``) on the
 same seeded numpy inputs: the torch oracle ``ops/scan_dp.fill``, the plain
 fill ``ops/fill_dp.fill_many_ref`` (kernel K1's plain version), and the
-host twin of K1 (``csrc/cell_twin.cpp``, which runs the kernel's own cell
-header ``csrc/sw_cell.cuh``).  One small case also goes against the Pallas
-kernel in interpret mode.
+host twin of K1 (``csrc/cell_twin.cpp``, which runs the kernel's own lane
+functions ``csrc/sw_band.cuh`` and cell rules ``csrc/sw_cell.cuh`` for
+every lane of the warp, at each stripe depth R).  One small case also
+goes against the Pallas kernel in interpret mode.
 
 Tolerance: exact equality of every pointer byte in each pair's [:n, :m]
 and of every stats value.  Scores are quarter-integers, and "close" is a
@@ -73,8 +74,36 @@ def _assert_tb_equal(ours_nmb, ref_tb, ch, what):
             err_msg=f"{what}: pair {b} pointers")
 
 
-def _twin(table, chunks, mode, og, eg, score_only):
-    """Run K1's host twin over chunks in the kernel's layout."""
+def _stripe_chunk(R, seed=0, K=24):
+    """Pairs that end on either side of K1's lane and stripe boundaries at
+    R rows a lane (stripes of 32 R rows): n in {1, 31, 32, 33, 32R - 1,
+    32R + 1, 64R + 1} by m in {1, 5, 31, 33}; one pair whose maximum ties
+    in every row from 5 on (a run of W against WWWWW), one whose motif
+    lies in seq1 four times, on different lanes and stripes, and one of
+    200 columns (warps that take a second stripe wait more than LAG)."""
+    C = 32 * R
+    ns = sorted({1, 31, 32, 33, C - 1, C + 1, 2 * C + 1})
+    lens = [(n, m) for n in ns for m in (1, 5, 31, 33)] + [(2 * C + 1, 200)]
+    NP, MP = max(ns), 200
+    B = len(lens) + 2
+    rng = np.random.default_rng(seed + R)
+    c1 = rng.integers(0, K, size=(B, NP)).astype(np.uint8)
+    c2 = rng.integers(0, K, size=(B, MP)).astype(np.uint8)
+    n = np.array([a for a, _ in lens] + [NP, NP], np.int32)
+    m = np.array([b for _, b in lens] + [5, 8], np.int32)
+    c1[-2] = 17                 # W
+    c2[-2, :5] = 17
+    motif = rng.integers(0, 20, size=8).astype(np.uint8)
+    c2[-1, :8] = motif
+    for at in (3, C // 2 + 1, C + 5, NP - 9):
+        c1[-1, at:at + 8] = motif
+    return batch.Chunk(c1, c2, n, m)
+
+
+def _twin(table, chunks, mode, og, eg, score_only, R=None, NW=1):
+    """Run K1's host twin over chunks in the kernel's layout, NW warps a
+    pair: at R rows a lane, or (R None) each chunk at the R its launch
+    takes."""
     lib = native.twin_lib()
     desc, tb_base, tb_bytes, carry_floats = fill_dp.layout(chunks)
     B = desc.shape[0]
@@ -84,15 +113,22 @@ def _twin(table, chunks, mode, og, eg, score_only):
     carry = np.zeros(carry_floats, np.float32)
     stats = np.zeros((B, 8), np.float32)
     tab = np.ascontiguousarray(table, np.float32)
-    rc = lib.sw_twin_fill(
-        mode, 0 if score_only else 1, tab.ctypes.data, tab.shape[0],
-        c1.itemsize, c1.ctypes.data, c2.ctypes.data, desc.ctypes.data, B, tb.ctypes.data,
-        carry.ctypes.data, stats.ctypes.data, og, eg)
-    assert rc == 0
-    views = []
-    for ch, base in zip(chunks, tb_base):
-        Bc, NP, MP = ch.shape
-        views.append(tb[base:base + NP * MP * Bc].reshape(NP, MP, Bc))
+    plan = ([(R, NW, np.arange(B, dtype=np.int32))] if R is not None
+            else fill_dp.launch_plan(chunks))
+    for r, nw, rows in plan:
+        d = np.ascontiguousarray(desc[rows])
+        st = np.zeros((len(rows), 8), np.float32)
+        rc = lib.sw_twin_fill(
+            mode, 0 if score_only else 1, r, nw, tab.ctypes.data,
+            tab.shape[0],
+            c1.itemsize, c1.ctypes.data, c2.ctypes.data, d.ctypes.data,
+            len(rows), tb.ctypes.data, None, carry.ctypes.data,
+            st.ctypes.data, og, eg)
+        assert rc == 0
+        stats[rows] = st
+    pool = torch.from_numpy(tb)
+    views = [fill_dp.pool_view(pool, base, ch.shape).numpy()
+             for ch, base in zip(chunks, tb_base)]
     return views, stats
 
 
@@ -145,28 +181,35 @@ def test_fill_ref_matches_jax(mode, score_only):
             lo += B
 
 
+@pytest.mark.parametrize("R", fill_dp.STRIPE_R)
 @pytest.mark.parametrize("score_only", [False, True])
 @pytest.mark.parametrize("mode", MODES)
-def test_cell_twin_matches_jax(mode, score_only):
-    """The kernel's own cell header (through the g++ twin), in the
-    kernel's loop order and layout, under every penalty set and for a
-    non-integer table."""
+def test_cell_twin_matches_jax(mode, score_only, R):
+    """The kernel's own lane functions (through the g++ twin: every lane of
+    the warp at every step), in the kernel's layout, at R rows a lane and
+    1, 2 or 3 warps a pair (the seed rows between warps checked against
+    the card's barriers), under every penalty set and for a non-integer
+    table; pairs across the lane and stripe boundaries, with tied
+    maxima."""
     blosum = JaxSM.blosum62().table
-    chunks = [_batch(21), _batch(22, B=5, NP=40, MP=8)]
+    chunks = [_batch(21), _batch(22, B=5, NP=40, MP=8), _stripe_chunk(R)]
     for table in (blosum, blosum * np.float32(0.5)):
         for og, eg in PENALTIES:
-            views, stats = _twin(table, chunks, mode, og, eg, score_only)
-            lo = 0
-            for c, ch in enumerate(chunks):
-                ref = _jax_ref(table, ch, mode, og, eg, score_only)
-                B = ch.shape[0]
-                np.testing.assert_array_equal(
-                    stats[lo:lo + B], _jax_stats(ref, mode, score_only),
-                    err_msg=f"stats og={og} eg={eg}")
-                if not score_only:
-                    _assert_tb_equal(views[c], ref.tb, ch,
-                                     f"twin og={og} eg={eg}")
-                lo += B
+            refs = [_jax_ref(table, ch, mode, og, eg, score_only)
+                    for ch in chunks]
+            for NW in (1, 2, 3):
+                views, stats = _twin(table, chunks, mode, og, eg,
+                                     score_only, R, NW)
+                lo = 0
+                for c, (ch, ref) in enumerate(zip(chunks, refs)):
+                    B = ch.shape[0]
+                    np.testing.assert_array_equal(
+                        stats[lo:lo + B], _jax_stats(ref, mode, score_only),
+                        err_msg=f"stats og={og} eg={eg} NW={NW}")
+                    if not score_only:
+                        _assert_tb_equal(views[c], ref.tb, ch,
+                                         f"twin og={og} eg={eg} NW={NW}")
+                    lo += B
 
 
 @pytest.mark.parametrize("mode", MODES)

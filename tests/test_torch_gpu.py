@@ -27,23 +27,46 @@ def cuda():
 
 
 def _chunks(seed):
+    """Ragged chunks at every R K1 takes (fill_dp.stripe_rows: 4, 2, 8, 1)."""
     rng = np.random.default_rng(seed)
     out = []
-    for B, NP, MP in ((37, 128, 256), (5, 64, 64)):
+    for B, NP, MP in ((37, 128, 256), (5, 64, 64), (6, 300, 100),
+                      (9, 40, 48)):
         c1 = rng.integers(0, 20, size=(B, NP)).astype(np.uint8)
         c2 = rng.integers(0, 20, size=(B, MP)).astype(np.uint8)
         n = rng.integers(1, NP + 1, size=B).astype(np.int32)
         m = rng.integers(1, MP + 1, size=B).astype(np.int32)
         n[0], m[0] = 1, MP
-        c2[1, :40] = c1[1, 10:50]
+        k = min(40, NP - 10)
+        c2[1, :k] = c1[1, 10:10 + k]
         out.append(batch.Chunk(c1, c2, n, m))
     return out
 
 
+def _batch(seed, which):
+    """The ragged chunks, one pair of 1000 x 900, or 16 pairs of 300 to
+    1100 residues a side: few pairs, few warps."""
+    if which == "ragged":
+        return _chunks(seed)
+    rng = np.random.default_rng(seed)
+    B, NP, MP = (1, 1024, 1024) if which == "one" else (16, 1152, 1152)
+    c1 = rng.integers(0, 20, size=(B, NP)).astype(np.uint8)
+    c2 = rng.integers(0, 20, size=(B, MP)).astype(np.uint8)
+    if B == 1:
+        n, m = np.array([1000], np.int32), np.array([900], np.int32)
+    else:
+        n = rng.integers(300, 1101, size=B).astype(np.int32)
+        m = rng.integers(300, 1101, size=B).astype(np.int32)
+    for b in range(B):
+        c2[b, 100:400] = c1[b, 200:500]
+    return [batch.Chunk(c1, c2, n, m)]
+
+
+@pytest.mark.parametrize("which", ["ragged", "one", "sixteen"])
 @pytest.mark.parametrize("score_only", [False, True])
 @pytest.mark.parametrize("mode", MODES)
-def test_fill_kernel_matches_plain(cuda, mode, score_only):
-    chunks = _chunks(mode)
+def test_fill_kernel_matches_plain(cuda, mode, score_only, which):
+    chunks = _batch(mode, which)
     tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
     for og, eg in ((-10.0, -0.5), (0.0, 0.0)):
         got = fill_dp.fill_many(tab, chunks, mode=mode, og=og, eg=eg,
@@ -59,6 +82,49 @@ def test_fill_kernel_matches_plain(cuda, mode, score_only):
                 n, m = int(ch.n[b]), int(ch.m[b])
                 assert torch.equal(got.tb_view(c)[:n, :m, b],
                                    ref.tb_view(c)[:n, :m, b])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_fill_kernel_takes_any_depth_and_warps(cuda, mode):
+    """K1 and K10 with every pair at each R and with 1, 2, 3, 8 and 32
+    warps a pair (a warp's stripes back to back, or overlapping, cycling
+    when the stripes outnumber the warps), on pairs of 1 to 23 stripes,
+    against the plain fill."""
+    rng = np.random.default_rng(40 + mode)
+    B, NP, MP = 6, 736, 320
+    c1 = rng.integers(0, 20, size=(B, NP)).astype(np.uint8)
+    c2 = rng.integers(0, 20, size=(B, MP)).astype(np.uint8)
+    n = np.array([736, 1, 257, 600, 33, 511], np.int32)
+    m = np.array([320, 17, 300, 1, 250, 319], np.int32)
+    c2[:, 50:250] = c1[:, 300:500]
+    chunks = [batch.Chunk(c1, c2, n, m)]
+    tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
+    args = dict(mode=mode, og=-10.0, eg=-0.5)
+    ref = fill_dp.fill_many_ref(tab, chunks, runs=True, **args)
+    codes1 = torch.from_numpy(c1.ravel()).to(cuda)
+    codes2 = torch.from_numpy(c2.ravel()).to(cuda)
+    order = torch.arange(B, dtype=torch.int32, device=cuda)
+    carry = torch.empty(fill_dp.layout(chunks)[3], dtype=torch.float32,
+                        device=cuda)
+    for R in fill_dp.STRIPE_R:
+        for NW in (1, 2, 3, 8, 32):
+            for runs in (False, True):
+                got = fill_dp.fill_many(tab, chunks, runs=runs, **args)
+                for out in (got.stats, got.tb, got.run):
+                    if out is not None:
+                        out.zero_()
+                fill_dp.launch([(R, NW, order)], tab, codes1, codes2,
+                               got.desc, got.tb, carry, got.stats,
+                               traceback=True, run=got.run, **args)
+                assert torch.equal(got.stats, ref.stats), (R, NW, runs)
+                for b in range(B):
+                    nb, mb = int(n[b]), int(m[b])
+                    assert torch.equal(got.tb_view(0)[:nb, :mb, b],
+                                       ref.tb_view(0)[:nb, :mb, b])
+                    if runs:
+                        assert torch.equal(
+                            got.tb_view(0, got.run)[:nb, :mb, b],
+                            ref.tb_view(0, ref.run)[:nb, :mb, b])
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -107,8 +173,9 @@ def _fenced(nbytes, dtype, dev, inner=CANARY):
 @pytest.mark.parametrize("mode", MODES)
 def test_kernels_write_only_their_outputs(cuda, mode, score_only):
     """K1 and K2 (traceback), K10 and K11 (traceback) and K9 (score-only
-    LOCAL) launched on outputs fenced by canary bytes: every canary stays
-    intact and the outputs equal the wrappers' on the same inputs."""
+    LOCAL) launched on outputs fenced by canary bytes, K1 and K10 at every
+    R (one launch each): every canary stays intact and the outputs equal
+    the wrappers' on the same inputs."""
     from smithwaterman_tpu_torch.ops import kernels
 
     chunks = _chunks(20 + mode)
@@ -127,8 +194,9 @@ def test_kernels_write_only_their_outputs(cuda, mode, score_only):
     arenas["carry"], carry = _fenced(4 * carry_floats, torch.float32, cuda)
     arenas["stats"], stats = _fenced(4 * 8 * B, torch.float32, cuda)
     stats = stats.view(B, 8)
-    kernels.fill(tab, codes1, codes2, want.desc, tb, carry, stats,
-                 traceback=not score_only, **args)
+    fill_dp.launch(fill_dp.device_plan(chunks, 0 if score_only else 1, cuda),
+                   tab, codes1, codes2, want.desc, tb, carry, stats,
+                   traceback=not score_only, **args)
     L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in want.shapes)
     if not score_only:
         L4 = -(-L // 4)
@@ -144,8 +212,9 @@ def test_kernels_write_only_their_outputs(cuda, mode, score_only):
                                              cuda)
         arenas["stats10"], stats10 = _fenced(4 * 8 * B, torch.float32, cuda)
         stats10 = stats10.view(B, 8)
-        kernels.fill(tab, codes1, codes2, want.desc, tb10, carry10, stats10,
-                     traceback=True, run=run, **args)
+        fill_dp.launch(fill_dp.device_plan(chunks, 2, cuda), tab, codes1,
+                       codes2, want.desc, tb10, carry10, stats10,
+                       traceback=True, run=run, **args)
         arenas["tcnt"], tcnt = _fenced(4 * B, torch.int32, cuda)
         arenas["toks"], toks = _fenced(L * B, torch.uint8, cuda, inner=0)
         toks = toks.view(L, B)
@@ -202,17 +271,21 @@ def _run_chunks(seed):
     return out
 
 
+@pytest.mark.parametrize("which", ["ragged", "one", "sixteen"])
 @pytest.mark.parametrize("mode", MODES)
-def test_run_fill_and_token_walk_match_plain(cuda, mode):
+def test_run_fill_and_token_walk_match_plain(cuda, mode, which):
     """K10 (pointer bytes, run bytes, stats) against its plain version and
-    K1, and K11 on K10's own pools against its plain version."""
-    chunks = _run_chunks(30 + mode)
+    K1, at every R, and K11 on K10's own pools against its plain
+    version."""
+    chunks = (_run_chunks(30 + mode) if which == "ragged"
+              else _batch(30 + mode, which))
     tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
     for og, eg in ((-10.0, -0.5), (0.0, 0.0)):
         args = dict(mode=mode, og=og, eg=eg)
         before = fill_dp.LAUNCHES_RUNS
         got = fill_dp.fill_many(tab, chunks, runs=True, **args)
-        assert fill_dp.LAUNCHES_RUNS == before + 1
+        assert fill_dp.LAUNCHES_RUNS == before + len(
+            fill_dp.launch_plan(chunks, pools=2))
         ref = fill_dp.fill_many_ref(tab, chunks, runs=True, **args)
         k1 = fill_dp.fill_many(tab, chunks, **args)
         assert torch.equal(got.stats, ref.stats)
@@ -311,13 +384,15 @@ def test_fill_kernel_rejects_wide_table(cuda):
     _assert_tb_equal(got, ref, chunks)
 
 
-def _assert_tb_equal(got, ref, chunks):
-    """Two fills' pointer bytes inside every pair's [:n, :m]."""
+def _assert_tb_equal(got, ref, chunks, runs=False):
+    """Two fills' pointer bytes (run bytes with ``runs``) inside every
+    pair's [:n, :m]."""
     for c, ch in enumerate(chunks):
+        a = got.tb_view(c, got.run if runs else None)
+        r = ref.tb_view(c, ref.run if runs else None)
         for b in range(ch.shape[0]):
             n, m = int(ch.n[b]), int(ch.m[b])
-            assert torch.equal(got.tb_view(c)[:n, :m, b],
-                               ref.tb_view(c)[:n, :m, b]), (c, b)
+            assert torch.equal(a[:n, :m, b], r[:n, :m, b]), (c, b)
 
 
 def _wide(K, seed):
@@ -342,9 +417,9 @@ def _wide(K, seed):
 
 @pytest.mark.parametrize("K", [65, 300])
 def test_kernels_take_wide_tables(cuda, K):
-    """K1 (traceback and score-only), K3, K4 (every band in one launch),
-    K6 and K9 with a K-symbol table read from device memory, int16 codes
-    past 255 symbols: each equal to its plain version."""
+    """K1 (traceback and score-only) and K10, K3, K4 (every band in one
+    launch), K6 and K9 with a K-symbol table read from device memory, int16
+    codes past 255 symbols: each equal to its plain version."""
     from smithwaterman_tpu_torch.ops import banded
 
     table, chunks = _wide(K, K)
@@ -358,6 +433,13 @@ def test_kernels_take_wide_tables(cuda, K):
             assert torch.equal(got.stats, ref.stats), (mode, score_only)
             if not score_only:
                 _assert_tb_equal(got, ref, chunks)
+        got = fill_dp.fill_many(tab, chunks, mode=mode, og=-10.0, eg=-0.5,
+                                runs=True)
+        ref = fill_dp.fill_many_ref(tab, chunks, mode=mode, og=-10.0,
+                                    eg=-0.5, runs=True)
+        assert torch.equal(got.stats, ref.stats), mode
+        _assert_tb_equal(got, ref, chunks)
+        _assert_tb_equal(got, ref, chunks, runs=True)
     ch = chunks[0]
     c1, c2, n, m = _on(ch, cuda)
     B, NP, MP = ch.shape

@@ -16,6 +16,8 @@ Tolerance: exact equality of every run byte, token count and token byte,
 and of strings, scores and spans.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -74,7 +76,9 @@ def _run_chunk(seed, B, NP, MP):
     return batch.Chunk(c1, c2, n, m)
 
 
-def _twin_runs(table, chunks, mode, og, eg):
+def _twin_runs(table, chunks, mode, og, eg, R, NW=1):
+    """K10's host twin (K1's with a run pool) at R rows a lane, NW warps a
+    pair."""
     desc, tb_base, tb_bytes, carry_floats = fill_dp.layout(chunks)
     B = desc.shape[0]
     c1 = np.concatenate([ch.codes1.ravel() for ch in chunks])
@@ -84,39 +88,74 @@ def _twin_runs(table, chunks, mode, og, eg):
     carry = np.zeros(carry_floats, np.float32)
     stats = np.zeros((B, 8), np.float32)
     tab = np.ascontiguousarray(table, np.float32)
-    rc = native.twin_lib().sw_twin_fill_runs(
-        mode, tab.ctypes.data, tab.shape[0], c1.itemsize, c1.ctypes.data,
-        c2.ctypes.data,
-        desc.ctypes.data, B, tb.ctypes.data, run.ctypes.data,
-        carry.ctypes.data, stats.ctypes.data, og, eg)
+    rc = native.twin_lib().sw_twin_fill(
+        mode, 1, R, NW, tab.ctypes.data, tab.shape[0], c1.itemsize,
+        c1.ctypes.data, c2.ctypes.data, desc.ctypes.data, B, tb.ctypes.data,
+        run.ctypes.data, carry.ctypes.data, stats.ctypes.data, og, eg)
     assert rc == 0
     return fill_dp.Filled(torch.from_numpy(tb), torch.from_numpy(stats),
                           torch.from_numpy(desc), [ch.shape for ch in chunks],
                           tb_base, torch.from_numpy(run))
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_run_bytes_match_pallas(mode):
-    """B = 8, NP = 64, MP = 128: the plain and twin run bytes against the
-    Pallas kernel's and the scalar reference on every pair's [:n, :m]; the
-    pointer bytes and stats stay those of the fill without runs."""
+def _stripe_chunk(R, seed=0):
+    """Pairs that end on either side of K10's lane and stripe boundaries at
+    R rows a lane (n in {1, 31, 32, 33, 32R - 1, 32R + 1, 64R + 1}, m in
+    {1, 5, 31, 33}), half of them holding runs longer than 16 that cross
+    the boundaries, and one of a W run against WWWWW (tied maxima in every
+    row from 5 on)."""
+    C = 32 * R
+    ns = sorted({1, 31, 32, 33, C - 1, C + 1, 2 * C + 1})
+    lens = [(n, m) for n in ns for m in (1, 5, 31, 33)]
+    NP, MP = max(ns), 40
+    B = len(lens) + 1
+    rng = np.random.default_rng(seed + R)
+    c1 = rng.integers(0, 20, size=(B, NP)).astype(np.uint8)
+    c2 = rng.integers(0, 20, size=(B, MP)).astype(np.uint8)
+    n = np.array([a for a, _ in lens] + [NP], np.int32)
+    m = np.array([b for _, b in lens] + [5], np.int32)
+    for k in range(0, len(lens), 2):
+        at = max(0, int(n[k]) - 24)
+        w = min(MP, NP - at)
+        c2[k, :w] = c1[k, at:at + w]
+    c1[-1] = 17                 # W
+    c2[-1, :5] = 17
+    return batch.Chunk(c1, c2, n, m)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_runs(mode):
+    """_run_chunk(3 + mode, 8, 64, 128) and the Pallas kernel's run bytes
+    and stats of it (interpret mode)."""
     sm = JaxSM.blosum62()
     ch = _run_chunk(3 + mode, 8, 64, 128)
     S = jbatch.scores_tiled(sm.table, ch.codes1.astype(np.int32),
                             ch.codes2.astype(np.int32), as_int8=True, tile=8)
-    tb_j, run_j, st_j = pallas_dp.fill_tiled(
+    _, run_j, st_j = pallas_dp.fill_tiled(
         S, ch.n.reshape(1, 8, 1), ch.m.reshape(1, 8, 1), mode=mode,
         og=-10.0, eg=-0.5, interpret=True, emit_runs=True)
-    run_j = np.asarray(run_j)
+    return ch, np.asarray(run_j), np.asarray(st_j).reshape(-1, 8)
+
+
+@pytest.mark.parametrize("R", fill_dp.STRIPE_R)
+@pytest.mark.parametrize("mode", MODES)
+def test_run_bytes_match_pallas(mode, R):
+    """B = 8, NP = 64, MP = 128: the plain and twin (at R rows a lane) run
+    bytes against the Pallas kernel's and the scalar reference on every
+    pair's [:n, :m]; the pointer bytes and stats stay those of the fill
+    without runs.  Then pairs across the twin's lane and stripe boundaries,
+    at 1 and 3 warps a pair: pointer bytes and stats equal to the JAX
+    fill's, run bytes to the scalar reference's on them."""
+    sm = JaxSM.blosum62()
+    ch, run_j, st_j = _pallas_runs(mode)
     tab = torch.from_numpy(sm.table.astype(np.float32))
     plain = fill_dp.fill_many(tab, [ch], mode=mode, og=-10.0, eg=-0.5,
                               runs=True)
     moves_only = fill_dp.fill_many(tab, [ch], mode=mode, og=-10.0, eg=-0.5)
-    twin = _twin_runs(sm.table, [ch], mode, -10.0, -0.5)
+    twin = _twin_runs(sm.table, [ch], mode, -10.0, -0.5, R)
     assert torch.equal(plain.stats, moves_only.stats)
     np.testing.assert_array_equal(twin.stats.numpy(), plain.stats.numpy())
-    np.testing.assert_array_equal(plain.stats.numpy(),
-                                  np.asarray(st_j).reshape(-1, 8))
+    np.testing.assert_array_equal(plain.stats.numpy(), st_j)
     saw_long = False
     for k in range(8):
         nb, mb = int(ch.n[k]), int(ch.m[k])
@@ -133,6 +172,31 @@ def test_run_bytes_match_pallas(mode):
         saw_long |= bool(((want & 15) == 15).any() and
                          ((want & 15) == 14).any())
     assert saw_long  # the cap and the collision case were exercised
+    sc = _stripe_chunk(R)
+    S = sm.table[sc.codes1[:, :, None].astype(np.int64),
+                 sc.codes2[:, None, :].astype(np.int64)].astype(np.float32)
+    ref = jbatch.fill_scan(S, sc.n, sc.m, mode=mode, og=-10.0, eg=-0.5)
+    jtb = np.asarray(ref.tb)
+    wants = [jtb[k, 1:int(sc.n[k]) + 1, 1:int(sc.m[k]) + 1]
+             for k in range(sc.shape[0])]
+    runs = [_scalar_runs(w) for w in wants]
+    for NW in (1, 3):
+        twin = _twin_runs(sm.table, [sc], mode, -10.0, -0.5, R, NW)
+        st = twin.stats.numpy()
+        if mode == LOCAL:
+            np.testing.assert_array_equal(st[:, 0], np.asarray(ref.best))
+            np.testing.assert_array_equal(st[:, 1], np.asarray(ref.best_i))
+            np.testing.assert_array_equal(st[:, 2], np.asarray(ref.best_j))
+        else:
+            np.testing.assert_array_equal(st[:, 3:6], np.asarray(ref.final))
+        for k, (want, rw) in enumerate(zip(wants, runs)):
+            nb, mb = want.shape
+            np.testing.assert_array_equal(
+                twin.tb_view(0).numpy()[:nb, :mb, k], want,
+                err_msg=f"NW={NW} pair {k}")
+            np.testing.assert_array_equal(
+                twin.tb_view(0, twin.run).numpy()[:nb, :mb, k], rw,
+                err_msg=f"NW={NW} pair {k} runs")
 
 
 def _walk_chunks():

@@ -133,10 +133,10 @@ def _jax_stats(table, ch, mode, score_only=False):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_twins_match_jax(tables, mode):
-    """K1's twin (pointer bytes and stats), the long route's twins K3 / K4
-    (stats, checkpoints, every band's bytes, at C = 32 and 64, all bands
-    in one K4 launch) and, in LOCAL, K9's twin, on the wide table's
-    codes."""
+    """K1's twin (pointer bytes and stats, at every R), the long route's
+    twins K3 / K4 (stats, checkpoints, every band's bytes, at C = 32 and
+    64, all bands in one K4 launch) and, in LOCAL, K9's twin, on the wide
+    table's codes."""
     K, sm, _ = tables
     table = np.ascontiguousarray(sm.table, np.float32)
     ch = _chunk(K, 20 + mode)
@@ -144,21 +144,25 @@ def test_twins_match_jax(tables, mode):
     want, tb = _jax_stats(table, ch, mode)
     lib = native.twin_lib()
     B, NP, MP = ch.shape
-    # K1
+    # K1 at every stripe depth (n = 33, 64, 70, 95, 96 cross its lane and
+    # stripe boundaries at R = 1 and 2), one to three warps a pair
     desc, _, tb_bytes, carry_floats = fill_dp.layout([ch])
-    tbt = np.zeros(tb_bytes, np.uint8)
-    stats = np.zeros((B, 8), np.float32)
-    carry = np.zeros(carry_floats, np.float32)
-    assert lib.sw_twin_fill(
-        mode, 1, table.ctypes.data, K, ch.codes1.itemsize,
-        ch.codes1.ctypes.data, ch.codes2.ctypes.data, desc.ctypes.data, B,
-        tbt.ctypes.data, carry.ctypes.data, stats.ctypes.data, OG, EG) == 0
-    np.testing.assert_array_equal(stats, want)
-    tbt = tbt.reshape(NP, MP, B)
-    for b in range(B):
-        nb, mb = int(ch.n[b]), int(ch.m[b])
-        np.testing.assert_array_equal(tbt[:nb, :mb, b], tb[b, 1:nb + 1,
-                                                           1:mb + 1])
+    for R, NW in zip(fill_dp.STRIPE_R, (1, 2, 3, 1)):
+        tbt = np.zeros(tb_bytes, np.uint8)
+        stats = np.zeros((B, 8), np.float32)
+        carry = np.zeros(carry_floats, np.float32)
+        assert lib.sw_twin_fill(
+            mode, 1, R, NW, table.ctypes.data, K, ch.codes1.itemsize,
+            ch.codes1.ctypes.data, ch.codes2.ctypes.data, desc.ctypes.data,
+            B, tbt.ctypes.data, None, carry.ctypes.data, stats.ctypes.data,
+            OG, EG) == 0
+        np.testing.assert_array_equal(stats, want)
+        got = fill_dp.pool_view(torch.from_numpy(tbt), 0, ch.shape).numpy()
+        for b in range(B):
+            nb, mb = int(ch.n[b]), int(ch.m[b])
+            np.testing.assert_array_equal(
+                got[:nb, :mb, b], tb[b, 1:nb + 1, 1:mb + 1],
+                err_msg=f"R={R} NW={NW} pair {b}")
     # K3 and K4
     for C in (32, 64):
         nck = longseq.n_ckpts(NP, C)
