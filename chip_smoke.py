@@ -1090,6 +1090,7 @@ class StripedLockstep:
         self.ms = {"K12": 0.0, "K13": 0.0}
         self.plain_ms = {"K12": 0.0, "K13": 0.0}
         self.calls = {"K12": 0, "K13": 0}
+        self.shapes = {"K12": [], "K13": []}  # each launch's tiling, grid
 
     @staticmethod
     def diff(a, b):
@@ -1107,6 +1108,8 @@ class StripedLockstep:
             ref = [None if a is None else a.clone() for a in state]
             pms, _ = event_ms(lambda: st.block_ref(*ref, ds=ds, **kw))
             ms, _ = event_ms(lambda: real_block(*state, ds=ds, **kw))
+            self.shapes["K12"].append(dict(st.SHAPES["K12"],
+                                           shards=len(ds)))
             self.ms["K12"] += ms
             self.plain_ms["K12"] += pms
             self.calls["K12"] += 1
@@ -1116,6 +1119,7 @@ class StripedLockstep:
         def grid(S, n, m, *, mode, pen, C=None):
             ms, out = event_ms(lambda: real_grid(S, n, m, mode=mode, pen=pen,
                                                  C=C))
+            self.shapes["K13"].append(dict(st.SHAPES["K13"]))
             ref = [torch.empty_like(a) for a in out[:3]]
             rck = None if out[3] is None else [torch.empty_like(a)
                                                for a in out[3]]
@@ -1137,15 +1141,61 @@ class StripedLockstep:
         self.st.block_fill, self.st.grid_fill = self.real
 
 
+def split(seq_tiled, run) -> dict:
+    """Seconds of one ``run()`` of seq_tiled.striped_align by stage, from
+    wrappers around its checkpointed fill, its band re-fills and its
+    windows (each window's gather and copy is _seg_windows less its
+    re-fill), the card synchronised around each; the walks are the rest.
+    It wraps functions that every version of the striped path has, so
+    scripts/ab_striped.py splits a parent tree's wall with it too."""
+    import torch
+
+    real = {k: getattr(seq_tiled, k) for k in
+            ("striped_fill_ckpt", "striped_band_tb", "_seg_windows")}
+    secs = {k: 0.0 for k in real}
+    calls = {"refills": 0}
+
+    def wrap(k):
+        def f(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = real[k](*a, **kw)
+            torch.cuda.synchronize()
+            secs[k] += time.perf_counter() - t0
+            calls["refills"] += k == "striped_band_tb"
+            return r
+        return f
+
+    for k in real:
+        setattr(seq_tiled, k, wrap(k))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, f in real.items():
+            setattr(seq_tiled, k, f)
+    return {"wall_s": wall, "fill_s": secs["striped_fill_ckpt"],
+            "refill_s": secs["striped_band_tb"],
+            "copy_s": secs["_seg_windows"] - secs["striped_band_tb"],
+            "walk_s": wall - secs["striped_fill_ckpt"] - secs["_seg_windows"],
+            "refills": calls["refills"]}
+
+
 def phase13(dev, card, modes):
     """K12 and K13 against their plain versions on the card, launch by
     launch: ragged pairs, D = 1, 2, 4 shards on one card, three modes,
     block_rows 8 and 64, C = 64, a seeded band with pointer bytes, a
-    non-integer table and penalties, og = eg = 0, int8 and folded S."""
+    non-integer table and penalties, og = eg = 0, int8 and folded S; then
+    the column tiles' edges: shards of 300 lanes (not a multiple of a tile)
+    and of 33 (under one tile) at forced tilings (L lanes a thread, E rows
+    a publication) beside the launcher's."""
     import torch
 
     from smithwaterman_tpu_torch import GLOBAL
     from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
+    from smithwaterman_tpu_torch.ops import kernels
     from smithwaterman_tpu_torch.parallel import make_mesh, seq_tiled
 
     blosum = np.asarray(SubstitutionMatrix.blosum62().table, np.float32)
@@ -1185,12 +1235,40 @@ def phase13(dev, card, modes):
                                              **kw)
                 if not torch.equal(got, want) or ls.err != 0.0:
                     fail(f"K13 {mname} int8 folded={folded}: differs")
+        # the tiles' edges, at forced tilings and the launcher's
+        real_plan, tiled = kernels.striped_plan, 0
+        Sx1 = Sx[:, :128]
+        n1 = np.minimum(n, 128).astype(np.int32)
+        try:
+            for plan in ((8, 1), (8, 3), (16, 2), None):
+                kernels.striped_plan = (real_plan if plan is None
+                                        else lambda *a, p=plan: p)
+                for mode, mname in modes:
+                    for D, W in ((1, 300), (2, 300), (4, 300), (4, 33)):
+                        Sw = Sx1[:, :, :D * W].contiguous()
+                        mw = np.minimum(m, D * W).astype(np.int32)
+                        kw = dict(mode=mode, og=-10.3, eg=-0.7, block_rows=16,
+                                  mesh=make_mesh(devices=[dev] * D))
+                        _, ck = seq_tiled.striped_fill_ckpt(
+                            Sw, n1, mw, ckpt_rows=64, **kw)
+                        seq_tiled.striped_band_tb(Sw[:, 64:], n1, mw, 64,
+                                                  *(a[:, 0] for a in ck),
+                                                  **kw)
+                        tiled += 1
+                        if ls.err != 0.0:
+                            fail(f"K12/K13 tiles {plan} {mname} D={D} W={W}: "
+                                 f"max error {ls.err}")
+        finally:
+            kernels.striped_plan = real_plan
     say(f"phase 13 K12/K13: {len(cases)} cases (3 modes x D in (1, 2, 4) "
         "shards on one card x block_rows in (8, 64), a non-integer table "
         "with og=-10.3 eg=-0.7 at D=4, GLOBAL og=eg=0), 3 pairs of up to "
         f"{NP} x {MP} (lengths down to 1), each a checkpointed fill (C=64) "
         "and a seeded band re-fill with pointer bytes; int8 and folded S at "
-        f"D=1 in 3 modes: {ls.calls['K12']} K12 and {ls.calls['K13']} K13 "
+        f"D=1 in 3 modes; {tiled} tile-edge cases (tilings (L, E) (8, 1), "
+        "(8, 3), (16, 2) and the launcher's x 3 modes x shards of 300 lanes "
+        "at D in (1, 2, 4) and of 33 at D=4, 128 rows, og=-10.3 eg=-0.7): "
+        f"{ls.calls['K12']} K12 and {ls.calls['K13']} K13 "
         "launches each equal to its plain version in every output (stats, "
         "checkpoints, row state, outbox edges, pointer bytes); summed ms "
         f"kernel / plain: K12 {ls.ms['K12']:.3f} / {ls.plain_ms['K12']:.3f}, "
@@ -1315,9 +1393,19 @@ def phase14(dev, card, modes):
         f"D=1 and D=4, striped_fill_ckpt LOCAL at D=4, striped_align at "
         f"D=1): {json.dumps(c)}")
 
+    # striped_align's wall split by stage (the card synchronised between
+    # stages, so a little slower than the walls above)
+    for mode, mname in modes:
+        sp = split(seq_tiled, lambda: seq_tiled.striped_align(
+            S, nv, mv, mode=mode, mesh=mesh1, **kw))
+        say(f"phase 14 {mname} striped_align split (s): " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in sp.items()) + f"; on {card}")
+
     # K12 and K13 at these shapes beside their plain versions (LOCAL)
     pen = seq_tiled.make_pen(LOCAL, og, eg)
     seq_tiled.grid_fill(S, nt, mt, mode=LOCAL, pen=pen)
+    k13_shape = dict(seq_tiled.SHAPES["K13"])
     k13_ms, out = timed(lambda: seq_tiled.grid_fill(S, nt, mt, mode=LOCAL,
                                                      pen=pen), 3)
     ref13 = [torch.empty_like(a) for a in out[:3]]
@@ -1338,6 +1426,16 @@ def phase14(dev, card, modes):
     if max(k13_err, k12[3], lb.err) != 0.0:
         fail(f"phase 14 kernels against plain: K13 {k13_err}, K12 {k12[3]} "
              f"(D=4 fill), {lb.err} (band)")
+    k12_shape = max(ls.shapes["K12"], key=lambda d: d["tiles"])
+    kb_shape = lb.shapes["K12"][0]
+    if not (k13_shape["blocks"] > 1 and k12_shape["blocks"] >
+            k12_shape["shards"] and kb_shape["blocks"] > 1):
+        fail(f"phase 14: a (shard, pair) on one block: K13 {k13_shape}, "
+             f"K12 {k12_shape}, band {kb_shape}")
+    say(f"phase 14 launch shapes (tiles of 'lanes' lanes, one warp a block, "
+        f"an edge published every E rows): K13 at B=1 {k13_shape}; K12 at "
+        f"D=4, its widest step {k12_shape}; K12 band re-fill at B=1, D=1 "
+        f"{kb_shape}")
     cells = STRIPED_NP * STRIPED_MP
     s_bytes = 4 * cells
     k13_bound = bound(STRIPED_CELL_OPS[LOCAL] * cells,

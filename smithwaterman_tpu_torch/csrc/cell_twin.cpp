@@ -16,7 +16,11 @@
 // card may take.  For K7 it runs each band row's phase A for every thread,
 // the block's prefix in thread order, then phase C for every thread
 // (sw_banded.cuh), where the card's threads wait for each other between
-// the phases; K12 and K13 likewise, each striped row (sw_striped.cuh).
+// the phases.  For K12 and K13 it runs each column tile as its warp
+// would, a row at a time, every thread in turn, and the launch's tiles in
+// ticket order with a given number in flight, each advanced once its left
+// neighbour has published the edges it needs, every publication checked
+// against the fence rule (sw_striped.cuh).
 // For K9 it runs every lane of a warp in turn at each step,
 // handing each lane its left neighbour's values from before the step, as
 // the card's shuffles do (sw_diag.cuh).  The tier-1 tests hold its
@@ -26,6 +30,7 @@
 // which is the only check of the card's cell code that runs without a
 // card.
 // Build: g++ -O2 -fPIC -std=c++17 -ffp-contract=off -c, then g++ -shared.
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 #include <utility>
@@ -624,117 +629,154 @@ void banded_all(const float* S, const int32_t* n, const int32_t* m,
 
 namespace st = sw::striped;
 
-// Row r of a striped shard as a block of THREADS threads would run it,
-// tile by tile: phase A for every thread, the block's prefix in thread
-// order (after the earlier tiles' maximum), phase C for every thread.
-template <int MODE, bool TB, typename SCORE>
-void striped_row(int W, const st::Pen& p, const st::Row& r, const SCORE* s,
-                 const st::Buf& up, const st::Buf& cur, uint8_t* tb,
-                 float* best, int32_t* best_i, float* acc, float* edge_out) {
-  std::vector<float> own(st::THREADS);
-  std::vector<st::Left> left(st::THREADS);
-  float excl = sw::NEG;  // h's maximum over the lanes done so far
-  for (int j = 0; j < st::tiles(W); ++j) {
-    for (int t = 0; t < st::THREADS; ++t)
-      own[t] =
-          st::phase_a<MODE, TB>(t, j, W, p, r, s, up, cur, tb, &left[t]);
-    for (int t = 0; t < st::THREADS; ++t) {
-      st::phase_c<MODE, TB>(t, j, W, p, r, excl, left[t], cur, tb, best,
-                            best_i, acc, edge_out);
-      excl = sw::mx(excl, own[t]);
+// One K12 / K13 tile as its warp runs it (striped_fill.cu run_tile), a row
+// at a time: each per-thread function for thread 0 .. 31 in turn, each
+// thread handed its left neighbour's values from before the call (the
+// card's shuffles), the max scan in thread order.  The left neighbour's
+// edges are read only once published, and `twin` records this tile's
+// publications ([stored, fenced, broken] a tile).
+template <int MODE, bool TB, int L, typename ST, bool GRID>
+struct TwinTile {
+  const st::Launch* a = nullptr;
+  st::Job J{};
+  std::vector<st::Thread<L>> th;
+  sw::Cell ab{};
+  int q = 0;
+
+  void begin(const st::Launch& la, int64_t tk, int32_t* twin) {
+    a = &la;
+    J = st::job_at(la, tk);
+    if (J.left.slots) J.left.twin = twin + 3 * (tk - 1);
+    if (J.right.slots) J.right.twin = twin + 3 * tk;
+    th.resize(sw::WARP);
+    for (int t = 0; t < sw::WARP; ++t) {
+      st::thread_begin<L, GRID>(la, J, t, &th[t]);
+      const int kl = st::last_lane(J, t, L);
+      if (J.right.slots && kl >= 0)
+        st::put_edge(J.right, 0, st::Edge{st::lane_cell(th[t], kl), sw::NEG});
     }
   }
-}
 
-// One K12 block: shard d of pair b at step a.t (striped_fill.cu).
-template <int MODE, bool TB>
-void striped_block_pair(const st::BlockArgs& a, int d, int64_t b) {
-  const st::Block k = st::block_at(a, d, b);
-  const int n = a.n[b], m = a.m[b];
-  sw::Cell ab = k.in ? sw::Cell{k.above[0], k.above[1], k.above[2]}
-                     : st::column0(k.i_start, a.p);
-  for (int q = 0; q < a.K; ++q) {
-    const int i = k.i_start + q + 1;
-    const float* in = k.in ? k.in + 4 * q : nullptr;
-    const st::Row r = st::row_begin<MODE>(a.p, i, k.col0, n, m, ab, in);
-    striped_row<MODE, TB>(
-        a.W, a.p, r, st::block_scores(a, k, b, i),
-        st::row_buf(a.rows, a.B, a.MP, b, k.col0, i - 1),
-        st::row_buf(a.rows, a.B, a.MP, b, k.col0, i),
-        TB ? st::block_tb(a, k, b, i) : nullptr, a.best + b * a.MP + k.col0,
-        a.best_i + b * a.MP + k.col0, k.acc, k.out + 4 * q);
-    ab = in ? sw::Cell{in[0], in[1], in[2]} : st::column0(i, a.p);
-  }
-  if (k.in) {
-    k.above[0] = ab.m;
-    k.above[1] = ab.x;
-    k.above[2] = ab.y;
-  }
-}
+  bool done() const { return q >= a->K; }
 
-template <int MODE>
-void striped_block_all(bool tb, const int32_t* ds, int nds,
-                       const st::BlockArgs& a) {
-  for (int q = 0; q < nds; ++q)
-    for (int64_t b = 0; b < a.B; ++b) {
-      if (tb)
-        striped_block_pair<MODE, true>(a, ds[q], b);
-      else
-        striped_block_pair<MODE, false>(a, ds[q], b);
+  // Whether row q's edges are published (slot 0 with the first row's).
+  bool ready() const { return !J.left.slots || *J.left.ctr >= q + 2; }
+
+  st::Edge slot(int s) const {
+    const float* v = J.left.slots + 4 * s;
+    return st::Edge{{v[0], v[1], v[2]}, v[3]};
+  }
+
+  void row() {
+    constexpr int NT = sw::WARP;
+    const int i = J.i_start + q + 1;
+    const st::Row r = st::row_at<MODE>(a->p, i, J.n, J.m);
+    if (q == 0) ab = J.left.slots ? slot(0).v : st::box_above(a->p, J);
+    sw::Cell nb[NT];
+    for (int t = 0; t < NT; ++t)
+      nb[t] = sw::Cell{th[t].pm[L - 1], th[t].px[L - 1], th[t].py[L - 1]};
+    for (int t = 0; t < NT; ++t) {
+      float s[L];
+      st::get_s<L>(st::row_scores<ST>(*a, J, i) + t * L,
+                   st::lanes_in(J, t, L), s);
+      st::thread_a<MODE, TB, L>(a->p, r, J.col0 + t * L + 1, s,
+                                st::first_diag(t, ab, nb[t ? t - 1 : 0]),
+                                &th[t]);
     }
-}
-
-// One K13 block: pair b's whole fill (striped_fill.cu).
-template <int MODE, typename SCORE>
-void striped_grid_pair(const SCORE* S, int64_t B, int64_t NP, int64_t MP,
-                       const int32_t* n, const int32_t* m, int C, int64_t b,
-                       float* rows, float* best, int32_t* best_i, float* acc,
-                       float* ckm, float* ckx, float* cky, const st::Pen& p) {
-  const int W = (int)MP;
-  float* bst = best + b * MP;
-  int32_t* bsi = best_i + b * MP;
-  float* ac = acc + b * 4;
-  const st::Buf r0 = st::row_buf(rows, B, MP, b, 0, 0);
-  for (int w = 0; w < W; ++w) {
-    const sw::Cell c = st::row0(w + 1, p);
-    r0.m[w] = c.m;
-    r0.x[w] = c.x;
-    r0.y[w] = c.y;
-    bst[w] = sw::NEG;
-    bsi[w] = st::BIGI;
-  }
-  for (int q = 0; q < 4; ++q) ac[q] = 0.0f;
-  const int64_t nck = C ? NP / C : 0;
-  for (int i = 1; i <= (int)NP; ++i) {
-    const st::Row r =
-        st::row_begin<MODE>(p, i, 0, n[b], m[b], st::column0(i - 1, p), nullptr);
-    const st::Buf cur = st::row_buf(rows, B, MP, b, 0, i);
-    striped_row<MODE, false>(W, p, r, S + (b * NP + i - 1) * MP,
-                             st::row_buf(rows, B, MP, b, 0, i - 1), cur,
-                             nullptr, bst, bsi, ac, nullptr);
-    if (C && i % C == 0) {
-      const int64_t o = (b * nck + i / C - 1) * MP;
-      for (int w = 0; w < W; ++w) {
-        ckm[o + w] = cur.m[w];
-        ckx[o + w] = cur.x[w];
-        cky[o + w] = cur.y[w];
+    float lm[NT], ly[NT], excl[NT];
+    for (int t = 0; t < NT; ++t) {
+      lm[t] = th[t ? t - 1 : 0].cm[L - 1];
+      ly[t] = th[t ? t - 1 : 0].cy[L - 1];
+    }
+    float run = sw::NEG;
+    for (int t = 0; t < NT; ++t) {
+      const float own =
+          st::thread_h<L>(r, J.col0 + t * L + 1, t > 0, lm[t], ly[t], &th[t]);
+      excl[t] = run;
+      run = sw::mx(run, own);
+    }
+    const st::Edge e = J.left.slots ? slot(q + 1) : st::box_edge(a->p, J, q, i);
+    const float lc = st::left_c(r, J.col0 + 1, e);
+    float* acc = st::acc_of(*a, J, GRID);
+    for (int t = 0; t < NT; ++t) {
+      const int kl = st::last_lane(J, t, L);
+      st::Edge eo{};
+      st::thread_c<MODE, TB, L>(a->p, r, J.col0 + t * L + 1, t, excl[t], lc,
+                                e, lm[t], ly[t], st::lanes_in(J, t, L), kl,
+                                &th[t], acc, &eo);
+      if (kl >= 0 && J.right.slots) {
+        st::put_edge(J.right, q + 1, eo);
+        if (st::publishes(q, a->K, a->E)) st::publish(J.right, q + 2);
+      } else if (kl >= 0 && J.out) {
+        float* o = J.out + 4 * q;
+        o[0] = eo.v.m;
+        o[1] = eo.v.x;
+        o[2] = eo.v.y;
+        o[3] = eo.c;
       }
+      st::thread_row_out<TB, L, GRID>(*a, J, t, q, i, th[t]);
+    }
+    ab = e.v;
+    if (++q < a->K) return;
+    for (int t = 0; t < NT; ++t) st::thread_end<MODE, L, GRID>(*a, J, t, th[t]);
+    if (J.in) {
+      J.above[0] = ab.m;
+      J.above[1] = ab.x;
+      J.above[2] = ab.y;
     }
   }
+};
+
+// A K12 / K13 launch (striped_fill.cu tile_kernel): `blocks` tiles in
+// flight (0: every tile), taken by ticket as blocks free up, and each tile
+// in flight advanced a row in turn, in ticket order, once its left
+// neighbour's edges are published.  Returns 0, 2 if no tile can advance
+// (the card would hang), 3 if a publication broke the fence rule.
+template <int MODE, bool TB, int L, typename ST, bool GRID>
+int twin_tiles(st::Launch& a, int blocks) {
+  std::vector<int32_t> scratch(st::scratch_words(a.tiles, a.K), 0);
+  st::set_scratch(&a, scratch.data());
+  std::vector<int32_t> twin(3 * a.tiles, 0);
+  std::vector<TwinTile<MODE, TB, L, ST, GRID>> run;
+  const int64_t cap = blocks > 0 ? blocks : a.tiles;
+  for (;;) {
+    while ((int64_t)run.size() < cap && *a.ticket < a.tiles) {
+      run.emplace_back();
+      run.back().begin(a, (*a.ticket)++, twin.data());
+    }
+    if (run.empty()) break;
+    bool moved = false;
+    for (auto& tile : run) {
+      if (!tile.ready()) continue;
+      tile.row();
+      moved = true;
+    }
+    if (!moved) return 2;
+    run.erase(std::remove_if(run.begin(), run.end(),
+                             [](const auto& tile) { return tile.done(); }),
+              run.end());
+  }
+  for (int64_t k = 0; k < a.tiles; ++k)
+    if (twin[3 * k + 2]) return 3;
+  return 0;
 }
 
-template <int MODE>
-void striped_grid_all(bool s_int8, const void* S, int64_t B, int64_t NP,
-                      int64_t MP, const int32_t* n, const int32_t* m, int C,
-                      float* rows, float* best, int32_t* best_i, float* acc,
-                      float* ckm, float* ckx, float* cky, const st::Pen& p) {
-  for (int64_t b = 0; b < B; ++b) {
-    if (s_int8)
-      striped_grid_pair<MODE>((const int8_t*)S, B, NP, MP, n, m, C, b, rows,
-                              best, best_i, acc, ckm, ckx, cky, p);
-    else
-      striped_grid_pair<MODE>((const float*)S, B, NP, MP, n, m, C, b, rows,
-                              best, best_i, acc, ckm, ckx, cky, p);
+template <bool TB, typename ST, bool GRID>
+int twin_launch(int mode, st::Launch& a, int blocks) {
+  auto lanes = [&](auto mode_c) {
+    constexpr int M = decltype(mode_c)::value;
+    if (a.L == 8) return twin_tiles<M, TB, 8, ST, GRID>(a, blocks);
+    return twin_tiles<M, TB, 16, ST, GRID>(a, blocks);
+  };
+  switch (mode) {
+    case sw::LOCAL:
+      return lanes(std::integral_constant<int, sw::LOCAL>{});
+    case sw::GLOCAL:
+      return lanes(std::integral_constant<int, sw::GLOCAL>{});
+    case sw::GLOBAL:
+      return lanes(std::integral_constant<int, sw::GLOBAL>{});
+    default:
+      return 1;
   }
 }
 
@@ -902,7 +944,9 @@ int sw_twin_banded_walk(int local, const uint8_t* tb, const int32_t* off,
 }
 
 // Same arguments and layout as sw_striped_block_launch (striped_fill.cu),
-// host pointers, no stream.  Returns 0, or 1 for an unknown mode.
+// host pointers, no stream, the scratch the twin's own; `blocks` tiles in
+// flight (0: all).  Returns 0, 1 for arguments the kernel does not take, 2
+// if the launch would hang, 3 if an edge publication is not fenced.
 int sw_twin_striped_block(int mode, int emit_tb, const int32_t* ds, int nds,
                           int t, int i0, int K, int W, int D, int64_t B,
                           int64_t MP, const float* S, int64_t s_b,
@@ -911,71 +955,32 @@ int sw_twin_striped_block(int mode, int emit_tb, const int32_t* ds, int nds,
                           float* above, float* best, int32_t* best_i,
                           float* acc, uint8_t* tb, int64_t tb_rows, float og,
                           float eg, float so, float se, float sent,
-                          float sose) {
-  st::BlockArgs a;
-  a.t = t;
-  a.i0 = i0;
-  a.K = K;
-  a.W = W;
-  a.D = D;
-  a.B = B;
-  a.MP = MP;
-  a.S = S;
-  a.s_b = s_b;
-  a.s_r = s_r;
-  a.s_lo = s_lo;
-  a.n = n;
-  a.m = m;
-  a.rows = rows;
-  a.box = box;
-  a.above = above;
-  a.best = best;
-  a.best_i = best_i;
-  a.acc = acc;
-  a.tb = emit_tb ? tb : nullptr;
-  a.tb_rows = tb_rows;
-  a.p = st::Pen{og, eg, so, se, sent, sose};
-  switch (mode) {
-    case sw::LOCAL:
-      striped_block_all<sw::LOCAL>(emit_tb != 0, ds, nds, a);
-      return 0;
-    case sw::GLOCAL:
-      striped_block_all<sw::GLOCAL>(emit_tb != 0, ds, nds, a);
-      return 0;
-    case sw::GLOBAL:
-      striped_block_all<sw::GLOBAL>(emit_tb != 0, ds, nds, a);
-      return 0;
-    default:
-      return 1;
-  }
+                          float sose, int L, int E, int blocks) {
+  st::Launch a;
+  if (!st::block_launch(&a, emit_tb, ds, nds, t, i0, K, W, D, B, MP, S, s_b,
+                        s_r, s_lo, n, m, rows, box, above, best, best_i, acc,
+                        tb, tb_rows, st::Pen{og, eg, so, se, sent, sose}, L,
+                        E))
+    return 1;
+  return emit_tb ? twin_launch<true, float, false>(mode, a, blocks)
+                 : twin_launch<false, float, false>(mode, a, blocks);
 }
 
 // Same arguments and layout as sw_striped_grid_launch (striped_fill.cu),
-// host pointers, no stream.  Returns 0, or 1 for an unknown mode.
+// host pointers, no stream, the scratch the twin's own; `blocks` and the
+// return as sw_twin_striped_block's.
 int sw_twin_striped_grid(int mode, int s_int8, const void* S, int64_t B,
                          int64_t NP, int64_t MP, const int32_t* n,
-                         const int32_t* m, int C, float* rows, float* best,
+                         const int32_t* m, int C, float* best,
                          int32_t* best_i, float* acc, float* ckm, float* ckx,
                          float* cky, float og, float eg, float so, float se,
-                         float sent, float sose) {
-  const st::Pen p{og, eg, so, se, sent, sose};
-  const bool i8 = s_int8 != 0;
-  switch (mode) {
-    case sw::LOCAL:
-      striped_grid_all<sw::LOCAL>(i8, S, B, NP, MP, n, m, C, rows, best,
-                                  best_i, acc, ckm, ckx, cky, p);
-      return 0;
-    case sw::GLOCAL:
-      striped_grid_all<sw::GLOCAL>(i8, S, B, NP, MP, n, m, C, rows, best,
-                                   best_i, acc, ckm, ckx, cky, p);
-      return 0;
-    case sw::GLOBAL:
-      striped_grid_all<sw::GLOBAL>(i8, S, B, NP, MP, n, m, C, rows, best,
-                                   best_i, acc, ckm, ckx, cky, p);
-      return 0;
-    default:
-      return 1;
-  }
+                         float sent, float sose, int L, int E, int blocks) {
+  st::Launch a;
+  if (!st::grid_launch(&a, S, B, NP, MP, n, m, C, best, best_i, acc, ckm, ckx,
+                       cky, st::Pen{og, eg, so, se, sent, sose}, L, E))
+    return 1;
+  return s_int8 ? twin_launch<false, int8_t, true>(mode, a, blocks)
+                : twin_launch<false, float, true>(mode, a, blocks);
 }
 
 }  // extern "C"

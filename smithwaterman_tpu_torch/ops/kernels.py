@@ -141,9 +141,13 @@ def lib() -> ctypes.CDLL:
         i32, vp, vp, vp, vp, i64, i64, vp, vp, vp,
     ]
     so.sw_striped_block_launch.restype = i32
-    so.sw_striped_block_launch.argtypes = native.STRIPED_BLOCK_ARGS + [vp]
+    so.sw_striped_block_launch.argtypes = native.STRIPED_BLOCK_ARGS + [
+        vp, vp, vp,  # scratch, grid, stream
+    ]
     so.sw_striped_grid_launch.restype = i32
-    so.sw_striped_grid_launch.argtypes = native.STRIPED_GRID_ARGS + [vp]
+    so.sw_striped_grid_launch.argtypes = native.STRIPED_GRID_ARGS + [
+        vp, vp, vp,
+    ]
     _LIB = so
     return so
 
@@ -472,16 +476,92 @@ def walk_tokens(tb, run, desc, stats, cnt, toks, *, local: bool,
 
 # shards one K12 launch takes (csrc/sw_striped.cuh MAX_SHARDS)
 MAX_SHARDS = 64
+# K12 / K13 cut a shard's W lanes into column tiles of one warp, L lanes a
+# thread (csrc/striped_fill.cu): the narrower tiles give the shorter row a
+# tile, the wider the shorter chain of tiles.  Tiles of 4 lanes a thread
+# beat those of 8 nowhere beyond the spread between runs on an H100
+# (PERF.md), so the kernels take 8 and 16 only.
+STRIPED_LANES = (8, 16)
+# A tile waits for its left neighbour's edges about E rows plus one
+# handover (a fence, a flag and a load through L2: a few rows' time), so a
+# chain of T tiles takes about T * (E + 4) row steps to fill: T at most a
+# launch's rows / FILL_ROWS keeps the fill about as long as the rows.
+STRIPED_FILL_ROWS = 8
+# the most rows a publication carries (csrc/sw_striped.cuh HELD: the edge
+# slots a reading tile loads at once)
+STRIPED_MAX_E = 8
+
+
+def striped_plan(W: int, rows: int, chains: int, sms: int):
+    """K12 / K13's tiling of a launch of ``rows`` rows over ``chains``
+    shards of ``W`` lanes (shards times pairs) on a card of ``sms`` SMs:
+    ``(L, E)``.  L, the lanes a thread, is the smallest of
+    :data:`STRIPED_LANES` whose tiles take at most one SM each and whose
+    chain fills within the rows (:data:`STRIPED_FILL_ROWS`), else the
+    widest.  E, the rows a tile publishes at once, is the largest power of
+    two up to :data:`STRIPED_MAX_E` with E * E <= rows / T: a
+    publication's fence and release cost the writing tile about a row's
+    time, so E balances the fill (T * E rows) against the fences (rows /
+    E).  On an H100 (PERF.md, ``scripts/ab_striped.py --plans``) this pick
+    is within 1 % of the best of (L, E) in {4, 8, 16} x {1, 2, 4, 8} for K13
+    at phase 14's 2048 x 65,536 (L = 16) and its band re-fill, and within
+    the spread between runs for K12's steps of 64 rows at D = 4; where it
+    takes L = 8, L = 16 is 10-19 % slower: K13 0.598 against 0.714 ms at
+    512 x 2048, 3.097 against 3.440 at 2048 x 32,768 and 0.743 against
+    0.821 at 8 pairs of 512 x 4096 (K12 at D = 4 on 512 x 2048 ties)."""
+    lanes = STRIPED_LANES[-1]
+    for L in STRIPED_LANES:
+        T = -(-W // (32 * L))
+        if chains * T <= sms and T * STRIPED_FILL_ROWS <= rows:
+            lanes = L
+            break
+    T = -(-W // (32 * lanes))
+    E = 1
+    while 2 * E <= STRIPED_MAX_E and 4 * E * E * T <= rows:
+        E *= 2
+    return lanes, E
+
+
+def striped_scratch_words(tiles: int, rows: int) -> int:
+    """K12 / K13's scratch words for ``tiles`` tiles of ``rows`` rows."""
+    return ((1 + tiles + 3) & ~3) + tiles * (rows + 1) * 4
+
+
+def striped_scratch(tiles: int, rows: int, dev, scratch=None):
+    """K12 / K13's scratch for ``tiles`` tiles of ``rows`` rows (the layout
+    of csrc/sw_striped.cuh set_scratch: the ticket, each tile's count of
+    published edge slots, each tile's rows + 1 slots of four floats), with
+    the ticket and counts zeroed on the current stream: ``scratch`` when
+    given (int32, at least that long), else a new tensor."""
+    zeroed = (1 + tiles + 3) & ~3
+    words = striped_scratch_words(tiles, rows)
+    if scratch is None:
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    _check(scratch, "scratch", torch.int32, dev)
+    if scratch.numel() < words:
+        raise ValueError(f"scratch has {scratch.numel()} words, the launch "
+                         f"needs {words}")
+    scratch[:zeroed].zero_()
+    return scratch
+
+
+def _striped_tiling(W: int, rows: int, chains: int, dev, scratch):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    L, E = striped_plan(W, rows, chains, sms)
+    tiles = chains * -(-W // (32 * L))
+    return L, E, tiles, striped_scratch(tiles, rows, dev, scratch)
 
 
 def striped_block(S, n, m, rows, box, above, best, best_i, acc, tb, *,
                   ds, t: int, i0: int, K: int, W: int, s_lo: int, mode: int,
-                  pen) -> None:
+                  pen, scratch=None) -> dict:
     """Launch K12 (csrc/striped_fill.cu) on the current stream: step ``t``
     of the wavefront for the shards ``ds``; see parallel/seq_tiled.
     ``S`` (B, rows, cols) f32 with unit column stride holds row i0 + 1 of
     the fill at column ``s_lo``; ``tb`` is None or (B, tb_rows, MP)
-    uint8."""
+    uint8; the tiling is :func:`striped_plan`'s; ``scratch`` is
+    :func:`striped_scratch`'s tensor (made here when None).  Returns the
+    launch's shape: its tiles of ``lanes`` lanes, ``E`` and ``blocks``."""
     dev = S.device
     if dev.type != "cuda":
         raise ValueError(f"K12 runs on CUDA tensors, got {dev}")
@@ -514,7 +594,9 @@ def striped_block(S, n, m, rows, box, above, best, best_i, acc, tb, *,
                 tb.shape[1] < rows_needed:
             raise ValueError(f"tb has shape {tuple(tb.shape)}, expected "
                              f"({B}, >= {rows_needed}, {MP})")
+    L, E, tiles, scratch = _striped_tiling(W, K, len(ds) * B, dev, scratch)
     dsa = (ctypes.c_int32 * len(ds))(*ds)
+    grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib().sw_striped_block_launch(
             int(mode), 0 if tb is None else 1, dsa, len(ds), int(t), int(i0),
@@ -523,17 +605,19 @@ def striped_block(S, n, m, rows, box, above, best, best_i, acc, tb, *,
             box.data_ptr(), above.data_ptr(), best.data_ptr(),
             best_i.data_ptr(), acc.data_ptr(),
             None if tb is None else tb.data_ptr(),
-            0 if tb is None else tb.shape[1], *pen,
-            torch.cuda.current_stream(dev).cuda_stream,
+            0 if tb is None else tb.shape[1], *pen, L, E, scratch.data_ptr(),
+            ctypes.byref(grid), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K12 (striped block fill)")
+    return {"tiles": tiles, "lanes": 32 * L, "E": E, "blocks": grid.value}
 
 
-def striped_grid(S, n, m, rows, best, best_i, acc, ck, *, C: int, mode: int,
-                 pen) -> None:
+def striped_grid(S, n, m, best, best_i, acc, ck, *, C: int, mode: int, pen,
+                 scratch=None) -> dict:
     """Launch K13 (csrc/striped_fill.cu) on the current stream: the whole
     single-device fill of ``S`` (B, NP, MP) f32 or int8; ``ck`` is None or
-    the (ckm, ckx, cky) checkpoints (B, NP // C, MP) f32; see
+    the (ckm, ckx, cky) checkpoints (B, NP // C, MP) f32; the tiling,
+    ``scratch`` and the return as :func:`striped_block`'s; see
     parallel/seq_tiled."""
     dev = S.device
     if dev.type != "cuda":
@@ -544,7 +628,6 @@ def striped_grid(S, n, m, rows, best, best_i, acc, ck, *, C: int, mode: int,
     B, NP, MP = S.shape
     _check(S, "S", S.dtype, dev)
     _check_lengths(B, dev, "K13", n=n, m=m)
-    _check(rows, "rows", torch.float32, dev, (2, 3, B, MP))
     _check(best, "best", torch.float32, dev, (B, MP))
     _check(best_i, "best_i", torch.int32, dev, (B, MP))
     _check(acc, "acc", torch.float32, dev, (B, 4))
@@ -554,12 +637,15 @@ def striped_grid(S, n, m, rows, best, best_i, acc, ck, *, C: int, mode: int,
         for name, a in zip(("ckm", "ckx", "cky"), ck):
             _check(a, name, torch.float32, dev, (B, NP // C, MP))
     cks = (None,) * 3 if ck is None else tuple(a.data_ptr() for a in ck)
+    L, E, tiles, scratch = _striped_tiling(MP, NP, B, dev, scratch)
+    grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib().sw_striped_grid_launch(
             int(mode), 1 if S.dtype == torch.int8 else 0, S.data_ptr(), B, NP,
             MP, n.data_ptr(), m.data_ptr(), 0 if ck is None else int(C),
-            rows.data_ptr(), best.data_ptr(), best_i.data_ptr(),
-            acc.data_ptr(), *cks, *pen,
+            best.data_ptr(), best_i.data_ptr(), acc.data_ptr(), *cks, *pen,
+            L, E, scratch.data_ptr(), ctypes.byref(grid),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K13 (striped grid fill)")
+    return {"tiles": tiles, "lanes": 32 * L, "E": E, "blocks": grid.value}

@@ -47,23 +47,24 @@ _LIBS: dict = {}
 
 _vp, _i32, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
-# the striped fills' C signatures (csrc/striped_fill.cu), shared by the
-# kernels' launchers and the twin's entry points; the launchers add the
-# stream.  ds is a host array of int32 shard indices.
 # the long route's fills (csrc/longseq_fill.cu): mode, table, K,
 # code_bytes, codes1, codes2, n, m, B, NP, MP, C, then each fill's own
 LONG_FILL_ARGS = [
     _i32, _vp, _i32, _i32, _vp, _vp, _vp, _vp, _i64, _i64, _i64, _i32,
 ]
+# the striped fills' C signatures (csrc/striped_fill.cu), shared by the
+# kernels' launchers and the twin's entry points; the launchers add the
+# scratch, the grid's address and the stream, the twin the blocks in
+# flight.  ds is a host array of int32 shard indices.
 STRIPED_BLOCK_ARGS = [
     _i32, _i32, _vp, _i32, _i32, _i32, _i32, _i32, _i32,  # .. K, W, D
     _i64, _i64, _vp, _i64, _i64, _i64, _vp, _vp,        # B .. n, m
     _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,             # rows .. tb_rows
-] + [_f32] * 6
+] + [_f32] * 6 + [_i32, _i32]                            # pens, L, E
 STRIPED_GRID_ARGS = [
     _i32, _i32, _vp, _i64, _i64, _i64, _vp, _vp, _i32,   # .. n, m, C
-    _vp, _vp, _vp, _vp, _vp, _vp, _vp,                   # rows .. cky
-] + [_f32] * 6
+    _vp, _vp, _vp, _vp, _vp, _vp,                        # best .. cky
+] + [_f32] * 6 + [_i32, _i32]                            # pens, L, E
 
 
 def build_shared(name: str, compile_cmd: Sequence[str],
@@ -218,8 +219,8 @@ def twin_lib() -> ctypes.CDLL:
         i32, vp, vp, vp, vp, i64, i64, vp, vp,
     ]
     lib.sw_twin_striped_block.restype = i32
-    lib.sw_twin_striped_block.argtypes = STRIPED_BLOCK_ARGS
+    lib.sw_twin_striped_block.argtypes = STRIPED_BLOCK_ARGS + [i32]
     lib.sw_twin_striped_grid.restype = i32
-    lib.sw_twin_striped_grid.argtypes = STRIPED_GRID_ARGS
+    lib.sw_twin_striped_grid.argtypes = STRIPED_GRID_ARGS + [i32]
     _LIBS["twin"] = lib
     return lib

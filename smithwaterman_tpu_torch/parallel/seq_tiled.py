@@ -46,6 +46,9 @@ BIGI = 2 ** 30
 # launches made through the wrappers below (plain counts, read by
 # chip_smoke.py)
 LAUNCHES = {"K12": 0, "K13": 0}
+# each kernel's last launch's shape (ops/kernels.striped_block's return:
+# tiles, lanes, E, blocks), read by chip_smoke.py and scripts/ab_striped.py
+SHAPES: Dict[str, dict] = {}
 
 Ckpts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -264,15 +267,16 @@ def block_fill(S, n, m, rows, box, above, best, best_i, acc, tb, *, ds, t,
     from ..ops import kernels
 
     for k in range(0, len(ds), kernels.MAX_SHARDS):
-        kernels.striped_block(*state, ds=ds[k:k + kernels.MAX_SHARDS], **args)
+        SHAPES["K12"] = kernels.striped_block(
+            *state, ds=ds[k:k + kernels.MAX_SHARDS], **args)
         LAUNCHES["K12"] += 1
 
 
 # ------------------------------------------------------------ K13
 def grid_fill_ref(S, n, m, best, best_i, acc, ck, *, C, mode,
                   pen: Pen) -> None:
-    """Plain version of K13 (``ops/kernels.striped_grid`` without its row
-    scratch): the single-device fill of S (B, NP, MP) f32 or int8 row by
+    """Plain version of K13 (``ops/kernels.striped_grid``, the same
+    arguments): the single-device fill of S (B, NP, MP) f32 or int8 row by
     row with :func:`_row_cells`, into ``best`` / ``best_i`` (B, MP),
     ``acc`` (B, 4) and, when given, the checkpoints ``ck``."""
     dev = S.device
@@ -329,9 +333,8 @@ def grid_fill(S, n, m, *, mode: int, pen: Pen, C: Optional[int] = None):
     elif dev.type == "cuda":
         from ..ops import kernels
 
-        rows = torch.empty((2, 3, B, MP), dtype=torch.float32, device=dev)
-        kernels.striped_grid(S, n, m, rows, best, best_i, acc, ck, C=C or 0,
-                             mode=mode, pen=pen)
+        SHAPES["K13"] = kernels.striped_grid(S, n, m, best, best_i, acc, ck,
+                                             C=C or 0, mode=mode, pen=pen)
         LAUNCHES["K13"] += 1
     else:
         raise ValueError(f"no striped fill for device {dev}")

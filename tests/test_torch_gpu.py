@@ -809,7 +809,7 @@ def _striped_case(seed, NP=128, MP=512):
     table = SubstitutionMatrix.blosum62().table
     c1 = rng.integers(0, 20, size=(3, NP))
     c2 = rng.integers(0, 20, size=(3, MP))
-    k = min(100, NP - 10)
+    k = min(100, NP - 10, MP - 40)
     c2[0, 40:40 + k] = c1[0, 10:10 + k]
     S = np.stack([table[a[:, None], b[None, :]] for a, b in zip(c1, c2)])
     n = np.array([NP, 1, NP - 29], np.int32)
@@ -868,19 +868,28 @@ class _Lockstep:
         self.st.block_fill, self.st.grid_fill = self.real
 
 
+@pytest.mark.parametrize("plan", [None, (8, 1), (8, 3), (16, 2)])
 @pytest.mark.parametrize("mode", MODES)
-def test_striped_kernels_match_plain(cuda, mode):
+def test_striped_kernels_match_plain(cuda, mode, plan, monkeypatch):
     """K12 (D = 1, 2, 4 shards on one card: the checkpointed fill at D > 1
     and a seeded band re-fill with pointer bytes at every D) and K13 (the
     D = 1 checkpointed fill, f32, int8 and folded S) against their plain
-    versions, launch by launch."""
+    versions, launch by launch, at the launcher's tiling and at forced
+    ones (L lanes a thread, E rows a publication): shards of 512 lanes,
+    of 300 (not a multiple of the tile) and of 33 (under one tile); and a
+    fill of 320 pairs with more tiles than the card holds blocks, so that
+    the blocks take tickets again."""
+    from smithwaterman_tpu_torch.ops import kernels
     from smithwaterman_tpu_torch.parallel import make_mesh, seq_tiled
 
-    S, n, m = _striped_case(90 + mode)
-    St = torch.from_numpy(S).to(cuda)
+    if plan:
+        monkeypatch.setattr(kernels, "striped_plan", lambda *a: plan)
     before = dict(seq_tiled.LAUNCHES)
     with _Lockstep() as ls:
-        for D in (1, 2, 4):
+        for D, MP in ((1, 512), (2, 1024), (4, 2048), (1, 300), (2, 600),
+                      (4, 1200), (4, 132)):
+            S, n, m = _striped_case(90 + mode + MP, MP=MP)
+            St = torch.from_numpy(S).to(cuda)
             mesh = make_mesh(devices=[cuda] * D)
             for K, og, eg in ((8, -10.0, -0.5), (64, -10.3, -0.7),
                               (16, 0.0, 0.0)):
@@ -890,11 +899,25 @@ def test_striped_kernels_match_plain(cuda, mode):
                 seq_tiled.striped_band_tb(St[:, 64:], n, m, 64,
                                           *(a[:, 0] for a in ck), **kw)
         mesh = make_mesh(devices=[cuda])
+        S, n, m = _striped_case(90 + mode)
         S8 = torch.from_numpy(S[:1].astype(np.int8)).to(cuda)
         for x, folded in ((S8, False), (seq_tiled.fold_S(S8), True)):
             seq_tiled.striped_fill(x, n[:1], m[:1], mode=mode, og=-10.0,
                                    eg=-0.5, block_rows=8, mesh=mesh,
                                    folded=folded)
+        if plan == (8, 1):
+            rng = np.random.default_rng(mode)
+            Sb = torch.from_numpy(rng.integers(
+                -4, 12, size=(320, 32, 4096)).astype(np.float32)).to(cuda)
+            nb = rng.integers(1, 33, size=320).astype(np.int32)
+            mb = rng.integers(1, 4097, size=320).astype(np.int32)
+            for D in (1, 2):
+                seq_tiled.striped_fill_ckpt(
+                    Sb, nb, mb, mode=mode, og=-10.0, eg=-0.5, block_rows=16,
+                    ckpt_rows=16, mesh=make_mesh(devices=[cuda] * D))
+                k = "K13" if D == 1 else "K12"
+                shape = seq_tiled.SHAPES[k]
+                assert shape["blocks"] < shape["tiles"], (k, shape)
     torch.cuda.synchronize()
     assert ls.err == 0.0 and ls.launches > 0
     assert all(seq_tiled.LAUNCHES[k] > before[k] for k in before)
@@ -927,16 +950,19 @@ def test_striped_cuda_matches_cpu(cuda, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_striped_kernels_write_only_their_outputs(cuda, mode):
+def test_striped_kernels_write_only_their_outputs(cuda, mode, monkeypatch):
     """K12 (one step of shards 1 and 2 of four, with pointer bytes) and K13
-    (with checkpoints) launched on outputs fenced by canary bytes: every
-    canary stays intact and the outputs equal the plain versions'."""
+    (with checkpoints), each in tiles of 256 lanes, launched on outputs and
+    scratch fenced by canary bytes: every canary stays intact and the
+    outputs equal the plain versions'."""
     from smithwaterman_tpu_torch.ops import kernels
     from smithwaterman_tpu_torch.parallel import seq_tiled
 
-    S, n, m = _striped_case(99 + mode, NP=64, MP=256)
+    S, n, m = _striped_case(99 + mode, NP=64, MP=2048)
     B, NP, MP = S.shape
-    D, K, W = 4, 16, 64
+    D, K, W = 4, 16, 512
+    # tiles of 256 lanes: two a shard, eight a K13 row
+    monkeypatch.setattr(kernels, "striped_plan", lambda *a: (8, 3))
     St = torch.from_numpy(S).to(cuda)
     nt, mt = (torch.from_numpy(a).to(cuda) for a in (n, m))
     pen = seq_tiled.make_pen(mode, -10.0, -0.5)
@@ -966,10 +992,14 @@ def test_striped_kernels_write_only_their_outputs(cuda, mode):
     ref = {k: v.clone() for k, v in state.items()}
     args = dict(ds=[1, 2], t=2, i0=0, K=K, W=W, s_lo=0, mode=mode, pen=pen)
     order = ("rows", "box", "above", "best", "best_i", "acc", "tb")
-    kernels.striped_block(St, nt, mt, *(state[k] for k in order), **args)
+    words = kernels.striped_scratch_words(2 * B * 2, K)
+    arenas["k12 scratch"], scratch = _fenced(4 * words, torch.int32, cuda)
+    kernels.striped_block(St, nt, mt, *(state[k] for k in order), **args,
+                          scratch=scratch)
     seq_tiled.block_ref(St, nt, mt, *(ref[k] for k in order), **args)
     outs = {}
-    for name, shape, dtype in (("rows", (2, 3, B, MP), torch.float32),
+    for name, shape, dtype in (("scratch", (kernels.striped_scratch_words(
+                                    B * 8, NP),), torch.int32),
                                ("best", (B, MP), torch.float32),
                                ("best_i", (B, MP), torch.int32),
                                ("acc", (B, 4), torch.float32),
@@ -980,10 +1010,9 @@ def test_striped_kernels_write_only_their_outputs(cuda, mode):
             .element_size()
         arenas["k13 " + name], t = _fenced(nbytes, dtype, cuda)
         outs[name] = t.view(shape)
-    kernels.striped_grid(St, nt, mt, outs["rows"], outs["best"],
-                         outs["best_i"], outs["acc"],
-                         (outs["ckm"], outs["ckx"], outs["cky"]), C=16,
-                         mode=mode, pen=pen)
+    kernels.striped_grid(St, nt, mt, outs["best"], outs["best_i"],
+                         outs["acc"], (outs["ckm"], outs["ckx"], outs["cky"]),
+                         C=16, mode=mode, pen=pen, scratch=outs["scratch"])
     torch.cuda.synchronize()
     for name, arena in arenas.items():
         assert bool((arena[:GUARD] == CANARY).all()), name

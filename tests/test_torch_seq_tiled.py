@@ -38,7 +38,7 @@ from smithwaterman_tpu.ops import longseq as jlongseq
 from smithwaterman_tpu.parallel import make_mesh as jax_mesh
 from smithwaterman_tpu.parallel import seq_tiled as jst
 from smithwaterman_tpu_torch.config import GLOBAL, GLOCAL, LOCAL
-from smithwaterman_tpu_torch.ops import longseq, native
+from smithwaterman_tpu_torch.ops import kernels, longseq, native
 from smithwaterman_tpu_torch.parallel import make_mesh, seq_tiled
 from smithwaterman_tpu_torch.utils.convert import from_jax_striped
 
@@ -369,39 +369,51 @@ def test_walk_band_matches_jax():
 
 
 # ------------------------------------------------------------ the twin
+# the H100's SMs: the twin takes the tiling the launcher would take there
+TWIN_SMS = 132
+BLOCK_STATE = ("rows", "box", "above", "best", "best_i", "acc", "tb")
+
+
 def _twin_block(S, n, m, rows, box, above, best, best_i, acc, tb, *, ds, t,
-                i0, K, W, s_lo, mode, pen):
-    """seq_tiled.block_ref's contract, run by the g++ twin of K12."""
+                i0, K, W, s_lo, mode, pen, plan=None, blocks=0):
+    """seq_tiled.block_ref's contract, run by the g++ twin of K12 with the
+    tiling ``plan`` (L, E) (the launcher's when None) and ``blocks`` tiles
+    in flight (0: all)."""
     ds_arr = np.asarray(ds, np.int32)
     B_, MP_ = best.shape
+    L, E = plan or kernels.striped_plan(W, K, len(ds) * B_, TWIN_SMS)
     rc = native.twin_lib().sw_twin_striped_block(
         mode, 0 if tb is None else 1, ds_arr.ctypes.data, len(ds), t, i0,
         K, W, above.shape[0], B_, MP_, S.data_ptr(), S.stride(0),
         S.stride(1), s_lo, n.data_ptr(), m.data_ptr(), rows.data_ptr(),
         box.data_ptr(), above.data_ptr(), best.data_ptr(), best_i.data_ptr(),
         acc.data_ptr(), None if tb is None else tb.data_ptr(),
-        0 if tb is None else tb.shape[1], *pen)
-    assert rc == 0
+        0 if tb is None else tb.shape[1], *pen, L, E, blocks)
+    assert rc == 0, rc
 
 
-def _twin_grid(S, n, m, best, best_i, acc, ck, *, C, mode, pen):
-    """seq_tiled.grid_fill_ref's contract, run by the g++ twin of K13."""
+def _twin_grid(S, n, m, best, best_i, acc, ck, *, C, mode, pen, plan=None,
+               blocks=0):
+    """seq_tiled.grid_fill_ref's contract, run by the g++ twin of K13 (the
+    tiling as _twin_block's)."""
     B_, NP_, MP_ = S.shape
-    rows = torch.empty((2, 3, B_, MP_), dtype=torch.float32)
+    L, E = plan or kernels.striped_plan(MP_, NP_, B_, TWIN_SMS)
     cks = (None,) * 3 if ck is None else tuple(a.data_ptr() for a in ck)
     rc = native.twin_lib().sw_twin_striped_grid(
         mode, 1 if S.dtype == torch.int8 else 0, S.data_ptr(), B_, NP_, MP_,
-        n.data_ptr(), m.data_ptr(), 0 if ck is None else C, rows.data_ptr(),
-        best.data_ptr(), best_i.data_ptr(), acc.data_ptr(), *cks, *pen)
-    assert rc == 0
+        n.data_ptr(), m.data_ptr(), 0 if ck is None else C,
+        best.data_ptr(), best_i.data_ptr(), acc.data_ptr(), *cks, *pen, L, E,
+        blocks)
+    assert rc == 0, rc
 
 
 @pytest.mark.parametrize("mode", MODES)
 def test_twin_matches_plain_across_shard_edges(mode, monkeypatch):
-    """K12's and K13's twin in place of the plain versions: the checkpointed
-    fill and a band re-fill at D = 2 (W = 4500: rows of three column tiles,
-    the last one partial) and D = 4 (W = 33), and the grid fill of f32 and
-    int8 scores, every output equal to the plain versions'."""
+    """K12's and K13's twin in place of the plain versions, at the
+    launcher's tiling: the checkpointed fill and a band re-fill at D = 2
+    (W = 4500: rows of nine column tiles, the last one partial) and D = 4
+    (W = 33), and the grid fill of f32 and int8 scores, every output equal
+    to the plain versions'."""
     rng = np.random.default_rng(23 + mode)
     for D, mp in ((2, 9000), (4, 132)):
         c1 = rng.integers(0, 24, size=(2, 64))
@@ -428,7 +440,7 @@ def test_twin_matches_plain_across_shard_edges(mode, monkeypatch):
             assert torch.equal(a, w)
         assert torch.equal(got[2], want[2])
     S, n, m = _grid_input()
-    S = np.concatenate([S] * 5, axis=2)  # 5120 columns: three tiles a row
+    S = np.concatenate([S] * 5, axis=2)  # 5120 columns: several tiles a row
     m[0] = 4999
     pen = seq_tiled.make_pen(mode, -10.3, -0.7)
     for S_ in (torch.from_numpy(S * np.float32(0.37)),
@@ -442,3 +454,85 @@ def test_twin_matches_plain_across_shard_edges(mode, monkeypatch):
             assert torch.equal(a, w)
         for a, w in zip(got[3], want[3]):
             assert torch.equal(a, w)
+
+
+def _lockstep(monkeypatch, plan, blocks):
+    """Every K12 / K13 call of seq_tiled on the CPU runs the plain version
+    on copies of its inputs and the twin (tiling ``plan``, ``blocks`` tiles
+    in flight) on the inputs, and asserts every output equal.  Returns the
+    count of calls a kernel."""
+    calls = {"K12": 0, "K13": 0}
+    real_block, real_grid = seq_tiled.block_ref, seq_tiled.grid_fill_ref
+
+    def block(*state, **kw):
+        ref = [None if a is None else a.clone() for a in state]
+        real_block(*ref, **kw)
+        _twin_block(*state, **kw, plan=plan, blocks=blocks)
+        for name, a, r in zip(BLOCK_STATE, state[3:], ref[3:]):
+            assert a is None or torch.equal(a, r), (name, kw)
+        calls["K12"] += 1
+
+    def grid(S, n, m, best, best_i, acc, ck, **kw):
+        outs = [best, best_i, acc] + list(ck or ())
+        ref = [torch.empty_like(a) for a in outs]
+        real_grid(S, n, m, *ref[:3], ref[3:] or None, **kw)
+        _twin_grid(S, n, m, best, best_i, acc, ck, **kw, plan=plan,
+                   blocks=blocks)
+        for a, r in zip(outs, ref):
+            assert torch.equal(a, r), kw
+        calls["K13"] += 1
+
+    monkeypatch.setattr(seq_tiled, "block_ref", block)
+    monkeypatch.setattr(seq_tiled, "grid_fill_ref", grid)
+    return calls
+
+
+@pytest.mark.parametrize("plan, blocks", [
+    (None, 0),     # the launcher's tiling, every tile in flight
+    ((8, 1), 0),   # tiles of 256 lanes, an edge published every row
+    ((8, 3), 2),   # every 3 rows, two tiles in flight (tickets reused)
+    ((8, 2), 1),   # one tile at a time, in ticket order
+])
+@pytest.mark.parametrize("mode", MODES)
+def test_twin_tiles_match_plain_launch_by_launch(mode, plan, blocks,
+                                                 monkeypatch):
+    """K12's and K13's twin beside the plain versions, every launch, every
+    output (row state, outbox and above edges, per-lane bests and rows,
+    accumulators, pointer bytes, checkpoints), across tile edges: W = 300
+    (not a multiple of the tile) at D = 1, 2 and 4 shards, W = 33 (under
+    one tile) at D = 4, lengths down to 1, og = -10.3 and eg = -0.7, and
+    int8 scores at D = 1."""
+    calls = _lockstep(monkeypatch, plan, blocks)
+    rng = np.random.default_rng(31 + mode)
+    for D, W in ((1, 300), (2, 300), (4, 300), (4, 33)):
+        mp = D * W
+        c1 = rng.integers(0, 24, size=(3, 48))
+        c2 = rng.integers(0, 24, size=(3, mp))
+        c2[0, 7:47] = c1[0, 3:43]
+        S = _scores(c1, c2, 0.37)
+        n = np.array([48, 1, 29], np.int32)
+        m = np.array([mp, mp // 3 + 1, 1], np.int32)
+        kw = dict(mode=mode, og=-10.3, eg=-0.7, block_rows=8,
+                  mesh=make_mesh(devices=["cpu"] * D))
+        _, ck = seq_tiled.striped_fill_ckpt(S, n, m, ckpt_rows=16, **kw)
+        seq_tiled.striped_band_tb(S[:, 16:32], n, m, 16,
+                                  *(a[:, 0] for a in ck), **kw)
+    S8 = torch.from_numpy(S[:1].astype(np.int8))
+    seq_tiled.striped_fill(S8, n[:1], m[:1], mode=mode, og=-10.3, eg=-0.7,
+                           block_rows=8, mesh=make_mesh(devices=["cpu"]))
+    assert calls["K12"] > 0 and calls["K13"] == 2
+
+
+def test_striped_plan():
+    """The launcher's tiling at phase 14's shapes on an H100 (132 SMs):
+    K13 over 65,536 lanes takes 128 tiles of 512 lanes and publishes every
+    4 rows; K12's steps of 64 rows at D = 4 (32 tiles a shard) and the band
+    re-fill (128) publish every row; a narrow fill of many rows takes the
+    narrower tiles."""
+    assert kernels.striped_plan(65536, 2048, 1, TWIN_SMS) == (16, 4)
+    assert kernels.striped_plan(16384, 64, 4, TWIN_SMS) == (16, 1)
+    assert kernels.striped_plan(65536, 64, 1, TWIN_SMS) == (16, 1)
+    assert kernels.striped_plan(2048, 512, 1, TWIN_SMS) == (8, 8)
+    assert kernels.striped_plan(32768, 2048, 1, TWIN_SMS) == (8, 4)
+    assert kernels.striped_plan(4096, 512, 8, TWIN_SMS) == (8, 4)
+    assert kernels.striped_plan(33, 8, 4, TWIN_SMS) == (8, 2)
