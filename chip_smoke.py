@@ -48,11 +48,13 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    go = 10, ge = 0.5, default pointer budget, in all three modes.  Only
    K3, K4 and K5 may launch; each alignment re-scored from its strings
    must equal its score, GLOBAL and GLOCAL alignments must consume every
-   residue and LOCAL ones reach 90 % identity.  Then K3 (LOCAL, about a
-   minute for its plain version), K4 (one group of bands in one launch,
-   one band alone, every band in the route's groups) and K5 run at these
-   shapes beside their plain versions, equal and timed, with the SM clock
-   read during K3;
+   residue and LOCAL ones reach 90 % identity; K5 launches once a group
+   of bands (48 over the three modes).  Then K3 (LOCAL, its plain version
+   beside it), K4 (one group of bands in one launch, one band alone, every
+   band in the route's groups) and K5 (every group launch of a GLOBAL
+   mode, each against the plain walk of the same bands from the same
+   state) run at these shapes, equal and timed, with the SM clock read
+   during K3;
 9. the banded kernels K6 (scores), K7 (fill) and K8 (walk) against their
    plain versions: 8 ragged protein pairs up to 2048 a side (lengths down
    to 1, m - n from -300 to +300, one pair with tied maxima), bands of 128
@@ -74,7 +76,10 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    LOCAL through the verified ``Aligner.align_banded(band=1024)``: the band
    used must be at most 2048, the score the full DP's, the trimmed
    strings must re-score to it at 85 % identity or more; cold and warm
-   walls, peak device memory and ``phase_probe``'s stages are printed;
+   walls, peak device memory and ``phase_probe``'s stages are printed, and
+   K7 at the verified band's launch is held against its plain version.
+   At 10a and 10b K7's launch shape (rows a lane, stripes, blocks) is
+   printed, and the phase fails if a pair's stripes ran on one block;
 11. the opt-in routes' kernels against their plain versions: K9 (the
    wavefront score fill) on ragged pairs down to length 1 with NP not a
    multiple of the strip width, at (go, ge) = (10, 0.5), (0, 0) and (5, 2)
@@ -161,6 +166,9 @@ STEP_OPS = 12
 # Y1 + eg, X1 + eg in xpre, Wd + s), 7 maxima (T0, xpre, Y, M, two for W,
 # the running best)
 DIAG_CELL_FLOPS = 11
+# cycles of one dependent shared-memory read on an H100 (the latency
+# microbenchmarks of Hopper report, not measured here): K5's step chain
+SMEM_STEP_CYCLES = 30
 # integer operations of sw_cell.cuh's run_byte() a cell (field extraction
 # 2, compares 5, the increment, the pack 2), counted at the f32 rate
 RUN_OPS = 10
@@ -330,6 +338,32 @@ def event_ms(fn):
     return start.elapsed_time(end), out
 
 
+def cpu_ms(fn, *tensors):
+    """Host-clock time (ms) and result of ``fn`` on CPU copies of
+    ``tensors``: the plain versions of K5 and K7 run on the CPU, where
+    their thousands of small operations a row or a step cost less than as
+    launches on the card (the same function on the same inputs)."""
+    import torch
+
+    args = [t.cpu() for t in tensors]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def matches(moves, cnt):
+    """Match moves (state 0) among each pair's first cnt packed moves
+    (``ops/device_walk``'s packing: move t at bits 2 (t & 3) of byte
+    t >> 2), summed over the pairs."""
+    import torch
+
+    states = torch.stack([(moves.long() >> (2 * q)) & 3 for q in range(4)],
+                         dim=1).reshape(-1, moves.shape[1])
+    t = torch.arange(states.shape[0], device=moves.device)[:, None]
+    return int(((states == 0) & (t < cnt.long()[None, :])).sum())
+
+
 def timed(fn, reps):
     """Mean CUDA-event time of ``reps`` back-to-back calls (ms) and the last
     result."""
@@ -434,13 +468,11 @@ def phase9(dev, card, modes):
             fail(f"K6 {what}: differs from the plain scores")
         kw = dict(mode=mode, og=og, eg=eg)
         ms, (tb, st) = event_ms(lambda: banded.fill_banded(S, n, m, **kw))
-        pms, (rtb, rst) = event_ms(lambda: banded.fill_banded_ref(S, n, m,
-                                                                  **kw))
+        pms, (rtb, rst) = cpu_ms(
+            lambda *a: banded.fill_banded_ref(*a, **kw), S, n, m)
         sums["K7"][0] += ms
         sums["K7"][1] += pms
-        if not torch.equal(st, rst) or any(
-                not torch.equal(tb[b, :x], rtb[b, :x])
-                for b, x in enumerate(pk.n.tolist())):
+        if k7_diff(tb.cpu(), st.cpu(), rtb, rst, pk.n) != 0.0:
             fail(f"K7 {what}: stats or pointer bytes differ from the plain "
                  "fill")
         start, _ = banded.walk_starts(st.cpu().numpy(), pk, mode)
@@ -499,9 +531,19 @@ def phase9(dev, card, modes):
         "pointer byte of rows i <= n, stats, indices, counts and flags equal "
         "to the plain versions; a corrupted band sets flag bit 1 in both "
         "walks and align_banded_batch raises BandExceeded; summed ms kernel "
-        "/ plain: " + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
+        "/ plain (K7's on the CPU): " + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
                                 for k, v in sums.items()) + f"; on {card}")
     return sums
+
+
+def k7_diff(tb, st, rtb, rst, n):
+    """Largest |difference| of two banded fills' stats and pointer bytes in
+    each pair's rows i <= n."""
+    err = float((st - rst).abs().max())
+    for b, x in enumerate(n.tolist()):
+        err = max(err, float((tb[b, :x].int() - rtb[b, :x].int())
+                             .abs().max()))
+    return err
 
 
 def trimmed_core(a1: str, a2: str):
@@ -624,14 +666,14 @@ def phase10(dev, card, modes):
     del lS, cols, valid, colc
     kw = dict(mode=LOCAL, og=og, eg=eg)
     banded.fill_banded(S, n, m, **kw)
-    k7_ms, (tb, st) = event_ms(lambda: banded.fill_banded(S, n, m, **kw))
-    k7_plain_ms, (rtb, rst) = event_ms(lambda: banded.fill_banded_ref(
-        S, n, m, **kw))
-    k7_err = float((st - rst).abs().max())
-    for b, x in enumerate(pk.n.tolist()):
-        k7_err = max(k7_err, float((tb[b, :x].int() - rtb[b, :x].int())
-                                   .abs().max()))
+    k7_ms, (tb, st) = timed(lambda: banded.fill_banded(S, n, m, **kw), 3)
+    k7_shape = dict(banded.SHAPES["K7"])
+    k7_plain_ms, (rtb, rst) = cpu_ms(
+        lambda *a: banded.fill_banded_ref(*a, **kw), S, n, m)
+    k7_err = k7_diff(tb.cpu(), st.cpu(), rtb, rst, pk.n)
     del rtb
+    if k7_shape["blocks"] <= B:
+        fail(f"phase 10a: a pair's stripes on one block: K7 {k7_shape}")
     start, _ = banded.walk_starts(st.cpu().numpy(), pk, LOCAL)
     off, start = (torch.from_numpy(a).to(dev) for a in (pk.offs, start))
     L = banded.path_len(pk)
@@ -655,8 +697,9 @@ def phase10(dev, card, modes):
         f"LOCAL) on {card}: K6 {k6_ms:.4f} ms vs plain {k6_plain_ms:.3f} ms "
         f"vs one indexing expression {lib_ms:.4f} ms, bound "
         f"{k6_bound[0]:.4f} ms; K7 {k7_ms:.3f} ms ({cells} band cells, "
-        f"{k7_ms * 1e6 / NP:.1f} ns a row) vs plain {k7_plain_ms:.3f} ms, "
-        f"bound {k7_bound[0]:.4f} ms; K8 {k8_ms:.4f} ms ({steps} steps) vs "
+        f"{k7_ms * 1e6 / NP:.1f} ns a band row; R {k7_shape['rows']}, "
+        f"{k7_shape['stripes']} stripes, {k7_shape['blocks']} blocks) vs "
+        f"plain (CPU) {k7_plain_ms:.3f} ms, bound {k7_bound[0]:.4f} ms; K8 {k8_ms:.4f} ms ({steps} steps) vs "
         f"plain {k8_plain_ms:.3f} ms, bound {k8_bound[0]:.6f} ms; all equal "
         "to the plain versions")
     del S, tb, got, want
@@ -699,6 +742,24 @@ def phase10(dev, card, modes):
     probes = {w: banded.phase_probe(a, b, table, mode=LOCAL, og=og, eg=eg,
                                     band=w, device=dev)
               for w in sorted({GIANT_BAND, band_used})}
+    # K7 at the verified band's launch against its plain version
+    gp = banded.pack([(a, b)], band_used, table.shape[0])
+    g1, g2, gn, gm = (torch.from_numpy(x).to(dev)
+                      for x in (gp.codes1, gp.codes2, gp.n, gp.m))
+    gS = banded.banded_scores(tab, g1, g2, gn, gm, W=gp.W)
+    banded.fill_banded(gS, gn, gm, **kw)
+    gk7_ms, (gtb, gst) = timed(lambda: banded.fill_banded(gS, gn, gm, **kw),
+                               3)
+    g_shape = dict(banded.SHAPES["K7"])
+    gk7_plain_ms, (grtb, grst) = cpu_ms(
+        lambda *a: banded.fill_banded_ref(*a, **kw), gS, gn, gm)
+    gk7_err = k7_diff(gtb.cpu(), gst.cpu(), grtb, grst, gp.n)
+    del gS, gtb, grtb
+    if gk7_err != 0.0:
+        fail(f"phase 10b: K7 at W={gp.W} differs from the plain fill by "
+             f"{gk7_err}")
+    if g_shape["blocks"] <= 1:
+        fail(f"phase 10b: the pair's stripes on one block: K7 {g_shape}")
     say(f"phase 10b: {len(s1)} x {len(s2)} protein pair, LOCAL, verified "
         f"Aligner.align_banded(band={GIANT_BAND}): score {r.score} equal to "
         f"the full DP's (long route, {t_full:.3f} s; strings "
@@ -707,7 +768,11 @@ def phase10(dev, card, modes):
         f"{rc}, identity {ident:.4f}; cold wall {cold:.4f} s (launches "
         f"{json.dumps(gcounts)}), warm wall {warm:.4f} s, peak device memory "
         f"{peak / 1e9:.3f} GB; phase_probe " + json.dumps(
-            {str(w): p for w, p in probes.items()}) + f"; on {card}")
+            {str(w): p for w, p in probes.items()}) + f"; K7 at W={gp.W} "
+        f"{gk7_ms:.3f} ms ({gk7_ms * 1e6 / gp.codes1.shape[1]:.1f} ns a band "
+        f"row; R {g_shape['rows']}, {g_shape['stripes']} stripes, "
+        f"{g_shape['blocks']} blocks) vs plain (CPU) {gk7_plain_ms:.3f} ms, "
+        f"equal; on {card}")
 
     out = []
     for name, src, repl, k, err, ms, pms, bd, lib in (
@@ -1983,9 +2048,9 @@ def main() -> int:
                          "plain refill")
                 rbands[sk] = rband
                 kw = dict(sk=sk, C=C, MP=NP6, L=L, local=mode == LOCAL)
-                ms, _ = event_ms(lambda: longseq.walk_segments(
+                ms, _ = event_ms(lambda: longseq.walk_segment(
                     band, walk, cnt, mv, **kw))
-                pms, _ = event_ms(lambda: longseq.walk_segments_ref(
+                pms, _ = event_ms(lambda: longseq.walk_segment_ref(
                     band, rwalk, rcnt, rmv, **kw))
                 p6["K5"][0] += ms
                 p6["K5"][1] += pms
@@ -2145,42 +2210,64 @@ def main() -> int:
     clock_mhz = sm_clock_mhz()
     torch.cuda.synchronize()
     L8 = NP8 + MP8 + 2
-    walk = longseq.walk_start(st, un, um, GLOBAL)
-    cnt = torch.zeros(B8, dtype=torch.int32, device=dev)
-    mv = torch.zeros((-(-L8 // 4), B8), dtype=torch.uint8, device=dev)
     nck8 = longseq.n_ckpts(NP8, C)
     G8 = longseq.group_bands(B8, NP8, MP8, batch.tb_budget(), C)
     bands = torch.empty((G8, B8, longseq.band_bytes(C, MP8)),
                         dtype=torch.uint8, device=dev)
-    top = nck8 - 1
-    while True:  # the route's groups, top down, to the first full group
+    # every group of the mode as the route takes it, top down: K4 refills
+    # it, K5 walks it in one launch, and the plain walk the same bands from
+    # the same state; K4 is held against its plain refill on the first
+    # group of full bands
+    walk = longseq.walk_start(st, un, um, GLOBAL)
+    cnt = torch.zeros(B8, dtype=torch.int32, device=dev)
+    mv = torch.zeros((-(-L8 // 4), B8), dtype=torch.uint8, device=dev)
+    rwalk, rcnt, rmv = walk.cpu(), cnt.cpu(), mv.cpu()
+    k4_ms = k4_plain_ms = None
+    k4_err = k5_err = 0.0
+    k5_ms = k5_plain_ms = 0.0
+    k5_groups, k5_bands = [], 0
+    for top in range(nck8 - 1, -1, -G8):
         sk0 = max(0, top - G8 + 1)
-        if top - sk0 + 1 == G8 and (top + 1) * C <= int(ch8.n.min()):
-            break
-        if sk0 == 0:
-            fail("phase 8: no group of full bands")
-        longseq.fill_bands(tab8, u1, u2, un, um, ck, bands[:top - sk0 + 1],
-                           sk0=sk0, **args)
-        for sk in range(top, sk0 - 1, -1):
-            longseq.walk_segments(bands[sk - sk0], walk, cnt, mv, sk=sk, C=C,
-                                  MP=MP8, L=L8, local=False)
-        top = sk0 - 1
-    k4_ms, _ = event_ms(lambda: longseq.fill_bands(
-        tab8, u1, u2, un, um, ck, bands, sk0=sk0, **args))
-    rbands = torch.zeros_like(bands)
-    k4_plain_ms, _ = event_ms(lambda: longseq.fill_bands_ref(
-        tab8, u1, u2, un, um, ck, rbands, sk0=sk0, **args))
-    k4_err = max(band_err(bands[g], rbands[g], ch8.n, ch8.m, C, MP8, sk0 + g)
-                 for g in range(G8))
+        g = top - sk0 + 1
+        group = bands[:g]
+        ms, _ = event_ms(lambda: longseq.fill_bands(
+            tab8, u1, u2, un, um, ck, group, sk0=sk0, **args))
+        if k4_ms is None and g == G8 and (top + 1) * C <= int(ch8.n.min()):
+            k4_ms, k4_sk0, k4_top = ms, sk0, top
+            rbands = torch.zeros_like(bands)
+            k4_plain_ms, _ = event_ms(lambda: longseq.fill_bands_ref(
+                tab8, u1, u2, un, um, ck, rbands, sk0=sk0, **args))
+            k4_err = max(band_err(bands[q], rbands[q], ch8.n, ch8.m, C, MP8,
+                                  sk0 + q) for q in range(G8))
+            del rbands
+        kw = dict(sk0=sk0, C=C, MP=MP8, L=L8, local=False)
+        ms, _ = event_ms(lambda: longseq.walk_segments(group, walk, cnt, mv,
+                                                       **kw))
+        pms, _ = cpu_ms(lambda gc: longseq.walk_segments_ref(
+            gc, rwalk, rcnt, rmv, **kw), group)
+        k5_ms += ms
+        k5_plain_ms += pms
+        k5_groups.append(ms)
+        k5_bands += g
+        k5_err = max(k5_err, state_err((walk.cpu(), cnt.cpu(), mv.cpu()),
+                                       (rwalk, rcnt, rmv)))
+    if k4_ms is None:
+        fail("phase 8: no group of full bands")
     if k4_err != 0.0:
-        fail(f"K4 at phase 8's shapes, bands {sk0}..{top}: max error "
+        fail(f"K4 at phase 8's shapes, bands {k4_sk0}..{k4_top}: max error "
              f"{k4_err}")
-    del rbands
+    if k5_err != 0.0:
+        fail(f"K5 at phase 8's shapes: a group walk differs from the plain "
+             f"walk by {k5_err}")
+    if not bool((walk[:, 3] == 1).all()):
+        fail("phase 8: a GLOBAL walk did not reach (0, 0)")
+    sk0, top = k4_sk0, k4_top
     band_cells = sum(min(C, max(int(x) - (sk0 + g) * C, 0)) * int(y)
                      for g in range(G8) for x, y in zip(ch8.n, ch8.m))
     k4_bound = bound(CELL_FLOPS[GLOBAL] * band_cells,
                      band_cells + G8 * (12 * int(ch8.m.sum())
                                         + B8 * C + int(ch8.m.sum())))
+    longseq.fill_bands(tab8, u1, u2, un, um, ck, bands, sk0=sk0, **args)
     one = torch.empty_like(bands[0])
     k4_one_ms, _ = event_ms(lambda: longseq.fill_band(
         tab8, u1, u2, un, um, ck, one, sk=top, **args))
@@ -2196,27 +2283,17 @@ def main() -> int:
                                sk0=lo, **args)
 
     k4_all_ms, _ = event_ms(all_bands)
-    # walk the group timed above, then K5 on the next band down
-    longseq.fill_bands(tab8, u1, u2, un, um, ck, bands, sk0=sk0, **args)
-    for sk in range(top, sk0 - 1, -1):
-        longseq.walk_segments(bands[sk - sk0], walk, cnt, mv, sk=sk, C=C,
-                              MP=MP8, L=L8, local=False)
-    sk = sk0 - 1
-    band = bands[0]
-    longseq.fill_band(tab8, u1, u2, un, um, ck, band, sk=sk, **args)
-    rwalk, rcnt, rmv = walk.clone(), cnt.clone(), mv.clone()
-    cnt0 = int(cnt.sum())
-    kw = dict(sk=sk, C=C, MP=MP8, L=L8, local=False)
-    k5_ms, _ = event_ms(lambda: longseq.walk_segments(band, walk, cnt, mv,
-                                                      **kw))
-    k5_plain_ms, _ = event_ms(lambda: longseq.walk_segments_ref(
-        band, rwalk, rcnt, rmv, **kw))
-    k5_err = state_err((walk, cnt, mv), (rwalk, rcnt, rmv))
-    if k5_err != 0.0:
-        fail(f"K5 at phase 8's shapes, band {sk}: max error {k5_err}")
-    steps = int(cnt.sum()) - cnt0
+    # K5's bound: what the walks must read and write, a pointer byte a
+    # step, the moves and the states; beside it, as context, the bytes of
+    # the windows the kernel stages (C bytes a diagonal; a step crosses one
+    # diagonal, a match two) and the chain of the longest walk's steps at
+    # one dependent shared-memory read a step
+    steps = int(cnt.sum())
+    crossed = steps + matches(mv, cnt)
     k5_bound = bound(STEP_OPS * steps, steps + steps / 4 + 20 * B8)
-    del bands, band
+    k5_window_mb = C * crossed / 1e6
+    k5_chain_ms = int(cnt.max()) * SMEM_STEP_CYCLES / (clock_mhz * 1e3)
+    del bands
     # K3: SM-cycles a band-step (one warp's step over its band's C rows),
     # the card's SMs over every band's steps (sw_band.cuh band_steps:
     # m + 31 a band); K4 alone: a block of C / 32 one-row warps a band,
@@ -2234,9 +2311,16 @@ def main() -> int:
         f"launch) {k4_ms:.3f} ms vs plain {k4_plain_ms:.3f} ms, bound "
         f"{k4_bound[0]:.6f} ms; K4 one band {k4_one_ms:.3f} ms; K4 over all "
         f"{nck8} bands in {-(-nck8 // G8)} launches {k4_all_ms:.3f} ms; K5 "
-        f"(band {sk}, {steps} steps) {k5_ms:.3f} ms vs plain "
-        f"{k5_plain_ms:.3f} ms, bound {k5_bound[0]:.6f} ms; all equal to "
-        f"the plain versions; SM clock during K3 {clock_mhz:.0f} MHz: K3 "
+        f"(GLOBAL, every group of the mode: {len(k5_groups)} launches over "
+        f"{k5_bands} bands, {steps} steps) {k5_ms:.3f} ms, "
+        f"{k5_ms / len(k5_groups):.4f} ms a group, "
+        f"{k5_ms * 1e3 / k5_bands:.2f} us a band, vs plain (CPU) "
+        f"{k5_plain_ms:.3f} ms, bound {k5_bound[0]:.6f} ms (windows: "
+        f"{crossed} diagonals crossed, {k5_window_mb:.3f} MB; the longest "
+        f"walk's {int(cnt.max())} steps at {SMEM_STEP_CYCLES} cycles a "
+        f"shared-memory read: {k5_chain_ms:.4f} ms); "
+        "all equal to the plain versions; SM clock during K3 "
+        f"{clock_mhz:.0f} MHz: K3 "
         f"{k3_band_steps} band-steps on {sms} SMs, {k3_cyc:.1f} SM-cycles a "
         f"band-step; K4 one band {k4_steps} block steps, {k4_cyc:.1f} "
         "cycles a block step")
@@ -2250,8 +2334,9 @@ def main() -> int:
              "smithwaterman_tpu/ops/pallas_dp.py:958", "K4", k4_err, k4_ms,
              k4_plain_ms, k4_bound),
             ("K5 segment walk", "seg_walk.cu",
-             "smithwaterman_tpu/ops/longseq.py:277", "K5", k5_err, k5_ms,
-             k5_plain_ms, k5_bound)):
+             "smithwaterman_tpu/ops/longseq.py:277", "K5", k5_err,
+             k5_ms / len(k5_groups), k5_plain_ms / len(k5_groups),
+             (k5_bound[0] / len(k5_groups), k5_bound[1]))):
         records.append({
             "name": name, "route": "cuda",
             "source": f"smithwaterman_tpu_torch/csrc/{src}",

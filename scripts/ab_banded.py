@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Time the banded fill K7 of one or more source trees on one card.
+
+Usage, on a machine with an NVIDIA card::
+
+    python3 scripts/ab_banded.py TREE [TREE ...]
+
+Each TREE is a checkout of this repository (for an A/B, a ``git archive``
+export of the parent commit and one of the change, given in turns: parent,
+change, change, parent).  Each runs in a fresh process that builds that
+tree's kernels and prints one JSON line, on ``chip_smoke.py`` phase 10's
+inputs (BLOSUM62, go = 10, ge = 0.5):
+
+* 10a, 8 protein pairs of 12,000 at band 512 (W = 512): K7 (LOCAL, mean
+  of 3 launches after one to warm up) and a digest of its pointer bytes
+  (rows i <= n) and stats, equal across trees when the fills agree; in
+  each mode the wall of one ``align_banded_batch`` after one untimed call;
+* 10b, one pair of 32,768: K7 at the verified band's W (LOCAL, mean of 3)
+  with its digest, and the warm wall of the verified
+  ``Aligner.align_banded(band=1024)``.
+
+Times are CUDA events, walls host clocks around a synchronised call; the
+card's name and power limit come first.
+"""
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def inputs(tree: str):
+    """Phase 10's inputs on the card from TREE: (cs, banded, codes, table,
+    the 32k pair's codes, device)."""
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
+    from smithwaterman_tpu_torch.ops import banded, kernels
+
+    if not banded.__file__.startswith(tree):
+        raise SystemExit(f"imported {banded.__file__}, not {tree}")
+    kernels.build()
+    kernels.lib()
+    sm = SubstitutionMatrix.blosum62()
+    table = np.asarray(sm.table, np.float32)
+    rng = np.random.default_rng(cs.SEED)
+    pairs = [cs.mutated_pair(cs.BANDED_LEN, rng, cs.LETTERS)
+             for _ in range(cs.BANDED_PAIRS)]
+    codes = [(sm.seq_to_index(a), sm.seq_to_index(b)) for a, b in pairs]
+    s1, s2 = cs.mutated_pair(cs.GIANT_LEN, np.random.default_rng(cs.SEED),
+                             cs.LETTERS)
+    giant = (s1, s2, sm.seq_to_index(s1), sm.seq_to_index(s2))
+    return cs, banded, codes, table, giant, torch.device("cuda:0")
+
+
+def shapes(banded, codes, table, giant, band_used, dev):
+    """The K7 inputs of 10a and of 10b's verified band: {name: (S, n, m,
+    n numpy)}."""
+    import torch
+
+    out = {}
+    for name, pairs, band in (("10a", codes, 512),
+                              ("10b", [giant[2:]], band_used)):
+        pk = banded.pack(pairs, band, table.shape[0])
+        tab = torch.from_numpy(table).to(dev)
+        c1, c2, n, m = (torch.from_numpy(a).to(dev)
+                        for a in (pk.codes1, pk.codes2, pk.n, pk.m))
+        out[name] = (banded.banded_scores(tab, c1, c2, n, m, W=pk.W), n, m,
+                     pk.n)
+    return out
+
+
+def digest(tb, st, n) -> str:
+    h = hashlib.sha256(st.cpu().numpy().tobytes())
+    for b, x in enumerate(n.tolist()):
+        h.update(tb[b, :x].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def one(tree: str) -> dict:
+    import torch
+
+    cs, banded, codes, table, giant, dev = inputs(tree)
+    from smithwaterman_tpu_torch import GLOBAL, GLOCAL, LOCAL, Aligner
+
+    out = {"tree": tree}
+    kw = dict(mode=LOCAL, og=-10.0, eg=-0.5)
+    for mode, name in ((LOCAL, "local"), (GLOCAL, "glocal"),
+                       (GLOBAL, "global")):
+        run = lambda: banded.align_banded_batch(  # noqa: E731
+            codes, table, mode=mode, og=-10.0, eg=-0.5, band=cs.BANDED_BAND,
+            device=dev)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        out[f"wall_10a_{name}_s"] = time.perf_counter() - t0
+        out[f"scores_10a_{name}"] = [r[2] for r in res]
+    al = Aligner(mode=LOCAL, device=dev)
+    al.align_banded(giant[0], giant[1], band=cs.GIANT_BAND)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = al.align_banded(giant[0], giant[1], band=cs.GIANT_BAND)
+    out["wall_10b_s"] = time.perf_counter() - t0
+    out["score_10b"] = r.score
+    band_used = banded.align_banded_verified(
+        giant[2], giant[3], table, band=cs.GIANT_BAND, device=dev, **kw)[-1]
+    out["band_used_10b"] = band_used
+    for name, (S, n, m, nn) in shapes(banded, codes, table, giant, band_used,
+                                      dev).items():
+        banded.fill_banded(S, n, m, **kw)
+        out[f"k7_{name}_ms"], (tb, st) = cs.timed(
+            lambda: banded.fill_banded(S, n, m, **kw), 3)
+        out[f"k7_{name}_digest"] = digest(tb, st, nn)
+        if hasattr(banded, "SHAPES"):
+            out[f"k7_{name}_shape"] = dict(banded.SHAPES["K7"])
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        print(json.dumps(one(os.path.abspath(sys.argv[2]))), flush=True)
+        return 0
+    if len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], stdout=subprocess.PIPE,
+                         text=True, check=True).stdout.strip(), flush=True)
+    rc = 0
+    for tree in sys.argv[1:]:
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--one", tree]).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

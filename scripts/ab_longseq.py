@@ -13,29 +13,31 @@ tree's kernels and prints one JSON line, on ``chip_smoke.py`` phase 8's 4
 DNA pairs of 70,000 bp a side (match/mismatch 5 / -4, go = 10, ge = 0.5,
 C = 256):
 
-* the wall of one GLOBAL ``BatchAligner.align_pairs`` (the long route),
-  after one untimed call, and its peak device memory;
+* in each mode the wall of one ``BatchAligner.align_pairs`` (the long
+  route), after one untimed call, and its peak device memory;
 * K3 (LOCAL, mean of 3 launches after one to warm up);
 * K4 (GLOBAL): one band alone, and every band of the bucket as the tree's
   route refills them (one launch a band, or one a group where the tree
   has ``fill_bands``);
-* K5 on one band;
-* each kernel's largest difference from its plain version: K3 on the
-  pairs cut to 8,192 bp (the plain fill at 70 kb takes about a minute),
-  K4 and K5 on one band at 70 kb.
+* K5 (GLOBAL): the whole walk of the mode, group by group as the route
+  takes the groups, each group refilled by K4 (untimed) and then walked:
+  one K5 launch a band where the tree's ``walk_segments`` takes one band,
+  one a group where it takes a group (``sk0``); the K5 time summed, its
+  launches, and a digest of the final counts and moves, equal across
+  trees when the walks agree;
+* K4's largest difference from its plain version on one band.
 
 Times are CUDA events, walls host clocks around a synchronised call; the
 card's name and power limit come first.
 """
 
+import hashlib
+import inspect
 import json
 import os
 import subprocess
 import sys
 import time
-
-CUT = 8192  # K3's comparison with its plain version, bp a side
-
 
 def one(tree: str) -> dict:
     sys.path.insert(0, tree)
@@ -43,7 +45,7 @@ def one(tree: str) -> dict:
     import torch
 
     import chip_smoke as cs
-    from smithwaterman_tpu_torch import GLOBAL, LOCAL, BatchAligner
+    from smithwaterman_tpu_torch import GLOBAL, GLOCAL, LOCAL, BatchAligner
     from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
     from smithwaterman_tpu_torch.ops import batch, kernels, longseq
 
@@ -58,17 +60,19 @@ def one(tree: str) -> dict:
     pairs = [cs.mutated_pair(cs.DNA_LEN, rng, "ACGT")
              for _ in range(cs.DNA_PAIRS)]
     dna = SubstitutionMatrix.match_mismatch(5.0, -4.0)
-    eng = BatchAligner(scoring_matrix=dna, gap_open=10.0, gap_extend=0.5,
-                       mode=GLOBAL, device="cuda")
-    eng.align_pairs(pairs)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = eng.align_pairs(pairs)
-    torch.cuda.synchronize()
-    out["wall_global_s"] = time.perf_counter() - t0
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    out["scores"] = [r.score for r in res]
+    for mode, name in ((LOCAL, "local"), (GLOCAL, "glocal"),
+                       (GLOBAL, "global")):
+        eng = BatchAligner(scoring_matrix=dna, gap_open=10.0, gap_extend=0.5,
+                           mode=mode, device="cuda")
+        eng.align_pairs(pairs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = eng.align_pairs(pairs)
+        torch.cuda.synchronize()
+        out[f"wall_{name}_s"] = time.perf_counter() - t0
+        out[f"peak_{name}_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[f"scores_{name}"] = [r.score for r in res]
 
     ch = cs.one_chunk(pairs, dna)
     B, NP, MP = ch.shape
@@ -80,21 +84,6 @@ def one(tree: str) -> dict:
     out["k3_ms"], (st, _) = cs.timed(
         lambda: longseq.fill_checkpointed(tab, c1, c2, n, m, **args), 3)
     out["k3_stats"] = st.cpu().numpy()[:, :3].tolist()
-    # K3 against its plain version on the pairs cut to CUT bp
-    cut = [(a[:CUT], b[:CUT]) for a, b in pairs]
-    cc = cs.one_chunk(cut, dna)
-    v1, v2, vn, vm = (torch.from_numpy(a).to(dev) for a in cc)
-    got = longseq.fill_checkpointed(tab, v1, v2, vn, vm, **args)
-    ref = longseq.fill_checkpointed_ref(tab, v1, v2, vn, vm, **args)
-    err = float((got[0] - ref[0]).abs().max())
-    for b in range(len(cc.n)):
-        k, mb = int(cc.n[b]) // C, int(cc.m[b])
-        for a, r in zip(got[1], ref[1]):
-            if k:
-                err = max(err, float((a[b, :k, :mb] - r[b, :k, :mb])
-                                     .abs().max()))
-    out["k3_err"] = err
-    del got, ref
 
     args = dict(mode=GLOBAL, og=-10.0, eg=-0.5, C=C)
     st, ck = longseq.fill_checkpointed(tab, c1, c2, n, m, **args)
@@ -134,24 +123,42 @@ def one(tree: str) -> dict:
     out["k4_bands_a_launch"] = G
     out["k4_all_ms"], _ = cs.event_ms(every_band)
     out["k4_all_bands"] = nck
-    # K5 on band sk, its walk brought down to the band's top
+    # K5: the mode's whole walk, group by group
     L = NP + MP + 2
     walk = longseq.walk_start(st, n, m, GLOBAL)
     cnt = torch.zeros(B, dtype=torch.int32, device=dev)
     mv = torch.zeros((-(-L // 4), B), dtype=torch.uint8, device=dev)
-    for s in range(nck - 1, sk, -1):
-        longseq.fill_band(tab, c1, c2, n, m, ck, rband, sk=s, **args)
-        longseq.walk_segments(rband, walk, cnt, mv, sk=s, C=C, MP=MP, L=L,
-                              local=False)
-    # every_band() may have refilled other bands into `band`
-    longseq.fill_band(tab, c1, c2, n, m, ck, band, sk=sk, **args)
-    rwalk, rcnt, rmv = walk.clone(), cnt.clone(), mv.clone()
-    kw = dict(sk=sk, C=C, MP=MP, L=L, local=False)
-    out["k5_ms"], _ = cs.event_ms(lambda: longseq.walk_segments(
-        band, walk, cnt, mv, **kw))
-    longseq.walk_segments_ref(band, rwalk, rcnt, rmv, **kw)
-    out["k5_err"] = max(float((x.long() - y.long()).abs().max())
-                        for x, y in ((walk, rwalk), (cnt, rcnt), (mv, rmv)))
+    grouped = "sk0" in inspect.signature(longseq.walk_segments).parameters
+    Gw = longseq.group_bands(B, NP, MP, batch.tb_budget(), C)
+    bands = torch.empty((Gw, B, bb), dtype=torch.uint8, device=dev)
+    before = longseq.LAUNCHES["K5"]
+    k5_ms = 0.0
+    for hi in range(nck - 1, -1, -Gw):
+        lo = max(0, hi - Gw + 1)
+        group = bands[:hi - lo + 1]
+        if hasattr(longseq, "fill_bands"):
+            longseq.fill_bands(tab, c1, c2, n, m, ck, group, sk0=lo, **args)
+        else:
+            for s in range(hi, lo - 1, -1):
+                longseq.fill_band(tab, c1, c2, n, m, ck, group[s - lo],
+                                  sk=s, **args)
+        kw = dict(C=C, MP=MP, L=L, local=False)
+        if grouped:
+            ms, _ = cs.event_ms(lambda: longseq.walk_segments(
+                group, walk, cnt, mv, sk0=lo, **kw))
+        else:
+            def per_band():
+                for s in range(hi, lo - 1, -1):
+                    longseq.walk_segments(group[s - lo], walk, cnt, mv,
+                                          sk=s, **kw)
+            ms, _ = cs.event_ms(per_band)
+        k5_ms += ms
+    out["k5_mode_ms"] = k5_ms
+    out["k5_launches"] = longseq.LAUNCHES["K5"] - before
+    out["k5_bands"] = nck
+    out["k5_steps"] = int(cnt.sum())
+    out["k5_digest"] = hashlib.sha256(
+        cnt.cpu().numpy().tobytes() + mv.cpu().numpy().tobytes()).hexdigest()
     return out
 
 

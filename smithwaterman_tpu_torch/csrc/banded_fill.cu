@@ -7,24 +7,30 @@
 // 0...], the host turning the lane into the column off(best_i) + lane + 1;
 // otherwise [0, 0, 0, finalM, finalX, finalY, 0, 0] of cell (n, m).
 //
-// What bounds it on an H100: the chain of rows.  Row i needs row i-1 and,
-// through X, every lane to its left in the same row, so a pair's rows run in
-// order; the work per row is W cells of ~30 f32 operations and 5 bytes of
-// scores and pointers.  With at most eight pairs a launch, eight SMs work.
+// What bounds it on an H100: the chain through a pair.  Row i needs row i-1
+// and, through X, every cell to its left in the same row, so the cells of
+// a pair form one wavefront; a launch has at most eight pairs, and a block
+// a pair would leave all but eight SMs idle.
 //
-// What the design does about it: one block of THREADS = 128 threads per
-// pair, each thread owning W / 128 contiguous lanes (W is a multiple of 128),
-// with the rules of sw_banded.cuh.  Per row: phase A computes M and Y of the
-// thread's lanes from the row above and X's prefix over its own lanes; a
-// block-wide exclusive max scan (warp shuffles, then the four warp totals
-// through shared memory, one barrier) joins the threads' prefixes; phase C
-// finishes X, the X pointer (lane w0-1's M and Y were recomputed in phase A,
-// its X is the exclusive prefix, so no second exchange is needed), the tb
-// byte and the LOCAL per-lane best; a barrier ends the row.  The two band
-// rows' (M, X, Y) live in a per-pair global scratch (B, 8, W) f32, L2
-// resident, with the per-lane best.  Rows past n are not computed.  Holding
-// the rows in shared memory and reading the scores from the codes would save
-// device traffic (ROADMAP Queue D).
+// What the design does about it: a pair's rows are cut into stripes of
+// 32 R rows (R = sw::banded::ROWS, two), each filled by one warp whose lane
+// l owns R rows and sweeps absolute columns in a wavefront, lane l a step behind
+// lane l-1: the cell above a lane's first row comes by a shuffle, every
+// cell's inputs are in registers (the row's cell to the left, its running
+// maximum of X's h, the diagonal kept from the step before), and a warp
+// needs no barrier.  The stripes of a pair run at once on many SMs: a
+// stripe's bottom row goes to the stripe below through global memory, a
+// tile of bd::TILE columns at a time, published as K3 publishes its
+// checkpoint tiles (the stores, a fence, then the tile count with release
+// semantics; the reader takes the count with acquire semantics and loads
+// the tile through L2, half a tile ahead).  The band scores come through
+// L2 two steps before their use.  Persistent one-warp blocks take stripes
+// by an atomic ticket, stripe-major over the pairs, so a stripe only waits
+// on the stripe above, whose ticket was taken earlier by a block already
+// running: nothing deadlocks, whatever order the blocks are scheduled in.
+// Each stripe puts its LOCAL best (lane_better, the JAX kernel's order) in
+// a scratch slot and counts itself done; the pair's last stripe merges
+// them.  Rows past n are not computed.
 #include <cuda_runtime.h>
 
 #include "sw_banded.cuh"
@@ -32,49 +38,124 @@
 namespace {
 
 namespace bd = sw::banded;
+constexpr unsigned kFull = sw::FULL;
 
-constexpr int kWarps = bd::THREADS / 32;
+__device__ __forceinline__ bd::LaneBest shfl_xor_lane_best(bd::LaneBest b,
+                                                          int o) {
+  return {__shfl_xor_sync(kFull, b.v, o), __shfl_xor_sync(kFull, b.i, o),
+          __shfl_xor_sync(kFull, b.w, o)};
+}
+
+// Every lane's best merged, in every lane.
+__device__ __forceinline__ bd::LaneBest warp_lane_best(bd::LaneBest b) {
+  for (int o = sw::WARP / 2; o > 0; o /= 2)
+    b = bd::lane_better(b, shfl_xor_lane_best(b, o));
+  return b;
+}
+
+__device__ __forceinline__ void await_feed(const bd::Feed& f, int T) {
+  while (!bd::feed_ready(f, T)) __nanosleep(64);
+}
+
+// One stripe, as lane l of its warp; returns the lane's LOCAL best.
+template <int MODE>
+__device__ bd::LaneBest run_stripe(int l, const bd::StripeIO& io,
+                                   const sw::Pen& p) {
+  bd::BLane L = bd::lane_begin<MODE>(l, io, p);
+  sw::Cell cur{}, nxt{};
+  const int64_t sw_cols = io.feed.sw;
+  for (int k = 0; k < io.st.steps; ++k) {
+    const int c = io.feed.c0 + k;
+    const int q = c & (bd::TILE - 1);
+    if (k == 0) {
+      await_feed(io.feed, c / bd::TILE);
+      cur = bd::feed_tile(l, c / bd::TILE, io.feed, p, io.g.W);
+    }
+    if (q == bd::TILE / 2 || (k == 0 && q > bd::TILE / 2)) {
+      // the next tile, half a tile ahead
+      const int T = c / bd::TILE + 1;
+      await_feed(io.feed, T);
+      nxt = bd::feed_tile(l, T, io.feed, p, io.g.W);
+    }
+    sw::Cell u = sw::shfl_up_cell(L.out);
+    const sw::Cell s0 = sw::shfl_cell(cur, q);
+    if (l == 0) u = s0;
+    bd::lane_step<MODE>(l, k, &L, u, io, p);
+    if (io.out) {
+      const sw::Cell bottom = sw::shfl_cell(L.out, io.st.lanes - 1);
+      const int T = bd::bottom_collect(l, k, &L, bottom, io);
+      if (T >= 0) {
+        bd::bottom_store(l, T, L, io, sw_cols);
+        __syncwarp();
+        if (l == 0) bd::publish_tiles(io, T + 1);
+      }
+    }
+    if (q == bd::TILE - 1) cur = nxt;
+  }
+  return L.best;
+}
 
 template <int MODE>
-__global__ void __launch_bounds__(bd::THREADS)
-    banded_fill_kernel(const float* __restrict__ S,
-                       const int32_t* __restrict__ n_,
-                       const int32_t* __restrict__ m_, int64_t NP, int W,
-                       float* scratch, uint8_t* tb, float* stats, float og,
-                       float eg) {
-  __shared__ float warp_max[kWarps];
-  __shared__ bd::LaneBest bests[bd::THREADS];
-  const int t = threadIdx.x;
-  const int64_t b = blockIdx.x;
-  const bd::Geom g = bd::geom(n_[b], m_[b], W);
+__global__ void __launch_bounds__(sw::WARP)
+    stripe_kernel(const float* __restrict__ S, const int32_t* __restrict__ n,
+                  const int32_t* __restrict__ m, int64_t B, int64_t NP,
+                  int W, int NS, int32_t* scratch, uint8_t* tb, float* stats,
+                  float og, float eg) {
+  const int l = threadIdx.x;
+  const bd::StripeScratch sc = bd::stripe_scratch(scratch, B, NS);
   const sw::Pen p = sw::make_pen<MODE>(og, eg);
-  float* scr = scratch + b * bd::SCRATCH_ROWS * W;
-  float* best = scr + 6 * (int64_t)W;
-  int32_t* best_i = reinterpret_cast<int32_t*>(scr + 7 * (int64_t)W);
-  uint8_t* tbp = tb + b * NP * W;
-  float* st = stats + b * sw::STATS_W;
-  if (t == 0)
-    for (int q = 0; q < sw::STATS_W; ++q) st[q] = 0.0f;
-  bd::init_lanes(t, g, p, bd::buf(scr, W, 0), best, best_i);
-  __syncthreads();
-  for (int i = 1; i <= g.n; ++i) {
-    const bd::Row r =
-        bd::row_begin<MODE>(g, p, i, S + (b * NP + i - 1) * (int64_t)W);
-    const bd::Buf up = bd::buf(scr, W, (i - 1) & 1);
-    const bd::Buf cur = bd::buf(scr, W, i & 1);
-    uint8_t* row_tb = tbp + (int64_t)(i - 1) * W;
-    bd::Left left;
-    const float own = bd::phase_a<MODE>(t, g, p, r, up, cur, row_tb, &left);
-    const float excl = bd::block_excl_max<kWarps>(own, warp_max, bd::BNEG);
-    bd::phase_c<MODE>(t, g, p, r, excl, left, cur, row_tb, best, best_i,
-                      st + 3);
-    __syncthreads();
+  const int64_t tickets = (int64_t)NS * B;
+  for (;;) {
+    int t = 0;
+    if (l == 0) t = atomicAdd(sc.ticket, 1);
+    t = __shfl_sync(kFull, t, 0);
+    if (t >= tickets) return;
+    bd::StripeIO io;
+    if (!bd::stripe_io(&io, t, B, NP, W, NS, S, n, m, tb, stats, sc, MODE,
+                       nullptr))
+      continue;  // the pair has no rows in this stripe
+    const bd::LaneBest mine = run_stripe<MODE>(l, io, p);
+    if (MODE != sw::LOCAL) continue;
+    const int s = (int)(t / B);
+    const int64_t b = t % B;
+    const bd::LaneBest best = warp_lane_best(mine);
+    int before = 0;
+    if (l == 0) {
+      bd::put_lane_best(sc.best + 3 * (b * NS + s), best);
+      __threadfence();
+      before = atomicAdd(sc.done + b, 1);
+    }
+    before = __shfl_sync(kFull, before, 0);
+    const int ns = bd::n_stripes(io.g.n);
+    if (before != ns - 1) continue;
+    __threadfence();  // the pair's last stripe: merge every stripe's best
+    bd::LaneBest all = bd::no_lane_best();
+    for (int q = l; q < ns; q += sw::WARP)
+      all = bd::lane_better(all,
+                            bd::get_lane_best(sc.best + 3 * (b * NS + q)));
+    all = warp_lane_best(all);
+    if (l == 0) bd::local_stats(all, stats + b * sw::STATS_W);
   }
-  if (MODE == sw::LOCAL) {
-    bests[t] = bd::thread_best(t, g, best, best_i);
-    __syncthreads();
-    if (t == 0) bd::finish_local(bests, bd::THREADS, st);
-  }
+}
+
+template <int MODE>
+int launch(const float* S, const int32_t* n, const int32_t* m, int64_t B,
+           int64_t NP, int W, int32_t* scratch, uint8_t* tb, float* stats,
+           float og, float eg, int* grid, cudaStream_t st) {
+  auto kern = stripe_kernel<MODE>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, sw::WARP, 0);
+  const int NS = bd::n_stripes(NP);
+  const int64_t need = (int64_t)NS * B;
+  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int g = (int)(need < resident ? need : resident);
+  if (grid) *grid = g;
+  cudaMemsetAsync(stats, 0, (size_t)B * sw::STATS_W * sizeof(float), st);
+  kern<<<g, sw::WARP, 0, st>>>(S, n, m, B, NP, W, NS, scratch, tb, stats, og,
+                               eg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -82,30 +163,29 @@ __global__ void __launch_bounds__(bd::THREADS)
 extern "C" {
 
 // Launches K7 on `stream`: S (B, NP, W) f32 from K6, true lengths n, m (B,)
-// int32 (1 <= n <= NP), scratch (B, 8, W) f32; writes tb (B, NP, W) uint8
-// (rows i <= n of each pair) and stats (B, 8) f32.  W must be a multiple of
-// 128.  Returns cudaGetLastError() after the launch (0 = launched), or
+// int32 (1 <= n <= NP), scratch sw::banded::scratch_words(B, NS, W) int32
+// words, NS = n_stripes(NP), the first scratch_zeroed(B, NS) of them zero;
+// writes tb (B, NP, W) uint8 (rows i <= n of each pair) and stats (B, 8)
+// f32.  W must be a multiple of 4.  The grid goes to *grid when given.  Returns
+// cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int sw_banded_fill_launch(int mode, const float* S, const int32_t* n,
                           const int32_t* m, int64_t B, int64_t NP, int W,
-                          float* scratch, uint8_t* tb, float* stats, float og,
-                          float eg, void* stream) {
-  if (B <= 0 || NP <= 0 || W <= 0 || W % bd::THREADS)
+                          int32_t* scratch, uint8_t* tb, float* stats,
+                          float og, float eg, int* grid, void* stream) {
+  if (B <= 0 || NP <= 0 || W <= 0 || W % 4 || !scratch)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define SW_BANDED(MODE)                                             \
-  banded_fill_kernel<MODE><<<(unsigned)B, bd::THREADS, 0, st>>>(    \
-      S, n, m, NP, W, scratch, tb, stats, og, eg)
   if (mode == sw::LOCAL)
-    SW_BANDED(sw::LOCAL);
-  else if (mode == sw::GLOCAL)
-    SW_BANDED(sw::GLOCAL);
-  else if (mode == sw::GLOBAL)
-    SW_BANDED(sw::GLOBAL);
-  else
-    return (int)cudaErrorInvalidValue;
-#undef SW_BANDED
-  return (int)cudaGetLastError();
+    return launch<sw::LOCAL>(S, n, m, B, NP, W, scratch, tb, stats, og, eg,
+                             grid, st);
+  if (mode == sw::GLOCAL)
+    return launch<sw::GLOCAL>(S, n, m, B, NP, W, scratch, tb, stats, og, eg,
+                              grid, st);
+  if (mode == sw::GLOBAL)
+    return launch<sw::GLOBAL>(S, n, m, B, NP, W, scratch, tb, stats, og, eg,
+                              grid, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

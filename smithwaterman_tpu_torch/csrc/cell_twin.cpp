@@ -13,10 +13,14 @@
 // the pairs) and advance a step each in turn, every band reading its seed
 // tiles as soon as they are published (the LOCAL merge in the pair's last
 // band); K4's bands of a group run one after another.  Both are orders the
-// card may take.  For K7 it runs each band row's phase A for every thread,
-// the block's prefix in thread order, then phase C for every thread
-// (sw_banded.cuh), where the card's threads wait for each other between
-// the phases.  For K12 and K13 it runs each column tile as its warp
+// card may take.  For K5 it walks each pair's group of bands through the
+// window ring (sw_walk.cuh SegWindows) with its copies landing only when
+// the card's warp waits for them, and checks every byte read against the
+// landed copies.  For K7 it runs each stripe's lanes in turn at each step
+// (sw_banded.cuh) and the launch's stripes in ticket order with a given
+// number in flight, each advanced once the feed tiles it reads are
+// published, every publication checked against the fence rule.  For K12
+// and K13 it runs each column tile as its warp
 // would, a row at a time, every thread in turn, and the launch's tiles in
 // ticket order with a given number in flight, each advanced once its left
 // neighbour has published the edges it needs, every publication checked
@@ -581,51 +585,186 @@ struct BandRun {
   }
 };
 
-// One pair's banded fill as a block of THREADS threads would run it.
+namespace bd = sw::banded;
+
+// One K7 stripe as its warp runs it (banded_fill.cu run_stripe), a step at
+// a time: every lane in turn, each handed lane l-1's value from before the
+// step (the card's shuffle), lane 0 the feed tile's element; the bottom
+// row's tiles stored and published as the card's warp does.
 template <int MODE>
-void banded_pair(const float* S, int n, int m, int64_t NP, int W,
-                 float* scr, uint8_t* tb, float* stats, float og, float eg) {
-  namespace bd = sw::banded;
-  const bd::Geom g = bd::geom(n, m, W);
-  const sw::Pen p = sw::make_pen<MODE>(og, eg);
-  float* best = scr + 6 * (int64_t)W;
-  int32_t* best_i = reinterpret_cast<int32_t*>(scr + 7 * (int64_t)W);
-  for (int q = 0; q < sw::STATS_W; ++q) stats[q] = 0.0f;
-  for (int t = 0; t < bd::THREADS; ++t)
-    bd::init_lanes(t, g, p, bd::buf(scr, W, 0), best, best_i);
-  std::vector<float> own(bd::THREADS);
-  std::vector<bd::Left> left(bd::THREADS);
-  for (int i = 1; i <= n; ++i) {
-    const bd::Row r = bd::row_begin<MODE>(g, p, i, S + (i - 1) * (int64_t)W);
-    const bd::Buf up = bd::buf(scr, W, (i - 1) & 1);
-    const bd::Buf cur = bd::buf(scr, W, i & 1);
-    uint8_t* row_tb = tb + (int64_t)(i - 1) * W;
-    for (int t = 0; t < bd::THREADS; ++t)
-      own[t] = bd::phase_a<MODE>(t, g, p, r, up, cur, row_tb, &left[t]);
-    float excl = bd::BNEG;
-    for (int t = 0; t < bd::THREADS; ++t) {
-      bd::phase_c<MODE>(t, g, p, r, excl, left[t], cur, row_tb, best, best_i,
-                        stats + 3);
-      excl = sw::mx(excl, own[t]);
+struct TwinStripe {
+  bd::StripeIO io{};
+  std::vector<bd::BLane> L;
+  sw::Cell cur[sw::WARP]{}, nxt[sw::WARP]{};
+  int k = 0;
+  int64_t t = 0;
+
+  void begin(const bd::StripeIO& s, int64_t tk, const sw::Pen& p) {
+    io = s;
+    t = tk;
+    for (int l = 0; l < sw::WARP; ++l)
+      L.push_back(bd::lane_begin<MODE>(l, io, p));
+  }
+
+  bool done() const { return k >= io.st.steps; }
+
+  // The feed tiles this step reads first, as the card's warp waits for
+  // them (-1: none).
+  void needs(int* a, int* b) const {
+    const int c = io.feed.c0 + k, q = c & (bd::TILE - 1);
+    *a = k == 0 ? c / bd::TILE : -1;
+    *b = (q == bd::TILE / 2 || (k == 0 && q > bd::TILE / 2))
+             ? c / bd::TILE + 1
+             : -1;
+  }
+
+  bool ready() const {
+    int a, b;
+    needs(&a, &b);
+    return (a < 0 || bd::feed_ready(io.feed, a)) &&
+           (b < 0 || bd::feed_ready(io.feed, b));
+  }
+
+  void step(const sw::Pen& p) {
+    const int c = io.feed.c0 + k, q = c & (bd::TILE - 1);
+    int a, b;
+    needs(&a, &b);
+    for (int l = 0; l < sw::WARP; ++l) {
+      if (a >= 0) cur[l] = bd::feed_tile(l, a, io.feed, p, io.g.W);
+      if (b >= 0) nxt[l] = bd::feed_tile(l, b, io.feed, p, io.g.W);
     }
+    sw::Cell outs[sw::WARP];
+    for (int l = 0; l < sw::WARP; ++l) outs[l] = L[l].out;
+    for (int l = 0; l < sw::WARP; ++l)
+      bd::lane_step<MODE>(l, k, &L[l], l ? outs[l - 1] : cur[q], io, p);
+    if (io.out) {
+      const sw::Cell bottom = L[io.st.lanes - 1].out;
+      int T = -1;
+      for (int l = 0; l < sw::WARP; ++l)
+        T = bd::bottom_collect(l, k, &L[l], bottom, io);
+      if (T >= 0) {
+        for (int l = 0; l < sw::WARP; ++l)
+          bd::bottom_store(l, T, L[l], io, io.feed.sw);
+        bd::publish_tiles(io, T + 1);
+      }
+    }
+    if (q == bd::TILE - 1)
+      for (int l = 0; l < sw::WARP; ++l) cur[l] = nxt[l];
+    ++k;
   }
-  if (MODE == sw::LOCAL) {
-    std::vector<bd::LaneBest> bests;
-    for (int t = 0; t < bd::THREADS; ++t)
-      bests.push_back(bd::thread_best(t, g, best, best_i));
-    bd::finish_local(bests.data(), bd::THREADS, stats);
+
+  bd::LaneBest best() const {
+    bd::LaneBest b = bd::no_lane_best();
+    for (const auto& lane : L) b = bd::lane_better(b, lane.best);
+    return b;
   }
+};
+
+// K7 (banded_fill.cu stripe_kernel): `blocks` stripes in flight (0: every
+// stripe), taken by ticket as blocks free up, and each stripe in flight
+// advanced a step in turn, in ticket order, once the feed tiles it reads
+// at that step are published.  The LOCAL merge runs in the pair's last
+// stripe to finish.  Returns 0, 2 if no stripe can advance (the card would
+// hang), 3 if a publication broke the fence rule.
+template <int MODE>
+int banded_all(const float* S, const int32_t* n, const int32_t* m, int64_t B,
+               int64_t NP, int W, uint8_t* tb, float* stats, float og,
+               float eg, int blocks) {
+  const sw::Pen p = sw::make_pen<MODE>(og, eg);
+  const int NS = bd::n_stripes(NP);
+  std::vector<int32_t> scratch(bd::scratch_words(B, NS, W), 0);
+  const bd::StripeScratch sc = bd::stripe_scratch(scratch.data(), B, NS);
+  std::vector<int32_t> twin(3 * B * NS, 0);
+  for (int64_t q = 0; q < B * sw::STATS_W; ++q) stats[q] = 0.0f;
+  std::vector<TwinStripe<MODE>> run;
+  const int64_t tickets = (int64_t)NS * B;
+  const int64_t cap = blocks > 0 ? blocks : tickets;
+  for (;;) {
+    while ((int64_t)run.size() < cap && *sc.ticket < tickets) {
+      const int64_t t = (*sc.ticket)++;
+      bd::StripeIO io;
+      if (!bd::stripe_io(&io, t, B, NP, W, NS, S, n, m, tb, stats, sc, MODE,
+                         twin.data()))
+        continue;
+      run.emplace_back();
+      run.back().begin(io, t, p);
+    }
+    if (run.empty()) break;
+    bool moved = false;
+    for (auto& st : run) {
+      if (!st.ready()) continue;
+      st.step(p);
+      moved = true;
+      if (!st.done() || MODE != sw::LOCAL) continue;
+      const int s = (int)(st.t / B);
+      const int64_t b = st.t % B;
+      bd::put_lane_best(sc.best + 3 * (b * NS + s), st.best());
+      const int ns = bd::n_stripes(n[b]);
+      if (sc.done[b]++ != ns - 1) continue;
+      bd::LaneBest all = bd::no_lane_best();
+      for (int q = 0; q < ns; ++q)
+        all = bd::lane_better(all,
+                              bd::get_lane_best(sc.best + 3 * (b * NS + q)));
+      bd::local_stats(all, stats + b * sw::STATS_W);
+    }
+    if (!moved) return 2;
+    run.erase(std::remove_if(run.begin(), run.end(),
+                             [](const auto& st) { return st.done(); }),
+              run.end());
+  }
+  for (int64_t k = 0; k < B * NS; ++k)
+    if (twin[3 * k + 2]) return 3;
+  return 0;
 }
 
-template <int MODE>
-void banded_all(const float* S, const int32_t* n, const int32_t* m,
-                int64_t B, int64_t NP, int W, float* scratch, uint8_t* tb,
-                float* stats, float og, float eg) {
-  for (int64_t b = 0; b < B; ++b)
-    banded_pair<MODE>(S + b * NP * W, n[b], m[b], NP, W,
-                      scratch + b * sw::banded::SCRATCH_ROWS * W,
-                      tb + b * NP * W, stats + b * sw::STATS_W, og, eg);
-}
+// K5's window copies as the card's warp makes them (seg_walk.cu
+// WarpCopy), in the order SegWindows asks: a copy stays pending until a
+// wait covers it, and only then do its bytes land in the window and count
+// as loaded; starting a copy into a window unloads what it held.  A read
+// of a byte that is not loaded marks the walk broken.
+struct TwinWindows {
+  struct Copy {
+    uint8_t* dst;
+    const uint8_t* src;
+    int64_t bytes;
+  };
+  int64_t wbytes;
+  std::vector<uint8_t> buf, loaded;
+  std::vector<Copy> pending;
+  bool broken = false;
+
+  explicit TwinWindows(int64_t wb)
+      : wbytes(wb),
+        buf(sw::SEG_WINDOWS * wb, 0),
+        loaded(sw::SEG_WINDOWS * wb, 0) {}
+
+  void land(size_t count) {
+    for (size_t q = 0; q < count; ++q) {
+      const Copy& c = pending[q];
+      std::memcpy(c.dst, c.src, (size_t)c.bytes);
+      std::fill_n(loaded.begin() + (c.dst - buf.data()), c.bytes, 1);
+    }
+    pending.erase(pending.begin(), pending.begin() + count);
+  }
+};
+
+struct TwinCopy {
+  TwinWindows* t;
+
+  void load(int k, uint8_t* dst, const uint8_t* src, int64_t bytes) {
+    std::fill_n(t->loaded.begin() + k * t->wbytes, t->wbytes, 0);
+    t->pending.push_back({dst, src, bytes});
+  }
+  void wait_all() { t->land(t->pending.size()); }
+  void wait_ahead() {
+    const size_t keep = sw::SEG_WINDOWS - 1;
+    if (t->pending.size() > keep) t->land(t->pending.size() - keep);
+  }
+  void ok(int k, int64_t at) {
+    if (at < 0 || at >= t->wbytes || !t->loaded[k * t->wbytes + at])
+      t->broken = true;
+  }
+};
 
 namespace st = sw::striped;
 
@@ -895,35 +1034,53 @@ int sw_twin_band_fill(int mode, const float* table, int K, int code_bytes,
   return rc;
 }
 
-// Same arguments and layout as sw_seg_walk_launch (seg_walk.cu).
-int sw_twin_seg_walk(int local, const uint8_t* band, int64_t B, int64_t MP,
-                     int C, int sk, int64_t L, int32_t* walk, int32_t* cnt,
-                     uint8_t* moves) {
-  for (int64_t b = 0; b < B; ++b)
-    sw::walk_segment(local != 0, band + b * sw::band_bytes(C, MP), C + 1, C,
-                     sk * C, L, walk + b * 4, cnt + b, moves + b, B,
-                     (L + 3) / 4);
+// Same arguments and layout as sw_seg_walk_launch (seg_walk.cu), host
+// pointers, each pair's windows D diagonals (0: the card's,
+// sw::seg_window_diags).  Returns 0, 1 for arguments the kernel does not
+// take, or 3 if the walk read a byte no finished window copy had brought.
+int sw_twin_seg_walk(int local, const uint8_t* bands, int G, int64_t B,
+                     int64_t MP, int C, int sk0, int64_t L, int32_t* walk,
+                     int32_t* cnt, uint8_t* moves, int D) {
+  if (B <= 0 || L <= 0 || C <= 0 || sk0 < 0 || G < 1 || D == 1 || D < 0)
+    return 1;
+  if (D == 0) D = sw::seg_window_diags(C);
+  const int64_t L4 = (L + 3) / 4;
+  const int64_t bb = sw::band_bytes(C, MP);
+  TwinWindows tw((int64_t)D * C);
+  for (int64_t b = 0; b < B; ++b) {
+    sw::SegState st = sw::seg_load(walk + b * 4, cnt + b, moves + b, B);
+    for (int g = G - 1; g >= 0; --g) {
+      auto win = sw::seg_windows(bands + (g * B + b) * bb, C, MP, D,
+                                 tw.buf.data(), TwinCopy{&tw});
+      sw::walk_segment(local != 0, win, (sk0 + g) * C, L, &st, moves + b, B,
+                       L4);
+      win.close();
+      if (tw.broken) return 3;
+    }
+    sw::seg_store(st, walk + b * 4, cnt + b, moves + b, B, L4);
+  }
   return 0;
 }
 
 // Same arguments and layout as sw_banded_fill_launch (banded_fill.cu), host
-// pointers.  Returns 0, or 1 for an unknown mode or a width that is not a
-// multiple of THREADS.
+// pointers, no stream, the scratch the twin's own; `blocks` stripes in
+// flight (0: all).  Returns 0, 1 for arguments the kernel does not take, 2
+// if the launch would hang, 3 if a tile publication is not fenced.
 int sw_twin_banded_fill(int mode, const float* S, const int32_t* n,
                         const int32_t* m, int64_t B, int64_t NP, int W,
-                        float* scratch, uint8_t* tb, float* stats, float og,
-                        float eg) {
-  if (W <= 0 || W % sw::banded::THREADS) return 1;
+                        uint8_t* tb, float* stats, float og, float eg,
+                        int blocks) {
+  if (B <= 0 || NP <= 0 || W <= 0 || W % 4) return 1;
   switch (mode) {
     case sw::LOCAL:
-      banded_all<sw::LOCAL>(S, n, m, B, NP, W, scratch, tb, stats, og, eg);
-      return 0;
+      return banded_all<sw::LOCAL>(S, n, m, B, NP, W, tb, stats, og, eg,
+                                   blocks);
     case sw::GLOCAL:
-      banded_all<sw::GLOCAL>(S, n, m, B, NP, W, scratch, tb, stats, og, eg);
-      return 0;
+      return banded_all<sw::GLOCAL>(S, n, m, B, NP, W, tb, stats, og, eg,
+                                    blocks);
     case sw::GLOBAL:
-      banded_all<sw::GLOBAL>(S, n, m, B, NP, W, scratch, tb, stats, og, eg);
-      return 0;
+      return banded_all<sw::GLOBAL>(S, n, m, B, NP, W, tb, stats, og, eg,
+                                    blocks);
     default:
       return 1;
   }

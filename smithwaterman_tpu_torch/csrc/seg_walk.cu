@@ -1,22 +1,33 @@
-// K5: one band's share of the long-sequence traceback walk, one thread per
-// pair.
+// K5: the long-sequence traceback walk through a group of refilled bands,
+// one warp per pair.
 //
 // Replaces: smithwaterman_tpu/ops/longseq.py _packed_walk_segments (:277),
 // a lax.while_loop over bands around a lockstep while_loop of steps (not
-// Pallas).  The route (ops/longseq.py) launches K4 and then K5 once per
-// band, top band last; the walk state lives in device tensors between
-// launches.
+// Pallas).  The route (ops/longseq.py) launches K4 once per group of G
+// bands and then K5 once for the same group: K5 walks bands top .. sk0 of
+// every pair, top first; the walk state lives in device tensors between
+// launches and in registers between the bands of a launch.
 //
-// What bounds it on an H100: dependent gathers, as in K2.  Each step's
+// What bounds it on an H100: a chain of dependent byte reads.  Each step's
 // pointer address depends on the state the previous step read, so a pair's
-// walk through one band is a chain of up to ~2C dependent one-byte loads
-// from the band buffer (L2 hits at best), with almost no arithmetic.
+// walk through a band is a chain of up to ~2C reads.  K4 has just written
+// the group (G bands x B pairs x (C + MP) * C bytes, ~1.3 GB at the long
+// route's shapes), far past L2, so a read straight from the band is an
+// HBM round trip.
 //
-// What the design does about it: every pair walks in its own thread and a
-// finished or waiting pair costs one check; the thread keeps four 2-bit
-// moves in a register and stores one byte per four steps, reading back the
-// byte the previous band left part-filled.  The step rule is
-// sw_walk.cuh walk_segment, which the host twin runs too.
+// What the design does about it: the bytes of cell (i, j) lie on the
+// band's anti-diagonal r + j - 1 (r = i - 1 - base), C contiguous bytes,
+// and every step lowers the diagonal, so a walk reads a band's diagonals
+// in decreasing order and the warp can fetch them before the walk needs
+// them.  Each pair is a warp with a ring of sw::SEG_WINDOWS windows of D
+// diagonals (sw::seg_window_diags: 16 KB each) in shared memory: the
+// warp's 32 lanes copy a window with 16-byte cp.async copies, the windows
+// below are in flight while the walk reads the current one, and every lane
+// steps the same walk on the shared bytes (a broadcast read, no
+// divergence); lane 0 stores the moves.  A band is opened by its first read, so a pair the
+// band does not concern, or whose walk there only follows the DP boundary,
+// costs one check and copies nothing.  The step rule is sw_walk.cuh
+// walk_segment and the windows SegWindows, which the host twin runs too.
 #include <cuda_runtime.h>
 
 #include "sw_band.cuh"
@@ -24,34 +35,85 @@
 
 namespace {
 
-constexpr int kThreads = 32;
+// A warp's copies into its windows: 16 bytes a lane a copy, one commit
+// group a window (every lane commits, so all count the same groups); a
+// copy starts after the warp's barrier, so no lane still reads the slot.
+// Host-device members, as SegWindows' are; they run on the card only.
+struct WarpCopy {
+  int lane;
 
-__global__ void __launch_bounds__(kThreads)
-    seg_walk_kernel(int local, const uint8_t* __restrict__ band, int64_t B,
-                    int64_t MP, int C, int sk, int64_t L, int32_t* walk,
-                    int32_t* cnt, uint8_t* moves) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  sw::walk_segment(local != 0, band + b * sw::band_bytes(C, MP), C + 1, C,
-                   sk * C, L, walk + b * 4, cnt + b, moves + b, B,
-                   (L + 3) / 4);
+  __host__ __device__ void load(int, uint8_t* dst, const uint8_t* src,
+                                int64_t bytes) {
+#if defined(__CUDA_ARCH__)
+    __syncwarp();
+    for (int64_t o = (int64_t)lane * 16; o < bytes; o += sw::WARP * 16) {
+      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + o);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+                   "l"(src + o)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+#endif
+  }
+  __host__ __device__ void wait_all() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncwarp();
+#endif
+  }
+  __host__ __device__ void wait_ahead() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.wait_group %0;" ::"n"(sw::SEG_WINDOWS - 1)
+                 : "memory");
+    __syncwarp();
+#endif
+  }
+  __host__ __device__ void ok(int, int64_t) {}
+};
+
+__global__ void __launch_bounds__(sw::WARP)
+    seg_walk_kernel(int local, const uint8_t* __restrict__ bands, int G,
+                    int64_t B, int64_t MP, int C, int sk0, int64_t L, int D,
+                    int32_t* walk, int32_t* cnt, uint8_t* moves) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x;
+  const int64_t b = blockIdx.x;
+  const int64_t L4 = (L + 3) / 4;
+  const int64_t bb = sw::band_bytes(C, MP);
+  sw::SegState st = sw::seg_load(walk + b * 4, cnt + b, moves + b, B);
+  for (int g = G - 1; g >= 0; --g) {
+    auto win = sw::seg_windows(bands + (g * B + b) * bb, C, MP, D, smem,
+                               WarpCopy{lane});
+    sw::walk_segment(local != 0, win, (sk0 + g) * C, L, &st, moves + b, B,
+                     L4, lane == 0);
+    win.close();
+  }
+  if (lane == 0) sw::seg_store(st, walk + b * 4, cnt + b, moves + b, B, L4);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K5 on `stream` for band sk over B pairs: band (B, (C + MP) * C)
-// uint8 from K4, walk (B, 4) int32 {i, j, s, done} and cnt (B,) int32 read
-// and written back, moves (ceil(L/4), B) uint8 (zeroed before the first
-// band).  Returns cudaGetLastError() after the launch (0 = launched).
-int sw_seg_walk_launch(int local, const uint8_t* band, int64_t B, int64_t MP,
-                       int C, int sk, int64_t L, int32_t* walk, int32_t* cnt,
-                       uint8_t* moves, void* stream) {
-  if (B <= 0 || L <= 0 || C <= 0 || sk < 0) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((B + kThreads - 1) / kThreads);
-  seg_walk_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      local, band, B, MP, C, sk, L, walk, cnt, moves);
+// Launches K5 on `stream` for bands sk0 .. sk0 + G - 1 of B pairs, walked
+// top band first: bands (G, B, (C + MP) * C) uint8 from K4, band sk0 + g at
+// [g]; walk (B, 4) int32 {i, j, s, done} and cnt (B,) int32 read and
+// written back, moves (ceil(L/4), B) uint8 (zeroed before the first
+// launch).  C is a multiple of 32.  Returns cudaGetLastError() after the
+// launch (0 = launched), or cudaErrorInvalidValue for arguments the kernel
+// does not take.
+int sw_seg_walk_launch(int local, const uint8_t* bands, int G, int64_t B,
+                       int64_t MP, int C, int sk0, int64_t L, int32_t* walk,
+                       int32_t* cnt, uint8_t* moves, void* stream) {
+  if (B <= 0 || L <= 0 || C <= 0 || C % sw::WARP || sk0 < 0 || G < 1)
+    return (int)cudaErrorInvalidValue;
+  const int D = sw::seg_window_diags(C);
+  const size_t smem = (size_t)sw::SEG_WINDOWS * D * C;
+  cudaFuncSetAttribute(seg_walk_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  seg_walk_kernel<<<(unsigned)B, sw::WARP, smem, (cudaStream_t)stream>>>(
+      local, bands, G, B, MP, C, sk0, L, D, walk, cnt, moves);
   return (int)cudaGetLastError();
 }
 

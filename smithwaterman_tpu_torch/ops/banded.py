@@ -48,6 +48,9 @@ TBP = 8  # pairs per batch: the JAX kernel's sublanes, kept as the API's cap
 # launches made through the wrappers below (plain counts, read by
 # chip_smoke.py)
 LAUNCHES = {"K6": 0, "K7": 0, "K8": 0}
+# the shape of K7's last launch (kernels.banded_fill: rows a lane, stripes,
+# blocks), read by chip_smoke.py
+SHAPES: dict = {}
 
 
 class BandExceeded(RuntimeError):
@@ -272,21 +275,26 @@ def fill_banded(S, n, m, *, mode: int, og: float, eg: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The banded fill of B pairs from their band scores S (B, NP, W) f32
     (:func:`banded_scores`), ``n``, ``m`` (B,) int32 on S's device, W a
-    multiple of 128.  Returns ``tb`` (B, NP, W) uint8, the pointer byte of
+    multiple of 4.  Returns ``tb`` (B, NP, W) uint8, the pointer byte of
     lane w of row i at ``tb[b, i-1, w]`` (defined for i <= n), and
     ``stats`` (B, 8) f32: LOCAL ``[best, best_i, best_lane, 0, ...]``,
     otherwise ``[0, 0, 0, finalM, finalX, finalY, 0, 0]``.  CUDA: one
-    launch of K7 (which leaves the rows past n unwritten).  CPU:
-    :func:`fill_banded_ref`."""
+    launch of K7 (stripes of 64 rows, which leaves the rows past n
+    unwritten), with a scratch whose tickets and counts are
+    zeroed on the launch's stream; the launch's shape goes to
+    ``SHAPES["K7"]``.  CPU: :func:`fill_banded_ref`."""
     if _device(S) == "cpu":
         return fill_banded_ref(S, n, m, mode=mode, og=og, eg=eg)
     from . import kernels
 
     B, NP, W = S.shape
-    scratch = torch.empty((B, 8, W), dtype=torch.float32, device=S.device)
+    scratch = torch.empty(kernels.banded_scratch_words(B, NP, W),
+                          dtype=torch.int32, device=S.device)
+    scratch[:kernels.banded_scratch_zeroed(B, NP)].zero_()
     tb = torch.empty((B, NP, W), dtype=torch.uint8, device=S.device)
     stats = torch.empty((B, STATS_W), dtype=torch.float32, device=S.device)
-    kernels.banded_fill(S, n, m, scratch, tb, stats, mode=mode, og=og, eg=eg)
+    SHAPES["K7"] = kernels.banded_fill(S, n, m, scratch, tb, stats,
+                                       mode=mode, og=og, eg=eg)
     LAUNCHES["K7"] += 1
     return tb, stats
 

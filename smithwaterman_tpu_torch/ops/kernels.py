@@ -118,7 +118,7 @@ def lib() -> ctypes.CDLL:
     ]
     so.sw_seg_walk_launch.restype = i32
     so.sw_seg_walk_launch.argtypes = [
-        i32, vp, i64, i64, i32, i32, i64, vp, vp, vp, vp,
+        i32, vp, i32, i64, i64, i32, i32, i64, vp, vp, vp, vp,
     ]
     so.sw_banded_scores_launch.restype = i32
     so.sw_banded_scores_launch.argtypes = [
@@ -126,7 +126,7 @@ def lib() -> ctypes.CDLL:
     ]
     so.sw_banded_fill_launch.restype = i32
     so.sw_banded_fill_launch.argtypes = [
-        i32, vp, vp, vp, i64, i64, i32, vp, vp, vp, f32, f32, vp,
+        i32, vp, vp, vp, i64, i64, i32, vp, vp, vp, f32, f32, vp, vp,
     ]
     so.sw_banded_walk_launch.restype = i32
     so.sw_banded_walk_launch.argtypes = [
@@ -331,23 +331,24 @@ def band_fill(table, codes1, codes2, n, m, ckm, ckx, cky, band, *,
     _raise_on(rc, "K4 (band refill)")
 
 
-def seg_walk(band, walk, cnt, moves, *, local: bool, C: int, sk: int,
+def seg_walk(bands, walk, cnt, moves, *, local: bool, C: int, sk0: int,
              MP: int, L: int) -> None:
-    """Launch K5 (csrc/seg_walk.cu) on the current stream; see
+    """Launch K5 (csrc/seg_walk.cu) on the current stream over the group
+    ``bands`` (G, B, (C + MP) * C), band sk0 + g at [g]; see
     ops/longseq.walk_segments."""
-    dev = band.device
+    dev = bands.device
     if dev.type != "cuda":
         raise ValueError(f"K5 runs on CUDA tensors, got {dev}")
-    B = walk.shape[0]
-    _check(band, "band", torch.uint8, dev, (B, (C + MP) * C))
+    G, B = bands.shape[0], walk.shape[0]
+    _check(bands, "bands", torch.uint8, dev, (G, B, (C + MP) * C))
     _check(walk, "walk", torch.int32, dev, (B, 4))
     _check(cnt, "cnt", torch.int32, dev, (B,))
     _check(moves, "moves", torch.uint8, dev, (-(-L // 4), B))
     with torch.cuda.device(dev):
         rc = lib().sw_seg_walk_launch(
-            1 if local else 0, band.data_ptr(), B, int(MP), int(C), int(sk),
-            int(L), walk.data_ptr(), cnt.data_ptr(), moves.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            1 if local else 0, bands.data_ptr(), G, B, int(MP), int(C),
+            int(sk0), int(L), walk.data_ptr(), cnt.data_ptr(),
+            moves.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K5 (segment walk)")
 
@@ -380,27 +381,58 @@ def banded_scores(table, codes1, codes2, n, m, S, *, W: int) -> None:
     _raise_on(rc, "K6 (banded scores)")
 
 
+# K7's rows a lane, R (csrc/sw_banded.cuh ROWS): a stripe of a pair is
+# 32 R rows, one warp
+BANDED_R = 2
+
+
+def banded_stripes(NP: int) -> int:
+    """K7's stripes of a pair of NP rows, 32 R rows each."""
+    return -(-NP // (32 * BANDED_R))
+
+
+def banded_scratch_words(B: int, NP: int, W: int) -> int:
+    """K7's scratch words (the layout of csrc/sw_banded.cuh
+    stripe_scratch): the ticket, each pair's finished stripes, each
+    stripe's published tiles (these first :func:`banded_scratch_zeroed`
+    words are zeroed before a launch), each stripe's LOCAL best and bottom
+    row ((M, X, Y) rows of W + 32 R floats)."""
+    NS = banded_stripes(NP)
+    return banded_scratch_zeroed(B, NP) + 3 * B * NS * (1 + W + 32 * BANDED_R)
+
+
+def banded_scratch_zeroed(B: int, NP: int) -> int:
+    return 1 + B + B * banded_stripes(NP)
+
+
 def banded_fill(S, n, m, scratch, tb, stats, *, mode: int, og: float,
-                eg: float) -> None:
-    """Launch K7 (csrc/banded_fill.cu) on the current stream; see
-    ops/banded.fill_banded."""
+                eg: float) -> dict:
+    """Launch K7 (csrc/banded_fill.cu) on the current stream; ``scratch``
+    int32 of :func:`banded_scratch_words` words, its first
+    :func:`banded_scratch_zeroed` zero.  Returns the launch's shape
+    (``rows`` a lane, ``stripes``: the tickets, B times a pair of NP
+    rows', ``blocks``); see ops/banded.fill_banded."""
     dev = S.device
     B, NP, W = S.shape
     _check_lengths(B, dev, "K7", n=n, m=m)
-    if W % 128:
-        raise NotImplementedError(
-            f"K7 runs 128 threads a pair: W must be a multiple of 128, got {W}")
+    if W % 4:
+        raise ValueError(f"K7 takes W a multiple of 4, got W={W}")
     _check(S, "S", torch.float32, dev)
-    _check(scratch, "scratch", torch.float32, dev, (B, 8, W))
+    _check(scratch, "scratch", torch.int32, dev,
+           (banded_scratch_words(B, NP, W),))
     _check(tb, "tb", torch.uint8, dev, (B, NP, W))
     _check(stats, "stats", torch.float32, dev, (B, 8))
+    grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib().sw_banded_fill_launch(
             int(mode), S.data_ptr(), n.data_ptr(), m.data_ptr(), B, NP,
-            int(W), scratch.data_ptr(), tb.data_ptr(), stats.data_ptr(),
-            float(og), float(eg), torch.cuda.current_stream(dev).cuda_stream,
+            int(W), scratch.data_ptr(), tb.data_ptr(),
+            stats.data_ptr(), float(og), float(eg), ctypes.byref(grid),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K7 (banded fill)")
+    return {"rows": BANDED_R, "stripes": B * banded_stripes(NP),
+            "blocks": grid.value}
 
 
 def banded_walk(tb, off, start, m, idx1, idx2, cnt, flags, *, local: bool,

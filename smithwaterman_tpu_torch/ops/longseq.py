@@ -11,10 +11,10 @@ only O(n/C * m) floats and O(C * m) pointer bytes:
 2. per group of G bands, top group first, :func:`fill_bands` (kernel K4)
    refills bands sk0 .. sk0+G-1 (band sk: rows sk*C+1 .. sk*C+C) of every
    pair with rows there, each seeded from checkpoint sk-1 (row 0's closed
-   form for sk == 0), in one launch; then per band of the group, top band
-   first, :func:`walk_segments` (kernel K5) steps each pair's walk through
-   the band.  The walk state (i, j, state, done) and the move count stay
-   on the device between bands.  G (:func:`group_bands`) is as many bands
+   form for sk == 0), in one launch; then :func:`walk_segments` (kernel
+   K5) steps each pair's walk through the group's bands, top band first,
+   in one launch.  The walk state (i, j, state, done) and the move count
+   stay on the device between groups.  G (:func:`group_bands`) is as many bands
    as fit :data:`REFILL_BYTES` a pair and the pointer budget
    (``batch.tb_budget``) beside the chunk's checkpoints.
 
@@ -285,11 +285,13 @@ def walk_start(stats: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
                        dim=1).to(torch.int32).contiguous()
 
 
-def walk_segments_ref(band, walk, cnt, moves, *, sk: int, C: int, MP: int,
-                      L: int, local: bool) -> None:
-    """Plain version of :func:`walk_segments`: the JAX loop body
+def walk_segment_ref(band, walk, cnt, moves, *, sk: int, C: int, MP: int,
+                     L: int, local: bool) -> None:
+    """Plain version of :func:`walk_segment`: the JAX loop body
     (``longseq.py:359-388``) as tensor operations, one iteration per
-    lockstep step, until no pair is active or L + 8 steps."""
+    lockstep step, until no pair is active or L + 8 steps (whether any pair
+    is active is read every 32 steps: a step of inactive pairs changes
+    nothing)."""
     dev = band.device
     B = walk.shape[0]
     base = sk * C
@@ -305,8 +307,9 @@ def walk_segments_ref(band, walk, cnt, moves, *, sk: int, C: int, MP: int,
         return ~done & ((i > base) | (i == 0) | (j == 0))
 
     act = active(i, j, done)
-    it = 0
-    while it < L + 8 and bool(act.any()):
+    for it in range(L + 8):
+        if it % 32 == 0 and not bool(act.any()):
+            break
         s = torch.where((j == 0) & (i > 0), CELL_GAPINY,
                         torch.where((i == 0) & (j > 0), CELL_GAPINX, s))
         interior = (i >= 1) & (j >= 1)
@@ -332,29 +335,46 @@ def walk_segments_ref(band, walk, cnt, moves, *, sk: int, C: int, MP: int,
         c = c + emit.to(torch.int64)
         i, j = ni, nj
         act = active(i, j, done)
-        it += 1
     walk.copy_(torch.stack([i, j, s, done.to(torch.int64)], dim=1))
     cnt.copy_(c)
 
 
-def walk_segments(band, walk, cnt, moves, *, sk: int, C: int, MP: int,
+def walk_segments_ref(bands, walk, cnt, moves, *, sk0: int, C: int, MP: int,
+                      L: int, local: bool) -> None:
+    """Plain version of :func:`walk_segments`: :func:`walk_segment_ref`
+    for each band of the group, top band first."""
+    for g in range(bands.shape[0] - 1, -1, -1):
+        walk_segment_ref(bands[g], walk, cnt, moves, sk=sk0 + g, C=C, MP=MP,
+                         L=L, local=local)
+
+
+def walk_segments(bands, walk, cnt, moves, *, sk0: int, C: int, MP: int,
                   L: int, local: bool) -> None:
-    """Step every pair's walk through band ``sk`` (``band`` from
-    :func:`fill_band`), in place: ``walk`` (B, 4) and ``cnt`` (B,) int32,
-    ``moves`` (ceil(L/4), B) uint8 packed as ``ops/device_walk``'s (zeroed
-    before the first band).  CUDA: one launch of K5.  CPU:
-    :func:`walk_segments_ref`."""
-    if band.device.type == "cpu":
-        walk_segments_ref(band, walk, cnt, moves, sk=sk, C=C, MP=MP, L=L,
+    """Step every pair's walk through bands sk0 + G - 1 .. sk0 of the group
+    ``bands`` (G, B, (C + MP) * C) uint8 from :func:`fill_bands` (band
+    sk0 + g at [g]), top band first, in place: ``walk`` (B, 4) and ``cnt``
+    (B,) int32, ``moves`` (ceil(L/4), B) uint8 packed as
+    ``ops/device_walk``'s (zeroed before the first group).  CUDA: one
+    launch of K5, C a multiple of 32.  CPU: :func:`walk_segments_ref`."""
+    if bands.device.type == "cpu":
+        walk_segments_ref(bands, walk, cnt, moves, sk0=sk0, C=C, MP=MP, L=L,
                           local=local)
         return
-    if band.device.type != "cuda":
-        raise ValueError(f"no segment walk for device {band.device}")
+    if bands.device.type != "cuda":
+        raise ValueError(f"no segment walk for device {bands.device}")
     from . import kernels
 
-    kernels.seg_walk(band, walk, cnt, moves, local=local, C=C, sk=sk, MP=MP,
-                     L=L)
+    kernels.seg_walk(bands, walk, cnt, moves, local=local, C=C, sk0=sk0,
+                     MP=MP, L=L)
     LAUNCHES["K5"] += 1
+
+
+def walk_segment(band, walk, cnt, moves, *, sk: int, C: int, MP: int, L: int,
+                 local: bool) -> None:
+    """Step every pair's walk through band ``sk`` (``band`` (B, (C + MP) *
+    C) from :func:`fill_band`): :func:`walk_segments` with one band."""
+    walk_segments(band[None], walk, cnt, moves, sk0=sk, C=C, MP=MP, L=L,
+                  local=local)
 
 
 # ---------------------------------------------------------------- route
@@ -368,7 +388,8 @@ def align_long_packed(table: torch.Tensor, chunk: batch.Chunk, *, mode: int,
     uint8)`` with ``L = NP + MP + 2``: the JAX ``align_long_packed``
     contract, for ``ops/reconstruct.reconstruct_packed``.  One K3 launch,
     then one K4 launch per group of :func:`group_bands` bands (at the
-    pointer budget ``batch.tb_budget``) and one K5 launch per band."""
+    pointer budget ``batch.tb_budget``), each followed by one K5 launch
+    that walks the group's bands."""
     dev = table.device
     _device(table)
     C = ckpt_rows or DEFAULT_CKPT_ROWS
@@ -388,9 +409,8 @@ def align_long_packed(table: torch.Tensor, chunk: batch.Chunk, *, mode: int,
                         device=dev)
     for top in range(n_ckpts(NP, C) - 1, -1, -G):
         sk0 = max(0, top - G + 1)
-        fill_bands(table, codes1, codes2, n, m, ck, bands[:top - sk0 + 1],
-                   sk0=sk0, **args)
-        for sk in range(top, sk0 - 1, -1):
-            walk_segments(bands[sk - sk0], walk, cnt, moves, sk=sk, C=C,
-                          MP=MP, L=L, local=mode == LOCAL)
+        group = bands[:top - sk0 + 1]
+        fill_bands(table, codes1, codes2, n, m, ck, group, sk0=sk0, **args)
+        walk_segments(group, walk, cnt, moves, sk0=sk0, C=C, MP=MP, L=L,
+                      local=mode == LOCAL)
     return stats, cnt, moves

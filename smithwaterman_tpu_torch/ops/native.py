@@ -200,11 +200,11 @@ def twin_lib() -> ctypes.CDLL:
     ]
     lib.sw_twin_seg_walk.restype = i32
     lib.sw_twin_seg_walk.argtypes = [
-        i32, vp, i64, i64, i32, i32, i64, vp, vp, vp,
+        i32, vp, i32, i64, i64, i32, i32, i64, vp, vp, vp, i32,
     ]
     lib.sw_twin_banded_fill.restype = i32
     lib.sw_twin_banded_fill.argtypes = [
-        i32, vp, vp, vp, i64, i64, i32, vp, vp, vp, f32, f32,
+        i32, vp, vp, vp, i64, i64, i32, vp, vp, f32, f32, i32,
     ]
     lib.sw_twin_banded_walk.restype = i32
     lib.sw_twin_banded_walk.argtypes = [

@@ -135,9 +135,13 @@ def fill(S: torch.Tensor, n: torch.Tensor, m: torch.Tensor, og: float,
     rowarg = []
     final = torch.zeros((B, 3), dtype=f32, device=dev)
 
+    # each row's index as an f32 on the device, made once: a tensor made
+    # from a Python number a row would be a host-to-device copy a row,
+    # which waits for the device
+    fis = torch.arange(i0 + 1, i0 + npad + 1, dtype=f32, device=dev)
     for i in range(i0 + 1, i0 + npad + 1):
         srow = Spad[:, i - i0 - 1, :]
-        fi = torch.tensor(float(i), dtype=f32, device=dev)
+        fi = fis[i - i0 - 1]
 
         # ---- M: from (i-1, j-1); tie order M >= X >= Y (rs:139-158)
         Mp1, Xp1, Yp1 = _shift_right(Mp), _shift_right(Xp), _shift_right(Yp)

@@ -10,8 +10,9 @@ them:
   ``_banded_scores`` / ``_banded_scores_pallas``, ``fill_banded`` and
   ``_walk_banded_device``;
 * the host twin of kernels K7 and K8 (``csrc/cell_twin.cpp``, which runs
-  the kernels' own header ``sw_banded.cuh``, every thread of a block in
-  turn between the block's waits) against the same;
+  the kernels' own header ``sw_banded.cuh``: K7's stripes of 64 rows,
+  every lane of a stripe in turn at each step, the stripes in ticket order
+  as their feed tiles are published) against the same;
 * the entry points on the CPU (``align_banded_batch``,
   ``align_banded_verified``, ``Aligner(device="cpu").align_banded``) and
   the host walk ``walk_banded`` against JAX's.
@@ -114,16 +115,16 @@ def _jax_fill(S, pk, mode, og, eg):
     return np.asarray(tb).transpose(1, 0, 2), np.asarray(stats)
 
 
-def _twin_fill(S, pk, mode, og, eg):
+def _twin_fill(S, pk, mode, og, eg, blocks=0):
+    """The K7 twin, ``blocks`` stripes in flight (0: all)."""
     S = np.ascontiguousarray(S.numpy())
     B, NP, W = S.shape
-    scratch = np.zeros((B, 8, W), np.float32)
     tb = np.zeros((B, NP, W), np.uint8)
     stats = np.full((B, 8), 7.0, np.float32)
     rc = native.twin_lib().sw_twin_banded_fill(
         mode, S.ctypes.data, pk.n.ctypes.data, pk.m.ctypes.data, B, NP, W,
-        scratch.ctypes.data, tb.ctypes.data, stats.ctypes.data, og, eg)
-    assert rc == 0
+        tb.ctypes.data, stats.ctypes.data, og, eg, blocks)
+    assert rc == 0, f"twin blocks={blocks}: rc {rc}"
     return tb, stats
 
 
@@ -187,6 +188,45 @@ def test_fill_banded_matches_jax(mode, case):
     ttb, tst = _twin_fill(S, pk, mode, og, eg)
     np.testing.assert_array_equal(tst, jst)
     _assert_tb_equal(ttb, jtb, pk, f"twin {case}")
+
+
+# (name, pairs, band, og, eg) for the K7 stripes of 64 rows: one pair and
+# eight at W = 512, n ragged around the stripes' edges (multiples of 64)
+# and below one stripe, down to 1, eight at W = 128, og = eg = 0, and tied
+# maxima (the match/mismatch table)
+STRIPE_CASES = {
+    "one W=512": (lambda: _pairs(30, [700], [760]), 512, OG, EG),
+    "eight W=512": (lambda: _pairs(
+        31, [704, 1, 255, 31, 641, 63, 639, 65],
+        [720, 40, 300, 1, 560, 150, 700, 30]), 512, OG, EG),
+    "eight W=128": (lambda: _pairs(
+        32, [320, 64, 129, 7, 191, 256, 257, 127],
+        [310, 70, 120, 9, 200, 240, 300, 130]), 128, OG, EG),
+    "og=eg=0": (lambda: _pairs(33, [600, 5, 200, 300], [650, 3, 260, 280],
+                               similar=False), 512, 0.0, 0.0),
+    "ties": (lambda: _tied_pairs(34), 128, OG, EG),
+}
+
+
+@pytest.mark.parametrize("case", list(STRIPE_CASES))
+@pytest.mark.parametrize("mode", MODES)
+def test_twin_stripes_match_plain(mode, case):
+    """The K7 twin's stripes, every stripe in flight, one and three at a
+    time (a stripe reads a feed tile only once it is published; a hang
+    returns 2, an unfenced publication 3), against the plain fill: stats
+    and every pointer byte of rows i <= n."""
+    make, band, og, eg = STRIPE_CASES[case]
+    table = (np.asarray(JaxSM.match_mismatch(5.0, -4.0).table, np.float32)
+             if case == "ties" else TABLE)
+    pk = banded.pack(make(), band, table.shape[0])
+    S = _S(pk, table)
+    tb, st = banded.fill_banded_ref(S, _t(pk.n), _t(pk.m), mode=mode, og=og,
+                                    eg=eg)
+    for blocks in (0, 1, 3):
+        ttb, tst = _twin_fill(S, pk, mode, og, eg, blocks)
+        what = f"{case} blocks={blocks}"
+        np.testing.assert_array_equal(tst, st.numpy(), err_msg=what)
+        _assert_tb_equal(ttb, tb.numpy(), pk, what)
 
 
 # ------------------------------------------------------------ walk

@@ -522,9 +522,11 @@ def _assert_bands_equal(bands, rbands, ch, C, sk0):
 @pytest.mark.parametrize("C", [32, 64, 128, 256])
 @pytest.mark.parametrize("mode", MODES)
 def test_longseq_kernels_match_plain(cuda, mode, C):
-    """K3, K4 (every band alone, then every band but the first in one
-    launch: some pairs have no rows in most of them) and K5 (every band,
-    from the same walk state) against their plain versions on the card."""
+    """K3, K4 and K5 against their plain versions on the card: the route's
+    groups of one band, of three and of every band, each refilled in one K4
+    launch and walked in one K5 launch from the same walk state as the
+    plain walk's; then every band but the first in one K4 launch (some
+    pairs have no rows in most of them)."""
     ch = _long_chunk(40 + mode, NP=600, MP=280)
     ch.n[3:6] = (256, 257, 511)
     tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
@@ -540,34 +542,38 @@ def test_longseq_kernels_match_plain(cuda, mode, C):
         for a, r in zip(ck, rck):
             assert torch.equal(a[b, :k, :mb], r[b, :k, :mb])
     L = NP + MP + 2
-    walk = longseq.walk_start(st, n, m, mode)
-    rwalk = walk.clone()
-    cnt = torch.zeros(B, dtype=torch.int32, device=cuda)
-    rcnt = cnt.clone()
-    moves = torch.zeros((-(-L // 4), B), dtype=torch.uint8, device=cuda)
-    rmoves = moves.clone()
-    band = torch.zeros((B, longseq.band_bytes(C, MP)), dtype=torch.uint8,
-                       device=cuda)
-    rband = band.clone()
-    for sk in range(longseq.n_ckpts(NP, C) - 1, -1, -1):
-        longseq.fill_band(tab, c1, c2, n, m, ck, band, sk=sk, **args)
-        longseq.fill_band_ref(tab, c1, c2, n, m, ck, rband, sk=sk, **args)
-        got, ref = (longseq.band_view(x, C, MP) for x in (band, rband))
-        for b in range(B):
-            rows = min(max(int(ch.n[b]) - sk * C, 0), C)
-            assert torch.equal(got[b, :rows, :int(ch.m[b])],
-                               ref[b, :rows, :int(ch.m[b])]), (sk, b)
-        kw = dict(sk=sk, C=C, MP=MP, L=L, local=mode == LOCAL)
-        longseq.walk_segments(band, walk, cnt, moves, **kw)
-        longseq.walk_segments_ref(band, rwalk, rcnt, rmoves, **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(walk, rwalk) and torch.equal(cnt, rcnt), sk
-        assert torch.equal(moves, rmoves), sk
-    assert bool((walk[:, 3] == 1).all()) or mode == LOCAL
     nck = longseq.n_ckpts(NP, C)
+    bb = longseq.band_bytes(C, MP)
+    for G in sorted({1, 3, nck}):
+        walk = longseq.walk_start(st, n, m, mode)
+        rwalk = walk.clone()
+        cnt = torch.zeros(B, dtype=torch.int32, device=cuda)
+        rcnt = cnt.clone()
+        moves = torch.zeros((-(-L // 4), B), dtype=torch.uint8, device=cuda)
+        rmoves = moves.clone()
+        bands = torch.zeros((G, B, bb), dtype=torch.uint8, device=cuda)
+        rbands = bands.clone()
+        for top in range(nck - 1, -1, -G):
+            sk0 = max(0, top - G + 1)
+            g = top - sk0 + 1
+            longseq.fill_bands(tab, c1, c2, n, m, ck, bands[:g], sk0=sk0,
+                               **args)
+            longseq.fill_bands_ref(tab, c1, c2, n, m, ck, rbands[:g],
+                                   sk0=sk0, **args)
+            torch.cuda.synchronize()
+            _assert_bands_equal(bands[:g], rbands[:g], ch, C, sk0)
+            kw = dict(sk0=sk0, C=C, MP=MP, L=L, local=mode == LOCAL)
+            before = longseq.LAUNCHES["K5"]
+            longseq.walk_segments(bands[:g], walk, cnt, moves, **kw)
+            assert longseq.LAUNCHES["K5"] == before + 1
+            longseq.walk_segments_ref(bands[:g], rwalk, rcnt, rmoves, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(walk, rwalk) and torch.equal(cnt, rcnt), (
+                G, sk0)
+            assert torch.equal(moves, rmoves), (G, sk0)
+        assert bool((walk[:, 3] == 1).all()) or mode == LOCAL
     if nck > 1:
-        bands = torch.zeros((nck - 1, B, longseq.band_bytes(C, MP)),
-                            dtype=torch.uint8, device=cuda)
+        bands = torch.zeros((nck - 1, B, bb), dtype=torch.uint8, device=cuda)
         rbands = bands.clone()
         before = longseq.LAUNCHES["K4"]
         longseq.fill_bands(tab, c1, c2, n, m, ck, bands, sk0=1, **args)
@@ -604,7 +610,8 @@ def test_long_route_matches_ordinary(cuda, mode):
 @pytest.mark.parametrize("mode", MODES)
 def test_longseq_kernels_write_only_their_outputs(cuda, mode):
     """K3 (with its scratch: tickets, published tiles, band bests), K4 (a
-    group of two bands) and K5 launched on outputs fenced by canary bytes:
+    group of two bands) and K5 (walking that group) launched on outputs
+    fenced by canary bytes:
     every canary stays intact and the outputs equal the wrappers' on the
     same inputs."""
     from smithwaterman_tpu_torch.ops import kernels
@@ -633,7 +640,6 @@ def test_longseq_kernels_write_only_their_outputs(cuda, mode):
     arenas["band"], bands = _fenced(2 * B * bb, torch.uint8, cuda)
     bands = bands.view(2, B, bb)
     kernels.band_fill(tab, c1, c2, n, m, *ck, bands, sk0=sk - 1, **args)
-    band = bands[1]
     L = NP + MP + 2
     walk0 = longseq.walk_start(wst, n, m, mode)
     walk0[:, 0] = torch.minimum(walk0[:, 0], n.new_tensor((sk + 1) * C))
@@ -644,8 +650,8 @@ def test_longseq_kernels_write_only_their_outputs(cuda, mode):
     arenas["moves"], moves = _fenced(-(-L // 4) * B, torch.uint8, cuda,
                                      inner=0)
     moves = moves.view(-1, B)
-    kernels.seg_walk(band, walk, cnt, moves, local=mode == LOCAL, C=C,
-                     sk=sk, MP=MP, L=L)
+    kernels.seg_walk(bands, walk, cnt, moves, local=mode == LOCAL, C=C,
+                     sk0=sk - 1, MP=MP, L=L)
     torch.cuda.synchronize()
     for name, arena in arenas.items():
         assert bool((arena[:GUARD] == CANARY).all()), name
@@ -670,23 +676,23 @@ def test_longseq_kernels_write_only_their_outputs(cuda, mode):
     wbands = torch.zeros_like(bands)
     longseq.fill_bands(tab, c1, c2, n, m, wck, wbands, sk0=sk - 1, **args)
     _assert_bands_equal(bands, wbands, ch, C, sk - 1)
-    wband = wbands[1]
     rwalk = walk0.clone()
     rcnt = torch.zeros(B, dtype=torch.int32, device=cuda)
     rmoves = torch.zeros_like(moves)
-    longseq.walk_segments_ref(wband, rwalk, rcnt, rmoves, sk=sk, C=C, MP=MP,
-                              L=L, local=mode == LOCAL)
+    longseq.walk_segments_ref(wbands, rwalk, rcnt, rmoves, sk0=sk - 1, C=C,
+                              MP=MP, L=L, local=mode == LOCAL)
     assert torch.equal(walk, rwalk) and torch.equal(cnt, rcnt)
     assert torch.equal(moves, rmoves)
 
 
 def _banded_pairs(seed):
-    """Ragged similar pairs (lengths down to 1, both signs of m - n) and
-    one pair with a repeated motif: tied LOCAL maxima."""
+    """Ragged similar pairs (lengths down to 1, around multiples of 64,
+    both signs of m - n) and one pair with a repeated motif: tied LOCAL
+    maxima."""
     rng = np.random.default_rng(seed)
     out = []
-    for n, m in ((600, 640), (1, 50), (700, 560), (37, 1), (300, 400),
-                 (512, 512), (90, 200)):
+    for n, m in ((639, 640), (1, 50), (705, 560), (37, 1), (321, 400),
+                 (512, 512), (65, 180)):
         base = rng.integers(0, 20, size=n + m + 10)
         c2 = base[3:3 + m].copy()
         c2[rng.integers(0, m, size=max(1, m // 10))] = 5
@@ -703,23 +709,34 @@ def _banded_on(pk, dev):
                  for a in (pk.codes1, pk.codes2, pk.n, pk.m))
 
 
-@pytest.mark.parametrize("band", [128, 512, 1024])
+@pytest.mark.parametrize("which", ["eight", "one"])
+@pytest.mark.parametrize("band", [128, 512, 2048])
 @pytest.mark.parametrize("mode", MODES)
-def test_banded_kernels_match_plain(cuda, mode, band):
+def test_banded_kernels_match_plain(cuda, mode, band, which):
     """K6, K7 and K8 against their plain versions on the card: every score,
-    every pointer byte of rows i <= n, stats, indices, counts and flags."""
+    every pointer byte of rows i <= n, stats, indices, counts and flags;
+    eight ragged pairs (n around K7's stripes of 64 rows and below one) or
+    one of 3000 x 3100 (W up to 2048), K7 on more blocks than pairs."""
     from smithwaterman_tpu_torch.ops import banded
 
     table = SubstitutionMatrix.blosum62().table
     tab = torch.from_numpy(table).to(cuda)
-    pk = banded.pack(_banded_pairs(70 + mode), band, table.shape[0])
+    pairs = _banded_pairs(70 + mode)
+    if which == "one":
+        c1 = np.random.default_rng(75 + mode).integers(0, 20, size=3000)
+        c2 = np.concatenate([c1[:1400], c1[1300:]])
+        c2[::23] = 4
+        pairs = [(c1, c2)]
+    pk = banded.pack(pairs, band, table.shape[0])
     c1, c2, n, m = _banded_on(pk, cuda)
     S = banded.banded_scores(tab, c1, c2, n, m, W=pk.W)
     assert torch.equal(S, banded.banded_scores_ref(tab, c1, c2, n, m,
                                                    W=pk.W))
     args = dict(mode=mode, og=-10.0, eg=-0.5)
-    tb, st = banded.fill_banded(S, n, m, **args)
     rtb, rst = banded.fill_banded_ref(S, n, m, **args)
+    tb, st = banded.fill_banded(S, n, m, **args)
+    shape = banded.SHAPES["K7"]
+    assert shape["blocks"] > len(pairs), shape
     assert torch.equal(st, rst)
     for b in range(len(pk.n)):
         assert torch.equal(tb[b, :int(pk.n[b])], rtb[b, :int(pk.n[b])]), b
@@ -757,9 +774,10 @@ def test_banded_cuda_matches_cpu(cuda, mode):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_banded_kernels_write_only_their_outputs(cuda, mode):
-    """K6, K7 and K8 launched on outputs fenced by canary bytes: every
-    canary stays intact and the outputs equal the wrappers' on the same
-    inputs."""
+    """K6, K7 (with its scratch: tickets, published tiles, stripe bests
+    and bottom rows) and K8 launched on outputs fenced by canary bytes:
+    every canary stays intact and the outputs equal the wrappers' on the
+    same inputs."""
     from smithwaterman_tpu_torch.ops import banded, kernels
 
     table = SubstitutionMatrix.blosum62().table
@@ -775,11 +793,13 @@ def test_banded_kernels_write_only_their_outputs(cuda, mode):
     arenas["S"], S = _fenced(4 * B * NP * W, torch.float32, cuda)
     S = S.view(B, NP, W)
     kernels.banded_scores(tab, c1, c2, n, m, S, W=W)
-    arenas["scratch"], scratch = _fenced(4 * B * 8 * W, torch.float32, cuda)
+    words = kernels.banded_scratch_words(B, NP, W)
+    arenas["scratch"], scratch = _fenced(4 * words, torch.int32, cuda)
+    scratch[:kernels.banded_scratch_zeroed(B, NP)].zero_()
     arenas["tb"], tb = _fenced(B * NP * W, torch.uint8, cuda)
     arenas["stats"], stats = _fenced(4 * 8 * B, torch.float32, cuda)
     tb, stats = tb.view(B, NP, W), stats.view(B, 8)
-    kernels.banded_fill(S, n, m, scratch.view(B, 8, W), tb, stats, **args)
+    kernels.banded_fill(S, n, m, scratch, tb, stats, **args)
     start, _ = banded.walk_starts(wst.cpu().numpy(), pk, mode)
     off, start = (torch.from_numpy(a).to(cuda) for a in (pk.offs, start))
     L = banded.path_len(pk)

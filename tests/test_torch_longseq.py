@@ -241,9 +241,10 @@ def _twin_band(table, ch, mode, og, eg, C, sk, ck, band=None):
                        None if band is None else band[None])[0]
 
 
-def _twin_route(table, ch, mode, og, eg, C, G=1):
-    """K3, then per group of G bands one K4 launch and per band K5, as
-    align_long_packed launches them, all through the twin."""
+def _twin_route(table, ch, mode, og, eg, C, G=1, D=0):
+    """K3, then per group of G bands one K4 launch and one K5 launch, as
+    align_long_packed launches them, all through the twin (K5's windows of
+    D diagonals, 0 for the card's)."""
     lib = native.twin_lib()
     B, NP, MP = ch.shape
     L = NP + MP + 2
@@ -257,12 +258,11 @@ def _twin_route(table, ch, mode, og, eg, C, G=1):
         sk0 = max(0, top - G + 1)
         _twin_bands(table, ch, mode, og, eg, C, sk0, top - sk0 + 1, ck,
                     bands)
-        for sk in range(top, sk0 - 1, -1):
-            rc = lib.sw_twin_seg_walk(1 if mode == LOCAL else 0,
-                                      bands[sk - sk0].ctypes.data, B, MP, C,
-                                      sk, L, walk.ctypes.data,
-                                      cnt.ctypes.data, moves.ctypes.data)
-            assert rc == 0
+        rc = lib.sw_twin_seg_walk(1 if mode == LOCAL else 0,
+                                  bands.ctypes.data, top - sk0 + 1, B, MP, C,
+                                  sk0, L, walk.ctypes.data, cnt.ctypes.data,
+                                  moves.ctypes.data, D)
+        assert rc == 0
     return stats, cnt, moves
 
 
@@ -372,8 +372,8 @@ def test_twin_band_groups_match_plain(mode, C):
 
 
 def test_twin_seg_walk_state_matches_plain():
-    """K5's step rule band by band: the walk state after every band, not
-    only the final stream, equals the plain walk's."""
+    """K5's step rule band by band (groups of one band): the walk state
+    after every band, not only the final stream, equals the plain walk's."""
     table = JaxSM.blosum62().table
     ch = _chunk(6)
     mode = GLOCAL
@@ -389,15 +389,82 @@ def test_twin_seg_walk_state_matches_plain():
     lib = native.twin_lib()
     for sk in range(longseq.n_ckpts(NP, CKPT) - 1, -1, -1):
         _twin_band(table, ch, mode, OG, EG, CKPT, sk, ck, band)
-        longseq.walk_segments_ref(torch.from_numpy(band), walk, cnt, moves,
-                                  sk=sk, C=CKPT, MP=MP, L=L, local=False)
-        lib.sw_twin_seg_walk(0, band.ctypes.data, B, MP, CKPT, sk, L,
-                             tw.ctypes.data, tcnt.ctypes.data,
-                             tmoves.ctypes.data)
+        longseq.walk_segment_ref(torch.from_numpy(band), walk, cnt, moves,
+                                 sk=sk, C=CKPT, MP=MP, L=L, local=False)
+        assert lib.sw_twin_seg_walk(0, band.ctypes.data, 1, B, MP, CKPT, sk,
+                                    L, tw.ctypes.data, tcnt.ctypes.data,
+                                    tmoves.ctypes.data, 0) == 0
         np.testing.assert_array_equal(tw, walk.numpy(), err_msg=f"band {sk}")
         np.testing.assert_array_equal(tcnt, cnt.numpy())
         np.testing.assert_array_equal(tmoves, moves.numpy())
     assert bool((walk[:, 3] == 1).all())  # every walk reached (0, 0)
+
+
+def _gap_chunk(seed):
+    """Pairs whose seq2 is five to eight times seq1: non-LOCAL walks run
+    hundreds of steps along gaps, one anti-diagonal a step, and some end on
+    the DP boundary inside a band."""
+    rng = np.random.default_rng(seed)
+    B, NP, MP = 8, 64, 512
+    c1 = rng.choice([0, 2], size=(B, NP)).astype(np.uint8)
+    c2 = rng.choice([0, 2], size=(B, MP)).astype(np.uint8)
+    c2[0, 200:250] = c1[0, 5:55]  # a local alignment far along seq2
+    n = np.array([64, 64, 33, 1, 63, 40, 64, 17], np.int32)
+    m = np.array([512, 500, 511, 300, 320, 512, 401, 512], np.int32)
+    return batch.Chunk(c1, c2, n, m)
+
+
+@pytest.mark.parametrize("C", [32, 64, 256])
+@pytest.mark.parametrize("mode", MODES)
+def test_twin_seg_walk_groups_match_plain(mode, C):
+    """K5's group launches through the twin, every window copy checked (a
+    read outside a loaded window returns 3): groups of one band, three
+    bands and every band of the bucket, at the card's window and at
+    windows of 2 and 5 diagonals, on ragged tie-heavy pairs (LOCAL walks
+    start mid-band, pairs end at band edges) and on pairs with long gap
+    runs.  The state after each group equals the plain walk's after the
+    same band, and the plain route's final stream equals JAX's."""
+    sm = JaxSM.match_mismatch(5.0, -4.0)
+    lib = native.twin_lib()
+    local = mode == LOCAL
+    for ch in (_ragged_chunk(17 + mode), _gap_chunk(19 + mode)):
+        B, NP, MP = ch.shape
+        L = NP + MP + 2
+        nck = longseq.n_ckpts(NP, C)
+        stats, ck = _twin_ckpt(sm.table, ch, mode, OG, EG, C)
+        bands = np.zeros((nck, B, longseq.band_bytes(C, MP)), np.uint8)
+        _twin_bands(sm.table, ch, mode, OG, EG, C, 0, nck, ck, bands)
+        start = longseq.walk_start(_t(stats), _t(ch.n), _t(ch.m), mode)
+        walk, cnt = start.clone(), torch.zeros(B, dtype=torch.int32)
+        moves = torch.zeros((-(-L // 4), B), dtype=torch.uint8)
+        after = {}
+        for sk in range(nck - 1, -1, -1):
+            longseq.walk_segment_ref(torch.from_numpy(bands[sk]), walk, cnt,
+                                     moves, sk=sk, C=C, MP=MP, L=L,
+                                     local=local)
+            after[sk] = (walk.numpy().copy(), cnt.numpy().copy(),
+                         moves.numpy().copy())
+        if MP > 100 and C == 32:  # the gap pairs: the plain stream is JAX's
+            ref = _jax_route(sm.table, ch, mode, OG, EG, C)
+            np.testing.assert_array_equal(after[0][1], ref[1])
+            np.testing.assert_array_equal(after[0][2], ref[2])
+        for G in sorted({1, 3, nck}):
+            for D in (0, 2, 5):
+                tw = start.numpy().copy()
+                tcnt = np.zeros(B, np.int32)
+                tmv = np.zeros((-(-L // 4), B), np.uint8)
+                for top in range(nck - 1, -1, -G):
+                    sk0 = max(0, top - G + 1)
+                    group = np.ascontiguousarray(bands[sk0:top + 1])
+                    rc = lib.sw_twin_seg_walk(
+                        1 if local else 0, group.ctypes.data, top - sk0 + 1,
+                        B, MP, C, sk0, L, tw.ctypes.data, tcnt.ctypes.data,
+                        tmv.ctypes.data, D)
+                    what = f"G={G} D={D} bands {sk0}..{top}"
+                    assert rc == 0, what
+                    for got, want in zip((tw, tcnt, tmv), after[sk0]):
+                        np.testing.assert_array_equal(got, want,
+                                                      err_msg=what)
 
 
 # ------------------------------------------------------------ routing
