@@ -61,8 +61,11 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    (the pairs with m <= n), 512 and 2048 (offsets all 0) in all three
    modes, GLOBAL with og = eg = 0 and LOCAL with a non-integer table.
    Every score, every pointer byte of each pair's rows i <= n, the stats,
-   walk indices, counts and flags must be equal; a corrupted band must set
-   flag bit 1 in both walks and make ``align_banded_batch`` raise
+   walk indices, counts and flags must be equal; K8 on random pointer
+   bands of 8, 130 and 29,952 bytes a row (row starts off 16- and 4-byte
+   alignment for its window copies, and a band read straight from device
+   memory) must equal the plain walk in all three modes; a corrupted band
+   must set flag bit 1 in both walks and make ``align_banded_batch`` raise
    ``BandExceeded``;
 10. banded alignment at a real size: (a) 8 protein pairs of 12,000
    residues (mutated copies as in phase 8, over the 20 amino acids, from
@@ -83,7 +86,8 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
 11. the opt-in routes' kernels against their plain versions: K9 (the
    wavefront score fill) on ragged pairs down to length 1 with NP not a
    multiple of the strip width, at (go, ge) = (10, 0.5), (0, 0) and (5, 2)
-   and with a non-integer table, also against K1's score-only best; K10
+   and with a non-integer table, also against K1's score-only best, at the
+   launcher's R and at every R columns a lane; K10
    (the fill with match-run bytes) on phase 3's inputs in all three modes,
    its pointer bytes and stats equal to K1's and its run bytes to the plain
    ones; K11 (the token walk) on K10's own pools.  All exact;
@@ -95,8 +99,9 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    their plain versions at that flush; (b)
    ``BatchAligner(diag_scores=True).score_pairs`` on the same pairs in
    LOCAL, every score equal to phase 5's, only K9 launching; its warm wall
-   beside phase 5's, and K9 beside K1's score-only fill and its plain
-   version (on every third chunk); (c) ``sweep.score_matrix``, a self-sweep
+   beside phase 5's, and K9 beside K1's score-only fill (both by their
+   launches alone) and its plain version (on every third chunk); (c)
+   ``sweep.score_matrix``, a self-sweep
    of 400 such proteins (79,800 pairs, ``chunk_pairs`` 8192) through the
    wavefront route into a temporary file, cut to half its lines and
    resumed, equal to the matrix of the K1 route;
@@ -407,6 +412,33 @@ def relaunch(tab, chunks, got, **args):
     return run
 
 
+def k9_relaunch(tab, chunks, R, og, eg):
+    """A function that launches K9 (``kernels.diag_fill``, R columns a
+    lane) on ``chunks``, the launch ``diag_dp.fill_diag`` makes, its
+    descriptors and codes uploaded once: the kernel's time without the
+    host's layout and uploads.  Returns (run, stats); these launches are
+    not counted."""
+    import torch
+
+    from smithwaterman_tpu_torch.ops import diag_dp, kernels
+
+    dev = tab.device
+    desc, floats = diag_dp.layout(chunks)
+    desc = torch.from_numpy(desc).to(dev)
+    codes1, codes2 = (torch.from_numpy(np.concatenate(
+        [getattr(ch, f).ravel() for ch in chunks])).to(dev)
+        for f in ("codes1", "codes2"))
+    scratch = torch.empty(max(floats, 1), dtype=torch.float32, device=dev)
+    stats = torch.empty((desc.shape[0], 8), dtype=torch.float32, device=dev)
+
+    def run():
+        kernels.diag_fill(tab, codes1, codes2, desc, scratch, stats, og=og,
+                          eg=eg, R=R)
+        return stats
+
+    return run
+
+
 PHASE9_LENGTHS = ((2048, 1748), (1, 5), (1500, 1800), (700, 640),
                   (1234, 1234), (2000, 2048), (300, 600), (1600, 1600))
 
@@ -510,6 +542,23 @@ def phase9(dev, card, modes):
             and torch.equal(flags, rflags)):
         fail(f"corrupted band: flags {flags.tolist()} / plain "
              f"{rflags.tolist()}, expected bit 1 where {past0.tolist()}")
+    # K8 on random pointer bands of any width: rows off 16- and 4-byte
+    # alignment (8, 130: the window copies' end pieces) and past the
+    # window ring's shared memory (29,952: direct reads)
+    odd = []
+    for W in (8, 130, 29952):
+        for mode, mname in modes:
+            tb, off, start, m, L = banded.random_band(
+                np.random.default_rng(SEED + W + mode), W, mode == LOCAL)
+            tb, off, start, m = (torch.from_numpy(a).to(dev)
+                                 for a in (tb, off, start, m))
+            wk = dict(local=mode == LOCAL, L=L)
+            got = banded.walk_banded_device(tb, off, start, m, **wk)
+            want = banded.walk_banded_ref(tb, off, start, m, **wk)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"K8 {mname} random band W={W}: walk differs from the "
+                     "plain walk")
+            odd.append(int(got[2].sum()))
     real_fill = banded.fill_banded
 
     def corrupted(*a, **k):
@@ -529,7 +578,9 @@ def phase9(dev, card, modes):
         f"{sorted(widths)}, GLOBAL og=eg=0, LOCAL blosum62*0.5), "
         f"{len(pairs)} pairs of up to 2048 a side: every score, every "
         "pointer byte of rows i <= n, stats, indices, counts and flags equal "
-        "to the plain versions; a corrupted band sets flag bit 1 in both "
+        "to the plain versions; K8 on random bands of W 8, 130 and 29,952 "
+        f"in each mode ({sum(odd)} steps) equal to the plain walk; a "
+        "corrupted band sets flag bit 1 in both "
         "walks and align_banded_batch raises BandExceeded; summed ms kernel "
         "/ plain (K7's on the CPU): " + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
                                 for k, v in sums.items()) + f"; on {card}")
@@ -680,6 +731,7 @@ def phase10(dev, card, modes):
     wk = dict(local=True, L=L)
     k8_ms, got = timed(lambda: banded.walk_banded_device(tb, off, start, m,
                                                          **wk), 3)
+    k8_rows = banded.SHAPES["K8"]["rows"]
     k8_plain_ms, want = event_ms(lambda: banded.walk_banded_ref(
         tb, off, start, m, **wk))
     k8_err = max(float((g.long() - w.long()).abs().max())
@@ -699,7 +751,9 @@ def phase10(dev, card, modes):
         f"{k6_bound[0]:.4f} ms; K7 {k7_ms:.3f} ms ({cells} band cells, "
         f"{k7_ms * 1e6 / NP:.1f} ns a band row; R {k7_shape['rows']}, "
         f"{k7_shape['stripes']} stripes, {k7_shape['blocks']} blocks) vs "
-        f"plain (CPU) {k7_plain_ms:.3f} ms, bound {k7_bound[0]:.4f} ms; K8 {k8_ms:.4f} ms ({steps} steps) vs "
+        f"plain (CPU) {k7_plain_ms:.3f} ms, bound {k7_bound[0]:.4f} ms; K8 "
+        f"{k8_ms:.4f} ms ({steps} steps, {k8_ms * 1e6 / steps * B:.1f} ns a "
+        f"step of a pair's walk; {k8_rows} rows a window) vs "
         f"plain {k8_plain_ms:.3f} ms, bound {k8_bound[0]:.6f} ms; all equal "
         "to the plain versions")
     del S, tb, got, want
@@ -835,6 +889,17 @@ def phase11(dev, card, modes, cases, ragged, pair_masks, fill_err, walk_err):
             if not (torch.equal(got, ref) and torch.equal(got, k1.stats)):
                 fail(f"K9 {tname} og={og} eg={eg}: best scores differ from "
                      "the plain wavefront or K1's score-only fill")
+            # every R columns a lane, forced for one launch each
+            real = diag_dp.lane_cols
+            try:
+                for R in diag_dp.LANE_COLS:
+                    diag_dp.lane_cols = lambda MP, R=R: R
+                    if not torch.equal(diag_dp.fill_diag(tab, chunks, og=og,
+                                                         eg=eg), ref):
+                        fail(f"K9 R={R} {tname} og={og} eg={eg}: best "
+                             "scores differ from the plain wavefront")
+            finally:
+                diag_dp.lane_cols = real
             n9 += 1
     for name, chunks, table, og, eg in cases:
         tab = torch.from_numpy(np.ascontiguousarray(table)).to(dev)
@@ -875,7 +940,9 @@ def phase11(dev, card, modes, cases, ragged, pair_masks, fill_err, walk_err):
         del masks
     say(f"phase 11 K9: {n9} cases (2 tables x (go, ge) in (10, 0.5), (0, 0), "
         f"(5, 2); phase 3's ragged chunks and {B} pairs of up to {NP} x {MP}, "
-        "lengths down to 1) equal to the plain wavefront and to K1's "
+        "lengths down to 1), at the launcher's R and at R in "
+        f"{list(diag_dp.LANE_COLS)} columns a lane, equal to the plain "
+        "wavefront and to K1's "
         f"score-only best; K10 and K11: {len(cases)} cases x 3 modes, "
         "pointer bytes and stats equal to K1's, run bytes to the plain ones, "
         "tokens to the plain token walk; summed ms kernel / plain: "
@@ -1041,13 +1108,22 @@ def phase12(dev, card, modes, pairs, chunks, results, scores, walls,
         f"s), launches {json.dumps(c)}; every score equal to phase 5's; "
         f"phases " + json.dumps({k: round(v, 4) for k, v in
                                   eng.phase.items()}))
+    # K9 and K1's score-only fill by their launches alone (inputs uploaded
+    # once), and the wavefront call with its host layout and uploads
     diag_dp.fill_diag(tab, chunks, og=og, eg=eg)
-    k9_ms, got = timed(lambda: diag_dp.fill_diag(tab, chunks, og=og, eg=eg),
-                       5)
-    fill_dp.fill_many(tab, chunks, mode=LOCAL, og=og, eg=eg, score_only=True)
-    k1so_ms, k1 = timed(lambda: fill_dp.fill_many(
-        tab, chunks, mode=LOCAL, og=og, eg=eg, score_only=True), 3)
-    k9_err = float((got - k1.stats).abs().max())
+    k9_call_ms, got = timed(lambda: diag_dp.fill_diag(tab, chunks, og=og,
+                                                      eg=eg), 5)
+    k9_R = diag_dp.SHAPE["R"]
+    run9 = k9_relaunch(tab, chunks, k9_R, og, eg)
+    run9()
+    k9_ms, again = timed(run9, 10)
+    k1 = fill_dp.fill_many(tab, chunks, mode=LOCAL, og=og, eg=eg,
+                           score_only=True)
+    run1 = relaunch(tab, chunks, k1, mode=LOCAL, og=og, eg=eg)
+    run1()
+    k1so_ms, k1 = timed(run1, 10)
+    k9_err = max(float((got - k1.stats).abs().max()),
+                 float((again - got).abs().max()))
     # the plain wavefront in strips of 128 columns (its values do not
     # depend on the width; phase 11 runs K9's 32) on every third chunk
     sub = chunks[::3]
@@ -1064,8 +1140,10 @@ def phase12(dev, card, modes, pairs, chunks, results, scores, walls,
         fail(f"K9 at the main path's shapes: max error {k9_err}")
     sub_ms, _ = timed(lambda: diag_dp.fill_diag(tab, sub, og=og, eg=eg), 5)
     say(f"phase 12b kernels at the main path's shapes ({PAIRS} pairs, "
-        f"{len(chunks)} chunks): K9 {k9_ms:.4f} ms vs K1 score-only "
-        f"{k1so_ms:.3f} ms, equal best on every pair; plain wavefront (128 "
+        f"{len(chunks)} chunks), by their launches alone: K9 {k9_ms:.4f} ms "
+        f"(R {k9_R} columns a lane; {k9_call_ms:.4f} ms a fill_diag call "
+        f"with its host layout and uploads) vs K1 score-only "
+        f"{k1so_ms:.4f} ms, equal best on every pair; plain wavefront (128 "
         f"columns a strip) on {len(sub)} of {len(chunks)} chunks "
         f"{k9_plain_ms:.3f} ms (K9 on "
         f"them {sub_ms:.4f} ms), equal; on {card}")
@@ -1136,6 +1214,9 @@ def phase12(dev, card, modes, pairs, chunks, results, scores, walls,
             "replaces": repl, "launches": launches[k], "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": bd[0], "bound_by": bd[1],
             "library_ms": None})
+    # K9's "ms" is its launch alone, as K1's and K2's; a fill_diag call,
+    # with its host layout and uploads, is "call_ms"
+    out[0]["call_ms"] = k9_call_ms
     return out
 
 

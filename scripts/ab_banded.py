@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the banded fill K7 of one or more source trees on one card.
+"""Time the banded fill K7 and the banded walk K8 of one or more source
+trees on one card.
 
 Usage, on a machine with an NVIDIA card::
 
@@ -13,10 +14,12 @@ inputs (BLOSUM62, go = 10, ge = 0.5):
 
 * 10a, 8 protein pairs of 12,000 at band 512 (W = 512): K7 (LOCAL, mean
   of 3 launches after one to warm up) and a digest of its pointer bytes
-  (rows i <= n) and stats, equal across trees when the fills agree; in
-  each mode the wall of one ``align_banded_batch`` after one untimed call;
-* 10b, one pair of 32,768: K7 at the verified band's W (LOCAL, mean of 3)
-  with its digest, and the warm wall of the verified
+  (rows i <= n) and stats, equal across trees when the fills agree; K8 on
+  that band (LOCAL, mean of 3 after one), its steps and a digest of its
+  indices, counts and flags; in each mode the wall of one
+  ``align_banded_batch`` after one untimed call;
+* 10b, one pair of 32,768: K7 and K8 at the verified band's W (LOCAL,
+  mean of 3) with their digests, and the warm wall of the verified
   ``Aligner.align_banded(band=1024)``.
 
 Times are CUDA events, walls host clocks around a synchronised call; the
@@ -60,7 +63,7 @@ def inputs(tree: str):
 
 def shapes(banded, codes, table, giant, band_used, dev):
     """The K7 inputs of 10a and of 10b's verified band: {name: (S, n, m,
-    n numpy)}."""
+    packed batch)}."""
     import torch
 
     out = {}
@@ -71,7 +74,7 @@ def shapes(banded, codes, table, giant, band_used, dev):
         c1, c2, n, m = (torch.from_numpy(a).to(dev)
                         for a in (pk.codes1, pk.codes2, pk.n, pk.m))
         out[name] = (banded.banded_scores(tab, c1, c2, n, m, W=pk.W), n, m,
-                     pk.n)
+                     pk)
     return out
 
 
@@ -111,14 +114,23 @@ def one(tree: str) -> dict:
     band_used = banded.align_banded_verified(
         giant[2], giant[3], table, band=cs.GIANT_BAND, device=dev, **kw)[-1]
     out["band_used_10b"] = band_used
-    for name, (S, n, m, nn) in shapes(banded, codes, table, giant, band_used,
+    for name, (S, n, m, pk) in shapes(banded, codes, table, giant, band_used,
                                       dev).items():
         banded.fill_banded(S, n, m, **kw)
         out[f"k7_{name}_ms"], (tb, st) = cs.timed(
             lambda: banded.fill_banded(S, n, m, **kw), 3)
-        out[f"k7_{name}_digest"] = digest(tb, st, nn)
+        out[f"k7_{name}_digest"] = digest(tb, st, pk.n)
         if hasattr(banded, "SHAPES"):
             out[f"k7_{name}_shape"] = dict(banded.SHAPES["K7"])
+        start, _ = banded.walk_starts(st.cpu().numpy(), pk, LOCAL)
+        off, start = (torch.from_numpy(a).to(dev) for a in (pk.offs, start))
+        wk = dict(local=True, L=banded.path_len(pk))
+        banded.walk_banded_device(tb, off, start, m, **wk)
+        out[f"k8_{name}_ms"], got = cs.timed(
+            lambda: banded.walk_banded_device(tb, off, start, m, **wk), 3)
+        out[f"k8_{name}_steps"] = int(got[2].sum())
+        out[f"k8_{name}_digest"] = hashlib.sha256(b"".join(
+            g.cpu().numpy().tobytes() for g in got)).hexdigest()
     return out
 
 

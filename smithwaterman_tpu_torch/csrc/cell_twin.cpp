@@ -13,21 +13,23 @@
 // the pairs) and advance a step each in turn, every band reading its seed
 // tiles as soon as they are published (the LOCAL merge in the pair's last
 // band); K4's bands of a group run one after another.  Both are orders the
-// card may take.  For K5 it walks each pair's group of bands through the
-// window ring (sw_walk.cuh SegWindows) with its copies landing only when
-// the card's warp waits for them, and checks every byte read against the
-// landed copies.  For K7 it runs each stripe's lanes in turn at each step
-// (sw_banded.cuh) and the launch's stripes in ticket order with a given
-// number in flight, each advanced once the feed tiles it reads are
-// published, every publication checked against the fence rule.  For K12
-// and K13 it runs each column tile as its warp
-// would, a row at a time, every thread in turn, and the launch's tiles in
+// card may take.  For K5 and K8 it walks each pair (K5: its group of
+// bands) through the window ring (sw_walk.cuh Windows) with its copies
+// landing only when the card's warp waits for them, and checks every byte
+// read against the landed copies.  For K7 it runs each stripe's lanes in
+// turn at each step (sw_banded.cuh) and the launch's stripes in ticket
+// order with a given number in flight, each advanced once the feed tiles
+// it reads are published, every publication checked against the fence
+// rule.  For K12 and K13 it runs each column tile as its warp would, a
+// row at a time, every thread in turn, and the launch's tiles in
 // ticket order with a given number in flight, each advanced once its left
 // neighbour has published the edges it needs, every publication checked
 // against the fence rule (sw_striped.cuh).
-// For K9 it runs every lane of a warp in turn at each step,
-// handing each lane its left neighbour's values from before the step, as
-// the card's shuffles do (sw_diag.cuh).  The tier-1 tests hold its
+// For K9 it runs every lane of a warp in turn at each step, R columns a
+// lane, handing each lane its left neighbour's values from before the
+// step, as the card's shuffles do, and lane 0 its row from the stage the
+// warp loads 32 rows at a time, each staged edge row checked against the
+// strips' writes (sw_diag.cuh).  The tier-1 tests hold its
 // outputs against the JAX package (ops/scan_dp.py, ops/pallas_dp.py,
 // ops/device_walk.py, ops/longseq.py, ops/banded.py, ops/diag_dp.py,
 // parallel/seq_tiled.py),
@@ -36,6 +38,7 @@
 // Build: g++ -O2 -fPIC -std=c++17 -ffp-contract=off -c, then g++ -shared.
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 #include <utility>
 #include <vector>
@@ -65,48 +68,68 @@ int with_codes(int code_bytes, const void* codes1, const void* codes2,
   return 1;
 }
 
-// One pair's wavefront fill as a warp would run it (diag_fill.cu).
-template <typename CODE>
+// One pair's wavefront fill as a warp would run it (diag_fill.cu), R
+// columns a lane: every lane in turn at each step, each handed its left
+// neighbour's values from before the step, as the shuffles hand them, and
+// lane 0 its row from the stage the warp loads 32 rows at a time.  Every
+// staged edge row is checked: the previous strip's last lane has written
+// it and this strip's has not yet (*broken otherwise).
+template <typename CODE, int R>
 float diag_pair(const float* table, int K, const CODE* c1, const CODE* c2,
-                int n, int m, float* edge, float og, float eg) {
+                int n, int m, float* edge, float og, float eg,
+                bool* broken) {
   namespace dg = sw::diag;
   constexpr int W = dg::LANES;
+  std::vector<int> wrote(n, -1);  // the strip that last wrote each edge row
   float best = 0.0f;
-  for (int c0 = 0; c0 < m; c0 += W) {
-    dg::Lane lanes[W];
-    int code1[W];
+  for (int c0 = 0, strip = 0; c0 < m; c0 += dg::strip_cols<R>(), ++strip) {
+    dg::Lane<R> lanes[W];
+    int code1[W], live[W], cc[W][R];
     for (int l = 0; l < W; ++l) {
-      lanes[l] = dg::lane_begin();
+      lanes[l] = dg::lane_begin<R>();
       code1[l] = 0;
+      live[l] = dg::live_cols<R>(m, c0, l);
+      for (int k = 0; k < R; ++k)
+        cc[l][k] = k < live[l] ? c2[c0 + l * R + k] : 0;
     }
-    const int steps = dg::strip_steps(n, m, c0);
+    dg::Feed stage[W] = {};
+    const int steps = dg::strip_steps<R>(n, m, c0);
+    int d0, d1;
+    dg::body_steps<R>(n, m, c0, steps, &d0, &d1);
     for (int d = 0; d < steps; ++d) {
+      if (dg::stages(d)) {
+        for (int l = 0; l < W; ++l) {
+          const int row = dg::stage_row(d, l);
+          if (c0 > 0 && row < n && wrote[row] != strip - 1) *broken = true;
+          stage[l] = dg::feed_row(c1, edge, n, c0, row);
+        }
+      }
       // every lane's values from before the step: the shuffles' sources
-      float xp[W], w1[W];
+      float xr[W], w1[W];
       int cd[W];
       for (int l = 0; l < W; ++l) {
-        xp[l] = dg::xpre(lanes[l].w1, lanes[l].x1, og, eg);
-        w1[l] = lanes[l].w1;
+        xr[l] = lanes[l].xr;
+        w1[l] = lanes[l].w1[R - 1];
         cd[l] = code1[l];
       }
+      const dg::Feed& f = stage[d % W];
+      const bool body = d >= d0 && d < d1;
       for (int l = 0; l < W; ++l) {
-        float xin, wl;
-        if (l == 0) {
-          dg::lane0_fill(edge, n, c0, d, &xin, &wl);
-          code1[0] = d < n ? c1[d] : 0;
-        } else {
-          xin = xp[l - 1];
-          wl = w1[l - 1];
-          code1[l] = cd[l - 1];
-        }
-        const int r = d - l, c = c0 + l;
-        const float s = table[code1[l] * K + (c < m ? c2[c] : 0)];
-        dg::step(&lanes[l], s, xin, wl, r < 0, r >= 0 && r < n && c < m,
-                 og, eg);
-        if (l == W - 1 && dg::keeps_edge(n, m, c0, r)) {
-          edge[2 * (int64_t)r] = lanes[l].w1;
-          edge[2 * (int64_t)r + 1] =
-              dg::xpre(lanes[l].w1, lanes[l].x1, og, eg);
+        code1[l] = l ? cd[l - 1] : f.code;
+        float s[R];
+        for (int k = 0; k < R; ++k) s[k] = table[code1[l] * K + cc[l][k]];
+        const int r = d - l;
+        const float xin = l ? xr[l - 1] : f.x, wl = l ? w1[l - 1] : f.w;
+        const int lv = r >= 0 && r < n ? live[l] : 0;
+        if (body)
+          dg::step<R, true>(&lanes[l], s, xin, wl, r < 0, lv, og, eg);
+        else
+          dg::step<R>(&lanes[l], s, xin, wl, r < 0, lv, og, eg);
+        const int er = dg::edge_row(d);
+        if (l == W - 1 && dg::keeps_edge<R>(n, m, c0, er)) {
+          edge[2 * (int64_t)er] = lanes[l].w1[R - 1];
+          edge[2 * (int64_t)er + 1] = lanes[l].xr;
+          wrote[er] = strip;
         }
       }
     }
@@ -717,51 +740,78 @@ int banded_all(const float* S, const int32_t* n, const int32_t* m, int64_t B,
   return 0;
 }
 
-// K5's window copies as the card's warp makes them (seg_walk.cu
-// WarpCopy), in the order SegWindows asks: a copy stays pending until a
-// wait covers it, and only then do its bytes land in the window and count
-// as loaded; starting a copy into a window unloads what it held.  A read
-// of a byte that is not loaded marks the walk broken.
+// The window copies of K5 and K8 as the card's warp makes them
+// (sw_walk.cuh WarpCopy), in the order Windows asks: a window's copies,
+// cut into sw::pieces, stay pending until a wait covers their commit
+// group, and only then do their bytes land in the slot and count as
+// loaded; a window's first copy unloads what its slot held.  A read of a
+// byte that is not loaded, or a word or 16-byte piece misaligned at
+// either end, marks the walk broken.
 struct TwinWindows {
-  struct Copy {
+  struct Piece {
     uint8_t* dst;
     const uint8_t* src;
     int64_t bytes;
   };
-  int64_t wbytes;
-  std::vector<uint8_t> buf, loaded;
-  std::vector<Copy> pending;
+  int64_t sb;  // bytes a slot
+  std::vector<uint8_t> mem, loaded;
+  uint8_t* buf;  // mem, 16-byte aligned
+  std::vector<std::vector<Piece>> groups;  // committed, not landed
+  std::vector<Piece> group;                // being started
+  bool fresh = true;                       // the next load starts a window
   bool broken = false;
 
-  explicit TwinWindows(int64_t wb)
-      : wbytes(wb),
-        buf(sw::SEG_WINDOWS * wb, 0),
-        loaded(sw::SEG_WINDOWS * wb, 0) {}
+  explicit TwinWindows(int64_t slot_bytes)
+      : sb(slot_bytes),
+        mem(sw::WINDOWS * slot_bytes + 16, 0),
+        loaded(sw::WINDOWS * slot_bytes, 0) {
+    buf = mem.data() + ((16 - ((uintptr_t)mem.data() & 15)) & 15);
+  }
 
   void land(size_t count) {
-    for (size_t q = 0; q < count; ++q) {
-      const Copy& c = pending[q];
-      std::memcpy(c.dst, c.src, (size_t)c.bytes);
-      std::fill_n(loaded.begin() + (c.dst - buf.data()), c.bytes, 1);
-    }
-    pending.erase(pending.begin(), pending.begin() + count);
+    for (size_t g = 0; g < count; ++g)
+      for (const Piece& c : groups[g]) {
+        std::memcpy(c.dst, c.src, (size_t)c.bytes);
+        std::fill_n(loaded.begin() + (c.dst - buf), c.bytes, 1);
+      }
+    groups.erase(groups.begin(), groups.begin() + count);
   }
 };
 
 struct TwinCopy {
   TwinWindows* t;
 
-  void load(int k, uint8_t* dst, const uint8_t* src, int64_t bytes) {
-    std::fill_n(t->loaded.begin() + k * t->wbytes, t->wbytes, 0);
-    t->pending.push_back({dst, src, bytes});
+  void piece(uint8_t* dst, const uint8_t* src, int64_t bytes, int align) {
+    if (bytes <= 0) return;
+    if ((uintptr_t)dst % align || (uintptr_t)src % align) t->broken = true;
+    t->group.push_back({dst, src, bytes});
   }
-  void wait_all() { t->land(t->pending.size()); }
+  void load(int k, uint8_t* dst, const uint8_t* src, int64_t bytes) {
+    if (t->fresh) std::fill_n(t->loaded.begin() + k * t->sb, t->sb, 0);
+    t->fresh = false;
+    if (((uintptr_t)dst & 15) != ((uintptr_t)src & 15)) t->broken = true;
+    if (dst < t->buf + k * t->sb || dst + bytes > t->buf + (k + 1) * t->sb)
+      t->broken = true;
+    if (t->broken) return;
+    const sw::Pieces p = sw::pieces((uint64_t)src, bytes);
+    piece(dst, src, p.w0, 1);
+    for (int64_t o = p.w0; o < p.q0; o += 4) piece(dst + o, src + o, 4, 4);
+    for (int64_t o = p.q0; o < p.q1; o += 16) piece(dst + o, src + o, 16, 16);
+    for (int64_t o = p.q1; o < p.w1; o += 4) piece(dst + o, src + o, 4, 4);
+    piece(dst + p.w1, src + p.w1, bytes - p.w1, 1);
+  }
+  void commit() {
+    t->groups.push_back(std::move(t->group));
+    t->group.clear();
+    t->fresh = true;
+  }
+  void wait_all() { t->land(t->groups.size()); }
   void wait_ahead() {
-    const size_t keep = sw::SEG_WINDOWS - 1;
-    if (t->pending.size() > keep) t->land(t->pending.size() - keep);
+    const size_t keep = sw::WINDOWS - 1;
+    if (t->groups.size() > keep) t->land(t->groups.size() - keep);
   }
   void ok(int k, int64_t at) {
-    if (at < 0 || at >= t->wbytes || !t->loaded[k * t->wbytes + at])
+    if (at < 0 || at >= t->sb || !t->loaded[k * t->sb + at])
       t->broken = true;
   }
 };
@@ -945,21 +995,37 @@ int sw_twin_fill(int mode, int traceback, int R, int NW, const float* table,
 }
 
 // Same arguments and layout as sw_diag_fill_launch (diag_fill.cu), host
-// pointers.  Returns 0, or 1 for an unknown code width.
-int sw_twin_diag_fill(const float* table, int K, int code_bytes,
+// pointers.  Returns 0, 1 for an unknown R or code width, or 3 if a lane 0
+// read an edge row its strip's last lane had written, or one the previous
+// strip had not.
+int sw_twin_diag_fill(int R, const float* table, int K, int code_bytes,
                       const void* codes1, const void* codes2,
                       const int64_t* desc, int64_t B, float* scratch,
                       float* stats, float og, float eg) {
-  return with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
+  bool broken = false;
+  auto run = [&](auto c1, auto c2, auto r) {
+    constexpr int RR = decltype(r)::value;
     for (int64_t b = 0; b < B; ++b) {
       const int64_t* d = desc + b * sw::DESC_W;
       float* st = stats + b * sw::STATS_W;
       for (int q = 0; q < sw::STATS_W; ++q) st[q] = 0.0f;
-      st[0] = diag_pair(table, K, c1 + d[sw::D_OFF1], c2 + d[sw::D_OFF2],
-                        (int)d[sw::D_N], (int)d[sw::D_M],
-                        scratch + d[sw::D_CARRY], og, eg);
+      st[0] = diag_pair<std::remove_const_t<std::remove_pointer_t<
+                            decltype(c1)>>, RR>(
+          table, K, c1 + d[sw::D_OFF1], c2 + d[sw::D_OFF2], (int)d[sw::D_N],
+          (int)d[sw::D_M], scratch + d[sw::D_CARRY], og, eg, &broken);
     }
-  });
+  };
+  int bad = 0;
+  if (with_codes(code_bytes, codes1, codes2, [&](auto c1, auto c2) {
+        switch (R) {
+          case 2: run(c1, c2, std::integral_constant<int, 2>{}); break;
+          case 4: run(c1, c2, std::integral_constant<int, 4>{}); break;
+          case 8: run(c1, c2, std::integral_constant<int, 8>{}); break;
+          default: bad = 1;
+        }
+      }))
+    return 1;
+  return bad ? 1 : (broken ? 3 : 0);
 }
 
 // Same arguments and layout as sw_walk_tokens_launch (token_walk.cu).
@@ -1036,22 +1102,22 @@ int sw_twin_band_fill(int mode, const float* table, int K, int code_bytes,
 
 // Same arguments and layout as sw_seg_walk_launch (seg_walk.cu), host
 // pointers, each pair's windows D diagonals (0: the card's,
-// sw::seg_window_diags).  Returns 0, 1 for arguments the kernel does not
+// sw::window_units).  Returns 0, 1 for arguments the kernel does not
 // take, or 3 if the walk read a byte no finished window copy had brought.
 int sw_twin_seg_walk(int local, const uint8_t* bands, int G, int64_t B,
                      int64_t MP, int C, int sk0, int64_t L, int32_t* walk,
                      int32_t* cnt, uint8_t* moves, int D) {
   if (B <= 0 || L <= 0 || C <= 0 || sk0 < 0 || G < 1 || D == 1 || D < 0)
     return 1;
-  if (D == 0) D = sw::seg_window_diags(C);
+  if (D == 0) D = sw::window_units(C);
   const int64_t L4 = (L + 3) / 4;
   const int64_t bb = sw::band_bytes(C, MP);
-  TwinWindows tw((int64_t)D * C);
+  TwinWindows tw(sw::window_slot_bytes(D, C, false));
   for (int64_t b = 0; b < B; ++b) {
     sw::SegState st = sw::seg_load(walk + b * 4, cnt + b, moves + b, B);
     for (int g = G - 1; g >= 0; --g) {
-      auto win = sw::seg_windows(bands + (g * B + b) * bb, C, MP, D,
-                                 tw.buf.data(), TwinCopy{&tw});
+      auto win = sw::seg_windows(bands + (g * B + b) * bb, C, MP, D, tw.buf,
+                                 TwinCopy{&tw});
       sw::walk_segment(local != 0, win, (sk0 + g) * C, L, &st, moves + b, B,
                        L4);
       win.close();
@@ -1086,18 +1152,49 @@ int sw_twin_banded_fill(int mode, const float* S, const int32_t* n,
   }
 }
 
-// Same arguments and layout as sw_banded_walk_launch (banded_walk.cu).
+// Same arguments and layout as sw_banded_walk_launch (banded_walk.cu),
+// host pointers, no stream, each pair's rows read through windows of D
+// rows (0: the card's, sw::banded::walk_rows) or straight (D = -1).
+// Returns 0, 1 for arguments the kernel does not take or a ring past its
+// shared memory, or 3 if the walk read a byte or an offset no finished
+// window copy had brought.
 int sw_twin_banded_walk(int local, const uint8_t* tb, const int32_t* off,
                         const int32_t* start, const int32_t* m, int64_t B,
-                        int64_t NP, int W, int64_t L, int32_t* idx1,
+                        int64_t NP, int W, int64_t L, int D, int32_t* idx1,
                         int32_t* idx2, int32_t* cnt, int32_t* flags) {
+  if (B <= 0 || NP <= 0 || W <= 0 || L <= 0 || D == 1 || D < -1) return 1;
+  if (D == 0) D = sw::banded::walk_rows(W);
+  if (D > 0 && sw::WINDOWS * sw::window_slot_bytes(D, W, true) >
+                   sw::banded::WALK_SMEM)
+    return 1;
+  TwinWindows tw(D > 0 ? sw::window_slot_bytes(D, W, true) : 0);
   for (int64_t b = 0; b < B; ++b) {
     for (int64_t q = 0; q < L; ++q) idx1[b * L + q] = idx2[b * L + q] = -2;
-    sw::banded::walk_pair(local != 0, tb + b * NP * W, off + b * (NP + 1),
-                          (int)NP, W, m[b], start + 4 * b, L, idx1 + b * L,
-                          idx2 + b * L, cnt + b, flags + b);
+    const uint8_t* rows = tb + b * NP * W;
+    const int32_t* o = off + b * (NP + 1);
+    auto walk = [&](auto& r) {
+      sw::banded::walk_pair(local != 0, r, (int)NP, W, m[b], start + 4 * b,
+                            L, idx1 + b * L, idx2 + b * L, cnt + b,
+                            flags + b);
+      r.close();
+    };
+    if (D > 0) {
+      auto win = sw::banded::row_windows(rows, W, (int)NP, o, D, tw.buf,
+                                         TwinCopy{&tw});
+      walk(win);
+      if (tw.broken) return 3;
+    } else {
+      sw::banded::DirectRows direct{rows, o + 1, W};
+      walk(direct);
+    }
   }
   return 0;
+}
+
+// sw_banded_walk_rows (banded_walk.cu): K8's rows a window for a band of W
+// bytes a row, 0 for straight reads.
+int sw_twin_banded_walk_rows(int W) {
+  return W > 0 ? sw::banded::walk_rows(W) : 0;
 }
 
 // Same arguments and layout as sw_striped_block_launch (striped_fill.cu),

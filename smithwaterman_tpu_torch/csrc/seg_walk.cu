@@ -19,57 +19,22 @@
 // band's anti-diagonal r + j - 1 (r = i - 1 - base), C contiguous bytes,
 // and every step lowers the diagonal, so a walk reads a band's diagonals
 // in decreasing order and the warp can fetch them before the walk needs
-// them.  Each pair is a warp with a ring of sw::SEG_WINDOWS windows of D
-// diagonals (sw::seg_window_diags: 16 KB each) in shared memory: the
+// them.  Each pair is a warp with a ring of sw::WINDOWS windows of D
+// diagonals (sw::window_units: 16 KB each) in shared memory: the
 // warp's 32 lanes copy a window with 16-byte cp.async copies, the windows
 // below are in flight while the walk reads the current one, and every lane
 // steps the same walk on the shared bytes (a broadcast read, no
 // divergence); lane 0 stores the moves.  A band is opened by its first read, so a pair the
 // band does not concern, or whose walk there only follows the DP boundary,
 // costs one check and copies nothing.  The step rule is sw_walk.cuh
-// walk_segment and the windows SegWindows, which the host twin runs too.
+// walk_segment and the windows sw_walk.cuh Windows (the ring K8 reads its
+// band rows through too), which the host twin runs as well.
 #include <cuda_runtime.h>
 
 #include "sw_band.cuh"
 #include "sw_walk.cuh"
 
 namespace {
-
-// A warp's copies into its windows: 16 bytes a lane a copy, one commit
-// group a window (every lane commits, so all count the same groups); a
-// copy starts after the warp's barrier, so no lane still reads the slot.
-// Host-device members, as SegWindows' are; they run on the card only.
-struct WarpCopy {
-  int lane;
-
-  __host__ __device__ void load(int, uint8_t* dst, const uint8_t* src,
-                                int64_t bytes) {
-#if defined(__CUDA_ARCH__)
-    __syncwarp();
-    for (int64_t o = (int64_t)lane * 16; o < bytes; o += sw::WARP * 16) {
-      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + o);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
-                   "l"(src + o)
-                   : "memory");
-    }
-    asm volatile("cp.async.commit_group;" ::: "memory");
-#endif
-  }
-  __host__ __device__ void wait_all() {
-#if defined(__CUDA_ARCH__)
-    asm volatile("cp.async.wait_group 0;" ::: "memory");
-    __syncwarp();
-#endif
-  }
-  __host__ __device__ void wait_ahead() {
-#if defined(__CUDA_ARCH__)
-    asm volatile("cp.async.wait_group %0;" ::"n"(sw::SEG_WINDOWS - 1)
-                 : "memory");
-    __syncwarp();
-#endif
-  }
-  __host__ __device__ void ok(int, int64_t) {}
-};
 
 __global__ void __launch_bounds__(sw::WARP)
     seg_walk_kernel(int local, const uint8_t* __restrict__ bands, int G,
@@ -83,7 +48,7 @@ __global__ void __launch_bounds__(sw::WARP)
   sw::SegState st = sw::seg_load(walk + b * 4, cnt + b, moves + b, B);
   for (int g = G - 1; g >= 0; --g) {
     auto win = sw::seg_windows(bands + (g * B + b) * bb, C, MP, D, smem,
-                               WarpCopy{lane});
+                               sw::WarpCopy{lane});
     sw::walk_segment(local != 0, win, (sk0 + g) * C, L, &st, moves + b, B,
                      L4, lane == 0);
     win.close();
@@ -107,8 +72,8 @@ int sw_seg_walk_launch(int local, const uint8_t* bands, int G, int64_t B,
                        int32_t* cnt, uint8_t* moves, void* stream) {
   if (B <= 0 || L <= 0 || C <= 0 || C % sw::WARP || sk0 < 0 || G < 1)
     return (int)cudaErrorInvalidValue;
-  const int D = sw::seg_window_diags(C);
-  const size_t smem = (size_t)sw::SEG_WINDOWS * D * C;
+  const int D = sw::window_units(C);
+  const size_t smem = sw::WINDOWS * sw::window_slot_bytes(D, C, false);
   cudaFuncSetAttribute(seg_walk_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);

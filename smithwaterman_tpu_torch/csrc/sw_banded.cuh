@@ -36,6 +36,7 @@
 #pragma once
 
 #include "sw_band.cuh"
+#include "sw_walk.cuh"
 
 namespace sw {
 namespace banded {
@@ -511,55 +512,147 @@ SW_HD bool stripe_io(StripeIO* io, int64_t t, int64_t B, int64_t NP, int W,
   return true;
 }
 
+// A pair's band rows read straight from device memory: K8's reads when
+// the window ring does not fit a block's shared memory (bands of tens of
+// thousands of columns), and the rows' interface Windows gives the walk:
+// byte k of row u, row u's offset word.
+struct DirectRows {
+  const uint8_t* tb;   // row u at tb + u * W
+  const int32_t* off;  // row u's offset at off[u]
+  int64_t W;
+  SW_HD void to(int) {}
+  SW_HD uint32_t byte(int u, int k) { return tb[u * W + k]; }
+  SW_HD int32_t word(int u) { return off[u]; }
+  SW_HD void close() {}
+};
+
+// K8's windows over a pair's band rows (sw_walk.cuh Windows): unit u is
+// row u's W bytes, with off(u + 1) as its side word.  A walk lowers i by
+// at most one a step, so it reads rows in non-increasing order.  The ring
+// takes WINDOWS slots of D rows, within a block's shared memory
+// (WALK_SMEM: Hopper's 227 KB).  A window switch costs the warp a copy's
+// issue and a wait, so the windows are as large as four fit: WALK_WINDOW
+// bytes of rows and their offset words (PERF.md: 16, 32 and 48 KB
+// measured), at least two rows.
+constexpr int64_t WALK_SMEM = 232448;
+constexpr int WALK_WINDOW = 48 << 10;
+
+// K8's rows a window for a band of W bytes a row, or 0 when a ring of two
+// rows does not fit WALK_SMEM (bands past about 29,000 columns): the walk
+// then reads the rows straight from device memory (DirectRows).
+SW_HD int walk_rows(int W) {
+  const int d = WALK_WINDOW / (W + 4);
+  const int D = d < 2 ? 2 : d;
+  return WINDOWS * window_slot_bytes(D, W, true) <= WALK_SMEM ? D : 0;
+}
+
+template <class Copy>
+SW_HD Windows<Copy> row_windows(const uint8_t* tb, int W, int NP,
+                                const int32_t* off, int D, uint8_t* smem,
+                                Copy copy) {
+  return windows(tb, W, NP, off + 1, D, smem, copy);
+}
+
 // One pair's walk (kernel K8), _walk_banded_device's loop body step for
 // step, run while the pair is active, at most L + 4 steps:
-//   tb:    the pair's (NP, W) pointer bytes; off: its (NP + 1) offsets;
+//   rows:  the pair's (NP, W) pointer bytes and its offsets: unit u is
+//          band row u (DP row u + 1), rows.byte(u, w) its byte at lane w
+//          and rows.word(u) = off(u + 1), after rows.to(u), read through
+//          Windows (sw_walk.cuh) or DirectRows; a walk reads its rows in
+//          non-increasing order;
 //   start: {i, j, state, active} at the path's end cell;
 //   idx1/idx2: L entries each, already -2; step k writes entry
-//          min(k, L - 1): i-1 / j-1, or -1 for a gap;
+//          min(k, L - 1): i-1 / j-1, or -1 for a gap (every lane of a warp
+//          steps the same walk and stores the same values: no lane test);
 //   *cnt:  the steps taken; *flags: bit 0 when an active step that did not
 //          leave the band stood on an edge lane with cells beyond it, bit 1
 //          when a read left the band or the walk was still active after
 //          L + 4 steps.
-SW_HD void walk_pair(bool local, const uint8_t* tb, const int32_t* off,
-                     int NP, int W, int m, const int32_t* start, int64_t L,
-                     int32_t* idx1, int32_t* idx2, int32_t* cnt,
-                     int32_t* flags) {
+// Row i - 1 and off(i) are read with i clamped to NP, as JAX clamps them;
+// a step off the matrix (i == 0 or j == 0) reads nothing.  A step's move
+// depends only on its state s, known before its pointer byte: so inside
+// the matrix the next cell's offset and byte are read before the current
+// byte is decoded, and the two reads of one step wait on the step before
+// the last, not on the last.
+template <class Rows>
+SW_HD bool walk_read(Rows& rows, int NP, int W, int i, int j, int* w,
+                     uint32_t* byte) {
+  if (i < 1 || j < 1) return false;
+  const int u = (i > NP ? NP : i) - 1;
+  rows.to(u);
+  *w = j - 1 - rows.word(u);
+  const int q = *w < 0 ? 0 : (*w > W - 1 ? W - 1 : *w);
+  *byte = rows.byte(u, q);
+  return true;
+}
+
+template <class Rows>
+SW_HD void walk_pair(bool local, Rows& rows, int NP, int W, int m,
+                     const int32_t* start, int64_t L, int32_t* idx1,
+                     int32_t* idx2, int32_t* cnt, int32_t* flags) {
   int i = start[0], j = start[1], s = start[2];
   bool active = start[3] != 0;
   int32_t c = 0, f = 0;
-  for (int64_t it = 0; active && it < L + 4; ++it) {
+  const int last = (int)(L - 1), steps = (int)(L + 4);
+  int32_t *o1 = idx1, *o2 = idx2;  // entry min(c, L - 1)
+  int w = 0;
+  uint32_t byte = 0;
+  bool in_mat = active && walk_read(rows, NP, W, i, j, &w, &byte);
+  // four steps a loop body on the card: the next step's reads overlap this
+  // one's tail (measured, PERF.md)
+#pragma unroll 4
+  for (int it = 0; active && it < steps; ++it) {
+    if (in_mat) {
+      // inside the matrix: no boundary state; the next cell's reads first
+      const int ni = i - (s != GAPINX), nj = j - (s != GAPINY);
+      int nw = 0;
+      uint32_t nbyte = 0;
+      const bool nin = walk_read(rows, NP, W, ni, nj, &nw, &nbyte);
+      if (w < 0 || w >= W) {  // the read left the band
+        f |= 2;
+        active = false;
+        break;
+      }
+      if ((w == 0 && j > 1) || (w == W - 1 && j < m)) f |= 1;
+      const int prev = (byte >> (2 * s)) & 3;
+      if (local && prev == STOP) {
+        active = false;
+        break;
+      }
+      *o1 = s == GAPINX ? -1 : i - 1;
+      *o2 = s == GAPINY ? -1 : j - 1;
+      o1 += c < last;
+      o2 += c < last;
+      ++c;
+      i = ni;
+      j = nj;
+      s = prev;
+      w = nw;
+      byte = nbyte;
+      in_mat = nin;
+      active = i != 0 || j != 0;
+      continue;
+    }
+    // on the boundary (i == 0 or j == 0): the boundary state and pointer
     if (j == 0 && i > 0) s = GAPINY;
     if (i == 0 && j > 0) s = GAPINX;
-    const int w = j - 1 - off[i < 0 ? 0 : (i > NP ? NP : i)];
-    const bool in_mat = i >= 1 && j >= 1;
-    const bool exceeded = in_mat && (w < 0 || w >= W);
-    const bool edge =
-        in_mat && ((w == 0 && j > 1) || (w == W - 1 && j < m));
-    int prev;
-    if (in_mat) {
-      const int r = i - 1 > NP - 1 ? NP - 1 : i - 1;
-      const int q = w < 0 ? 0 : (w > W - 1 ? W - 1 : w);
-      prev = (tb[(int64_t)r * W + q] >> (2 * s)) & 3;
-    } else {
-      prev = (i == 0 && j == 0) ? MATCH : (i == 0 && j >= 1 ? GAPINX : GAPINY);
-      if (local && prev == s) prev = STOP;
+    int prev = i == 0 && j == 0 ? MATCH : (i == 0 && j >= 1 ? GAPINX : GAPINY);
+    if (local && prev == s) prev = STOP;
+    if (local && prev == STOP) {
+      active = false;
+      break;
     }
-    const bool stop = local && prev == STOP;
-    const bool step = !stop && !exceeded;
-    if (!exceeded && edge) f |= 1;
-    if (exceeded) f |= 2;
-    if (step) {
-      const int64_t k = c < L - 1 ? c : L - 1;
-      idx1[k] = s == GAPINX ? -1 : i - 1;
-      idx2[k] = s == GAPINY ? -1 : j - 1;
-      if (s != GAPINX) --i;
-      if (s != GAPINY) --j;
-      ++c;
-    }
+    *o1 = s == GAPINX ? -1 : i - 1;
+    *o2 = s == GAPINY ? -1 : j - 1;
+    o1 += c < last;
+    o2 += c < last;
+    ++c;
+    if (s != GAPINX) --i;
+    if (s != GAPINY) --j;
     const bool hit00 = i == 0 && j == 0;
-    if (step && !hit00) s = prev;
-    active = step && !hit00;
+    if (!hit00) s = prev;
+    active = !hit00;
+    in_mat = active && walk_read(rows, NP, W, i, j, &w, &byte);
   }
   if (active) f |= 2;
   *cnt = c;

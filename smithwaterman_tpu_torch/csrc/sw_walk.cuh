@@ -16,6 +16,8 @@
 // path's end cell): move t of the pair is bits 2*(t&3) of byte t>>2.
 #pragma once
 
+#include <climits>
+
 #include "sw_cell.cuh"
 
 namespace sw {
@@ -187,9 +189,11 @@ SW_HD void seg_store(const SegState& st, int32_t* w, int32_t* cnt,
 // loop body w_body (:359-388), step for step.  Unlike walk_pair, the walk
 // does not stop at the first boundary cell: it follows the boundary down to
 // (0, 0), so the stream is complete.
-//   fetch: fetch(r, c) is the band's pointer byte of cell (base + r + 1,
-//          c + 1), read through SegWindows (shared-memory windows on the
-//          card, the twin's checked copies on the host);
+//   fetch: the band's pointer bytes through Windows (shared-memory
+//          windows on the card, the twin's checked copies on the host):
+//          cell (base + r + 1, c + 1) is byte r of anti-diagonal r + c,
+//          fetch.byte(r + c, r) after fetch.to(r + c) (sw_band.cuh
+//          band_bytes);
 //   st:    the walk state, read and advanced;
 //   moves: byte t of the pair's packed moves at moves[t * mv_stride], of
 //          L4 bytes; full bytes are stored when `store` (one lane of a
@@ -209,7 +213,9 @@ SW_HD void walk_segment(bool local, Fetch& fetch, int base, int64_t L,
   for (int64_t it = 0; it < L + 8 && !done; ++it) {
     int prev;
     if (i > base && j >= 1) {
-      prev = (int)((fetch(i - 1 - base, j - 1) >> (2 * s)) & 3);
+      const int r = i - 1 - base;
+      fetch.to(r + j - 1);
+      prev = (int)((fetch.byte(r + j - 1, r) >> (2 * s)) & 3);
     } else {
       if (!(i == 0 || j == 0)) break;  // the band below's
       s = normalize_boundary_state(i, j, s);
@@ -239,103 +245,254 @@ SW_HD void walk_segment(bool local, Fetch& fetch, int base, int64_t L,
   st->acc = acc;
 }
 
-// K5's windows: a ring of SEG_WINDOWS slots of SEG_WINDOW_BYTES each, D
-// diagonals a window (C bytes a diagonal; at least two, so one step, which
-// lowers the diagonal by one or two, never skips a window).
-constexpr int SEG_WINDOWS = 4;
-constexpr int SEG_WINDOW_BYTES = 16 << 10;
-SW_HD int seg_window_diags(int C) {
-  const int d = SEG_WINDOW_BYTES / C;
-  return d < 2 ? 2 : d;
+// A ring of shared-memory windows over a source read in non-increasing
+// order of its units, filled ahead of the reads: K5's anti-diagonals of a
+// band (seg_walk.cu) and K8's band rows (banded_walk.cu).
+//
+// The source is nu units of ub bytes, unit u at src + u * ub, and, when
+// `side` is not null, one int32 a unit at side[u] (K8's row offsets).  A
+// window is D consecutive units (at least two, so a read that lowers the
+// unit by one or two never skips a window: K5's window_units, 16 KB; K8's
+// sw_banded.cuh walk_rows, 48 KB), in one of WINDOWS slots.  The first
+// read, at unit `top`, opens the ring: window t holds units top - (t+1) D
+// + 1 .. top - t D, in slot t mod WINDOWS, and windows 0 .. WINDOWS - 1
+// are copied at once.  A read
+// below the current window moves to the next one, starts the copy of the
+// window WINDOWS - 1 ahead of that into the slot it leaves (the warp's
+// barrier first: every lane has read from it), and waits for its own.
+// Units outside 0 .. nu-1 are not copied: no byte outside the source.
+// Each slot keeps a window's bytes (and its side words after them) at the
+// source's address mod 16, so a copy takes 16-byte pieces wherever the
+// source is 16-byte aligned, whatever ub (pieces).
+//
+// A reader calls to(u) before reading unit u (byte(u, k), word(u)).
+// Copy moves the bytes: `load(slot, dst, src, bytes)` starts a copy (all
+// of the warp's lanes call it), `commit()` closes a window's copies,
+// `wait_ahead()` waits for every window's but the last WINDOWS - 1
+// committed, `wait_all()` for every one; `ok(slot, at)` lets the host
+// twin check that byte `at` of a slot holds a copied byte.  A source the
+// reads never touch costs no copy; close() waits for the copies in
+// flight, so the slots may take the next source's.
+constexpr int WINDOWS = 4;
+constexpr int WINDOW_BYTES = 16 << 10;  // K5's
+
+SW_HD int window_units(int64_t ub) {
+  const int64_t d = WINDOW_BYTES / ub;
+  return d < 2 ? 2 : (int)d;
 }
 
-// A band's skewed pointer bytes (sw_band.cuh band_bytes: cell (base + r +
-// 1, c + 1) at byte (r + c) * C + r) read through a ring of SEG_WINDOWS
-// slots of D diagonals each: diagonal d = r + c is C contiguous bytes,
-// and every step of a walk lowers d by one (a gap) or two (a match), so a
-// walk reads a band's diagonals in strictly decreasing order.  The first
-// read, at diagonal `top`, opens the band: window t holds diagonals
-// top - (t+1) D + 1 .. top - t D, in slot t mod SEG_WINDOWS, and windows
-// 0 .. SEG_WINDOWS - 1 are copied at once.  A read below the current
-// window moves to the next one, starts the copy of the window
-// SEG_WINDOWS - 1 ahead of that into the slot it leaves (the warp's
-// barrier first: every lane has read from it), and waits for its own.
-// Diagonals outside the band's 0 .. nd-1 are not copied.  Copy moves the
-// bytes: `load(slot, dst, src, bytes)` starts one copy (all of the warp's
-// lanes call it), `wait_ahead()` waits for every copy but the last
-// SEG_WINDOWS - 1 started, `wait_all()` for every one; `ok(slot, at)` lets
-// the host twin check that byte `at` of a slot holds a copied byte.  A
-// band the walk reads nothing of costs no copy; close() waits for the
-// copies in flight, so the slots may take the next band's.
+SW_HD int64_t round16(int64_t v) { return (v + 15) & ~(int64_t)15; }
+
+// Bytes of a slot of D units of ub bytes, with D side words when `side`:
+// each area 16 bytes longer than its data, for the alignment.
+SW_HD int64_t window_slot_bytes(int D, int64_t ub, bool side) {
+  return round16(D * ub + 16) + (side ? round16(4 * (int64_t)D + 16) : 0);
+}
+
+// How a copy of n bytes from address s0 is cut: bytes [0, w0), 4-byte
+// words [w0, q0), 16-byte pieces [q0, q1), words [q1, w1), bytes [w1, n),
+// every word and piece aligned to its size at the source (and so at the
+// destination, which shares the source's address mod 16).  At most three
+// bytes and three words at each end.
+struct Pieces {
+  int64_t w0, q0, q1, w1;
+};
+
+SW_HD Pieces pieces(uint64_t s0, int64_t n) {
+  const uint64_t s1 = s0 + (uint64_t)n;
+  uint64_t w0 = (s0 + 3) & ~(uint64_t)3;
+  if (w0 > s1) w0 = s1;
+  uint64_t w1 = s1 & ~(uint64_t)3;
+  if (w1 < w0) w1 = w0;
+  uint64_t q0 = (w0 + 15) & ~(uint64_t)15;
+  if (q0 > w1) q0 = w1;
+  uint64_t q1 = w1 & ~(uint64_t)15;
+  if (q1 < q0) q1 = q0;
+  return {(int64_t)(w0 - s0), (int64_t)(q0 - s0), (int64_t)(q1 - s0),
+          (int64_t)(w1 - s0)};
+}
+
 template <class Copy>
-struct SegWindows {
-  const uint8_t* band;
-  int C, nd, D;
-  uint8_t* ring;  // SEG_WINDOWS slots of D * C bytes
-  int top, lo;    // the opening diagonal, the current window's lowest
+struct Windows {
+  const uint8_t* src;   // unit u at src + u * ub
+  const int32_t* side;  // unit u's word at side[u], or null
+  int64_t ub, sb;       // bytes a unit, bytes a slot
+  int nu, D;
+  uint8_t* ring;  // WINDOWS slots of sb bytes, 16-byte aligned
+  int top, lo;    // the opening unit, the current window's lowest
   unsigned t;     // the current window
-  uint8_t* cur;   // where diagonal d, row r is: cur + d * C + r
+  int a;          // the current window's first unit in the source
+  int ub32;       // ub (a window's bytes fit an int)
+  const uint8_t* bcur;  // unit a's bytes
+  const int32_t* wcur;  // unit a's side word
   bool open;
   Copy copy;
 
-  // Starts copying window w (diagonals lo_w .. lo_w + D - 1 of the band).
-  SW_HD void start(unsigned w) {
-    const int slot = (int)(w % SEG_WINDOWS);
+  static SW_HD int phase(const void* p) {
+    return (int)((uintptr_t)p & 15);
+  }
+  SW_HD uint8_t* slot_at(unsigned w) { return ring + (w % WINDOWS) * sb; }
+  // The first unit of window w the source holds, and where its bytes and
+  // side word land.
+  SW_HD int first(unsigned w) const {
     const int low = top - ((int)w + 1) * D + 1;
-    const int a = low > 0 ? low : 0;
-    const int e = low + D < nd ? low + D : nd;
-    copy.load(slot, ring + slot * D * C + (a - low) * C,
-              band + (int64_t)a * C, e > a ? (e - a) * C : 0);
+    return low > 0 ? low : 0;
+  }
+  SW_HD uint8_t* bytes_at(unsigned w, int u) {
+    return slot_at(w) + phase(src + (int64_t)u * ub);
+  }
+  SW_HD uint8_t* side_at(unsigned w, int u) {
+    return slot_at(w) + round16(D * ub + 16) + phase(side + u);
+  }
+
+  // Starts copying window w.
+  SW_HD void start(unsigned w) {
+    const int low = top - ((int)w + 1) * D + 1;
+    const int f = first(w);
+    const int e = low + D < nu ? low + D : nu;
+    const int64_t k = e > f ? e - f : 0;  // units to copy, maybe none
+    const int slot = (int)(w % WINDOWS);
+    copy.load(slot, bytes_at(w, f), src + (int64_t)f * ub, k * ub);
+    if (side)
+      copy.load(slot, side_at(w, f), (const uint8_t*)(side + f), 4 * k);
+    copy.commit();
   }
 
   SW_HD void enter() {
-    const int slot = (int)(t % SEG_WINDOWS);
-    cur = ring + slot * D * C - (int64_t)lo * C;
+    a = first(t);
+    bcur = bytes_at(t, a);
+    if (side) wcur = (const int32_t*)side_at(t, a);
   }
 
-  SW_HD uint32_t operator()(int r, int c) {
-    const int d = r + c;
+  // Makes unit u readable: u at most the last unit made readable.  One
+  // compare when u lies in the current window (lo is INT_MAX until the
+  // ring opens).
+  SW_HD void to(int u) {
+    if (u < lo) move(u);
+  }
+  SW_HD void move(int u) {
     if (!open) {
       open = true;
-      top = d;
+      top = u;
       t = 0;
-      lo = d - D + 1;
-      for (unsigned w = 0; w < SEG_WINDOWS; ++w) start(w);
-      copy.wait_ahead();
-      enter();
-    } else if (d < lo) {
+      lo = u - D + 1;
+      for (unsigned w = 0; w < WINDOWS; ++w) start(w);
+    } else {
       ++t;
       lo -= D;
-      start(t + SEG_WINDOWS - 1);
-      copy.wait_ahead();
-      enter();
+      start(t + WINDOWS - 1);
     }
-    const uint8_t* at = cur + (int64_t)d * C + r;
-    copy.ok((int)(t % SEG_WINDOWS), at - (ring + (t % SEG_WINDOWS) * D * C));
+    copy.wait_ahead();
+    enter();
+  }
+
+  // Byte k of unit u, and unit u's side word: u made readable by to(u).
+  SW_HD uint32_t byte(int u, int k) {
+    const uint8_t* at = bcur + ((u - a) * ub32 + k);
+    copy.ok((int)(t % WINDOWS), at - slot_at(t));
+    return *at;
+  }
+  SW_HD int32_t word(int u) {
+    const int32_t* at = wcur + (u - a);
+    copy.ok((int)(t % WINDOWS), (const uint8_t*)at - slot_at(t));
     return *at;
   }
 
   SW_HD void close() {
     if (open) copy.wait_all();
     open = false;
+    lo = INT_MAX;
   }
 };
 
 template <class Copy>
-SW_HD SegWindows<Copy> seg_windows(const uint8_t* band, int C, int64_t MP,
-                                   int D, uint8_t* smem, Copy copy) {
-  SegWindows<Copy> w;
-  w.band = band;
-  w.C = C;
-  w.nd = (int)(C + MP);
+SW_HD Windows<Copy> windows(const uint8_t* src, int64_t ub, int nu,
+                            const int32_t* side, int D, uint8_t* smem,
+                            Copy copy) {
+  Windows<Copy> w;
+  w.src = src;
+  w.side = side;
+  w.ub = ub;
+  w.ub32 = (int)ub;
+  w.nu = nu;
   w.D = D;
+  w.sb = window_slot_bytes(D, ub, side != nullptr);
   w.ring = smem;
-  w.top = w.lo = 0;
+  w.top = w.a = 0;
+  w.lo = INT_MAX;
   w.t = 0;
-  w.cur = smem;
+  w.bcur = smem;
+  w.wcur = nullptr;
   w.open = false;
   w.copy = copy;
   return w;
 }
+
+// K5's windows over a band's skewed pointer bytes (sw_band.cuh band_bytes:
+// cell (base + r + 1, c + 1) at byte (r + c) * C + r): diagonal d = r + c
+// is C contiguous bytes, and every step of a walk lowers d by one (a gap)
+// or two (a match), so a walk reads a band's diagonals in strictly
+// decreasing order.
+template <class Copy>
+SW_HD Windows<Copy> seg_windows(const uint8_t* band, int C, int64_t MP,
+                                int D, uint8_t* smem, Copy copy) {
+  return windows(band, C, (int)(C + MP), nullptr, D, smem, copy);
+}
+
+#if defined(__CUDACC__)
+// A warp's copies into its windows (pieces: 16-byte cp.async pieces, 4-byte
+// ones at the ends, and the few bytes left by plain loads and stores), one
+// commit group a window (every lane commits, so all count the same
+// groups); a window's copies start after the warp's barrier, so no lane
+// still reads the slot.
+struct WarpCopy {
+  static constexpr int kLanes = 32;
+  int lane;
+
+  __device__ void load(int, uint8_t* dst, const uint8_t* src,
+                       int64_t bytes) {
+    __syncwarp();
+    const Pieces p = pieces((uint64_t)src, bytes);
+    for (int64_t o = p.q0 + (int64_t)lane * 16; o < p.q1;
+         o += kLanes * 16) {
+      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + o);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+                   "l"(src + o)
+                   : "memory");
+    }
+    // lanes 0-2 the head's words, 3-5 the tail's, 6-8 the head's bytes,
+    // 9-11 the tail's
+    int64_t o = -1;
+    if (lane < 3)
+      o = p.w0 + 4 * lane < p.q0 ? p.w0 + 4 * lane : -1;
+    else if (lane < 6)
+      o = p.q1 + 4 * (lane - 3) < p.w1 ? p.q1 + 4 * (lane - 3) : -1;
+    if (o >= 0) {
+      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + o);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+                   "l"(src + o)
+                   : "memory");
+    }
+    o = -1;
+    if (lane >= 6 && lane < 9)
+      o = lane - 6 < p.w0 ? lane - 6 : -1;
+    else if (lane >= 9 && lane < 12)
+      o = p.w1 + lane - 9 < bytes ? p.w1 + lane - 9 : -1;
+    if (o >= 0) dst[o] = src[o];
+  }
+  __device__ void commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  __device__ void wait_all() {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncwarp();
+  }
+  __device__ void wait_ahead() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(WINDOWS - 1) : "memory");
+    __syncwarp();
+  }
+  __device__ void ok(int, int64_t) {}
+};
+#endif
 
 }  // namespace sw

@@ -49,7 +49,8 @@ TBP = 8  # pairs per batch: the JAX kernel's sublanes, kept as the API's cap
 # chip_smoke.py)
 LAUNCHES = {"K6": 0, "K7": 0, "K8": 0}
 # the shape of K7's last launch (kernels.banded_fill: rows a lane, stripes,
-# blocks), read by chip_smoke.py
+# blocks) and K8's (rows a window, 0 for reads straight from the band),
+# read by chip_smoke.py
 SHAPES: dict = {}
 
 
@@ -379,7 +380,40 @@ def walk_banded_device(tb, off, start, m, *, local: bool, L: int) -> Walked:
     kernels.banded_walk(tb, off, start, m, idx1, idx2, cnt, flags,
                         local=local, L=L)
     LAUNCHES["K8"] += 1
+    SHAPES["K8"] = {"rows": kernels.banded_walk_rows(tb.shape[2])}
     return idx1, idx2, cnt, flags
+
+
+def random_band(rng: np.random.Generator, W: int, local: bool):
+    """Synthetic inputs for checks of the band walk (the tests and
+    ``chip_smoke.py``): eight pairs (m - n at most 8) with random pointer
+    bytes (mostly diagonal moves, every state's pointer drawn on its own)
+    in a band of W bytes a row, their offsets and walk starts: from (n, m)
+    and, when ``local``, from inside the band in every other pair.  Lanes
+    past the widest pair's m, which no walk reads, hold zeros.  Returns
+    ``(tb, off, start, m, L)`` numpy."""
+    ns = [300, 257, 90, 1, 40, 310, 64, 200]
+    ms = [305, 250, 95, 3, 46, 300, 64, 205]
+    B, NP = len(ns), -(-max(ns) // 8) * 8
+    offs = np.zeros((B, NP + 1), np.int32)
+    start = np.zeros((B, 4), np.int32)
+    for b, (n, m) in enumerate(zip(ns, ms)):
+        off = band_offsets(n, m, min(W, m))
+        offs[b, :n + 1] = off
+        offs[b, n + 1:] = off[-1]
+        if local and b % 2:
+            i = n // 2 + 1
+            start[b] = (i, off[i] + min(W, m) // 2 + 1, 0, 1)
+        else:
+            start[b] = (n, m, b % 3, 1)
+    tb = np.zeros((B, NP, W), np.uint8)
+    w = min(W, max(ms))
+    for f in range(3):
+        tb[:, :, :w] |= (rng.choice(4, size=(B, NP, w),
+                                    p=[0.7, 0.12, 0.12, 0.06])
+                         << (2 * f)).astype(np.uint8)
+    L = -(-(max(ns) + max(ms) + 2) // 1024) * 1024
+    return tb, offs, start, np.asarray(ms, np.int32), L
 
 
 def walk_banded(tb: np.ndarray, off: np.ndarray, si: int, sj: int,

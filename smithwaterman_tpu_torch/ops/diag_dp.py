@@ -13,10 +13,11 @@ best score, the stats row ``[best, 0, ...]`` of a score-only fill without
 the argmax.
 
 On CUDA tensors :func:`fill_diag` launches K9 (``csrc/diag_fill.cu``, one
-warp per pair) once over every chunk of a flush; on CPU tensors it runs
-:func:`fill_diag_ref`.  Any other device raises.  ``BatchAligner``
-(``diag_scores=True``) sends a score-only flush here when :func:`eligible`
-accepts it, and to K1 otherwise.
+warp per pair, ``R`` columns a lane: a strip of ``LANES * R`` columns,
+:func:`lane_cols` picks R) once over every chunk of a flush; on CPU
+tensors it runs :func:`fill_diag_ref`.  Any other device raises.
+``BatchAligner`` (``diag_scores=True``) sends a score-only flush here when
+:func:`eligible` accepts it, and to K1 otherwise.
 """
 
 from __future__ import annotations
@@ -29,10 +30,25 @@ import torch
 from ..config import LOCAL
 from . import batch, fill_dp
 
-LANES = 32  # a strip's width: one warp (csrc/sw_diag.cuh LANES)
+LANES = 32  # lanes of a strip: one warp (csrc/sw_diag.cuh LANES)
+LANE_COLS = (2, 4, 8)  # the R K9 is built for
 
 # K9 launches made through fill_diag (a plain count, read by chip_smoke.py)
 LAUNCHES = 0
+# the last K9 launch's columns a lane (read by chip_smoke.py)
+SHAPE = {"R": 0}
+
+
+def lane_cols(MP: int) -> int:
+    """K9's columns a lane R for a flush whose widest chunk has MP
+    columns: the widest strip of ``LANES * R`` columns that the chunk
+    fills, at least 2.  A wider strip takes a pair in fewer steps and
+    pays each step's shuffles and feed once for R cells; past the pair's
+    width its lanes only carry dead columns.  Each R wins where it is
+    picked (``scripts/ab_diag.py``, PERF.md: 2 at 64 columns, 4 at 128, 8
+    from 256); R = 1 beat R = 2 nowhere by more than the run-to-run
+    spread, not even at 32 columns."""
+    return max((R for R in LANE_COLS if LANES * R <= MP), default=2)
 
 
 def eligible(*, mode: int, og: float, eg: float, score_only: bool,
@@ -137,8 +153,9 @@ def fill_diag(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
     """The LOCAL best score of every pair of ``chunks`` on ``table``'s
     device: stats (B, 8) f32, ``[best, 0, ...]``, pairs in chunk order.
 
-    CUDA: one launch of K9 over all pairs.  CPU: :func:`fill_diag_ref` per
-    chunk.  Any other device raises; so does ``og <= eg <= 0`` failing."""
+    CUDA: one launch of K9 over all pairs, :func:`lane_cols` columns a
+    lane.  CPU: :func:`fill_diag_ref` per chunk.  Any other device raises;
+    so does ``og <= eg <= 0`` failing."""
     global LAUNCHES
     _check_penalties(og, eg)
     dev = table.device
@@ -164,8 +181,10 @@ def fill_diag(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
         [ch.codes2.ravel() for ch in chunks])).to(dev)
     scratch = torch.empty(max(scratch_floats, 1), dtype=torch.float32,
                           device=dev)
+    R = lane_cols(max(ch.shape[2] for ch in chunks))
     kernels.diag_fill(table.to(torch.float32).contiguous(), codes1, codes2,
                       torch.from_numpy(desc_np).to(dev), scratch, stats,
-                      og=og, eg=eg)
+                      og=og, eg=eg, R=R)
     LAUNCHES += 1
+    SHAPE["R"] = R
     return stats

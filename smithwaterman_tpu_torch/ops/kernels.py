@@ -132,9 +132,11 @@ def lib() -> ctypes.CDLL:
     so.sw_banded_walk_launch.argtypes = [
         i32, vp, vp, vp, vp, i64, i64, i32, i64, vp, vp, vp, vp, vp,
     ]
+    so.sw_banded_walk_rows.restype = i32
+    so.sw_banded_walk_rows.argtypes = [i32]
     so.sw_diag_fill_launch.restype = i32
     so.sw_diag_fill_launch.argtypes = [
-        vp, i32, i32, vp, vp, vp, i64, vp, vp, f32, f32, vp,
+        i32, vp, i32, i32, vp, vp, vp, i64, vp, vp, f32, f32, vp,
     ]
     so.sw_walk_tokens_launch.restype = i32
     so.sw_walk_tokens_launch.argtypes = [
@@ -437,7 +439,8 @@ def banded_fill(S, n, m, scratch, tb, stats, *, mode: int, og: float,
 
 def banded_walk(tb, off, start, m, idx1, idx2, cnt, flags, *, local: bool,
                 L: int) -> None:
-    """Launch K8 (csrc/banded_walk.cu) on the current stream; see
+    """Launch K8 (csrc/banded_walk.cu) on the current stream, its rows
+    read through a ring of :func:`banded_walk_rows` rows a window; see
     ops/banded.walk_banded_device."""
     dev = tb.device
     B, NP, W = tb.shape
@@ -457,15 +460,23 @@ def banded_walk(tb, off, start, m, idx1, idx2, cnt, flags, *, local: bool,
     _raise_on(rc, "K8 (banded walk)")
 
 
+def banded_walk_rows(W: int) -> int:
+    """K8's rows a window for a band of W bytes a row, 0 where it reads
+    the rows straight from device memory (csrc/sw_banded.cuh walk_rows)."""
+    return int(lib().sw_banded_walk_rows(int(W)))
+
+
 def diag_fill(table, codes1, codes2, desc, scratch, stats, *, og: float,
-              eg: float) -> None:
-    """Launch K9 (csrc/diag_fill.cu) on the current stream; see
-    ops/diag_dp.fill_diag."""
+              eg: float, R: int) -> None:
+    """Launch K9 (csrc/diag_fill.cu) on the current stream, ``R`` columns
+    a lane (2, 4 or 8); see ops/diag_dp.fill_diag."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"K9 runs on CUDA tensors, got {dev}")
     if not og <= eg <= 0.0:
         raise ValueError(f"K9 needs og <= eg <= 0, got og={og}, eg={eg}")
+    if R not in (2, 4, 8):
+        raise ValueError(f"K9 takes R in 2, 4, 8, got {R}")
     K = _check_table(table, "K9")
     B = desc.shape[0]
     _check(table, "table", torch.float32, dev)
@@ -475,10 +486,10 @@ def diag_fill(table, codes1, codes2, desc, scratch, stats, *, og: float,
     _check(stats, "stats", torch.float32, dev, (B, 8))
     with torch.cuda.device(dev):
         rc = lib().sw_diag_fill_launch(
-            table.data_ptr(), K, codes1.element_size(), codes1.data_ptr(),
-            codes2.data_ptr(),
-            desc.data_ptr(), B, scratch.data_ptr(), stats.data_ptr(),
-            float(og), float(eg), torch.cuda.current_stream(dev).cuda_stream,
+            int(R), table.data_ptr(), K, codes1.element_size(),
+            codes1.data_ptr(), codes2.data_ptr(), desc.data_ptr(), B,
+            scratch.data_ptr(), stats.data_ptr(), float(og), float(eg),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K9 (wavefront score fill)")
 

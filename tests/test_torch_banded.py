@@ -22,6 +22,8 @@ each pair's true band rows (i <= n), of stats, walk indices, counts and
 flags; strings and scores exactly.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -239,7 +241,13 @@ def _jax_walk(tb, pk, start, mode, L):
     return tuple(np.asarray(a) for a in (i1, i2, cnt, flags))
 
 
-def _twin_walk(tb, pk, start, mode, L):
+def _walk_windows(W):
+    """K8's rows a window in the twin: the card's (0), two and three (a
+    switch every row or two), and -1, reads straight from the band."""
+    return [0, 2, 3, -1]
+
+
+def _twin_walk(tb, pk, start, mode, L, D):
     B, NP, W = tb.shape
     tb = np.ascontiguousarray(tb)
     start = np.ascontiguousarray(start, np.int32)
@@ -249,20 +257,22 @@ def _twin_walk(tb, pk, start, mode, L):
     flags = np.zeros(B, np.int32)
     rc = native.twin_lib().sw_twin_banded_walk(
         1 if mode == LOCAL else 0, tb.ctypes.data, pk.offs.ctypes.data,
-        start.ctypes.data, pk.m.ctypes.data, B, NP, W, L, i1.ctypes.data,
+        start.ctypes.data, pk.m.ctypes.data, B, NP, W, L, D, i1.ctypes.data,
         i2.ctypes.data, cnt.ctypes.data, flags.ctypes.data)
-    assert rc == 0
+    assert rc == 0, f"D={D}: rc {rc}"
     return i1, i2, cnt, flags
 
 
 def _walks_agree(tb, pk, start, mode, L):
-    """JAX's walk, the plain walk and the K8 twin on the same band; returns
-    JAX's."""
+    """JAX's walk, the plain walk and the K8 twin at every window of
+    _walk_windows on the same band; returns JAX's."""
     want = _jax_walk(tb, pk, start, mode, L)
     ref = banded.walk_banded_ref(_t(tb), _t(pk.offs), _t(start), _t(pk.m),
                                  local=mode == LOCAL, L=L)
-    for name, got in (("plain", [a.numpy() for a in ref]),
-                      ("twin", _twin_walk(tb, pk, start, mode, L))):
+    runs = [("plain", [a.numpy() for a in ref])]
+    runs += [(f"twin D={D}", _twin_walk(tb, pk, start, mode, L, D))
+             for D in _walk_windows(tb.shape[2])]
+    for name, got in runs:
         for a, w, what in zip(got, want, ("idx1", "idx2", "cnt", "flags")):
             np.testing.assert_array_equal(a, w, err_msg=f"{name} {what}")
     return want
@@ -299,6 +309,50 @@ def test_walk_banded_flags():
     assert (flags & 2).all()
     flags = _walks_agree(jtb, pk, start, GLOCAL, 64)[3]
     assert (flags & 2).all()
+
+
+@pytest.mark.parametrize("W", [130, 8])
+@pytest.mark.parametrize("mode", MODES)
+def test_walk_odd_widths_small_windows(mode, W):
+    """Bands of W = 130 and 8 bytes a row (rows not 16-, or for 130 not
+    even 4-byte aligned: the window copies' end pieces), random pointer
+    bytes, walks from (n, m) and, in LOCAL, from inside the band: JAX's
+    walk, the plain walk and the twin at every window, exactly; some walks
+    leave the band (flag bit 1), some touch its edge (bit 0)."""
+    tb, offs, start, ms, L = banded.random_band(
+        np.random.default_rng(30 + W + mode), W, mode == LOCAL)
+    pk = types.SimpleNamespace(offs=offs, m=ms, W=W)
+    flags = _walks_agree(tb, pk, start, mode, L)[3]
+    assert (flags & 2).any() and (flags & 1).any()
+
+
+def test_walk_rows_fit_the_ring():
+    """K8's rows a window (``sw_banded_walk_rows``, which the twin's D = 0
+    takes as the launcher does) fit its ring: the twin refuses a ring past
+    shared memory as the launcher would, takes the rows picked for any
+    band, refuses one more row a window where the pick is two rows, and
+    past ~29,000 columns the pick is to read the band straight."""
+    B, NP, L = 1, 8, 64
+    off = np.zeros((B, NP + 1), np.int32)
+    start = np.array([[NP, NP, 0, 1]], np.int32)
+    m = np.array([NP], np.int32)
+    out = [np.zeros((B, L), np.int32) for _ in range(2)] + \
+        [np.zeros(B, np.int32) for _ in range(2)]
+    lib = native.twin_lib()
+    picks = {}
+    for W in (8, 130, 512, 2048, 24576, 27008, 28800, 29952):
+        tb = np.zeros((B, NP, W), np.uint8)
+        D = picks[W] = lib.sw_twin_banded_walk_rows(W)
+        assert D == 0 or D >= 2, (W, D)
+        fits = [0, D, -1] if D else [0, -1]
+        refused = [D + 1] if D == 2 else [] if D else [2]
+        for d, rc in [(d, 0) for d in fits] + [(d, 1) for d in refused]:
+            assert lib.sw_twin_banded_walk(
+                0, tb.ctypes.data, off.ctypes.data, start.ctypes.data,
+                m.ctypes.data, B, NP, W, L, d,
+                *(a.ctypes.data for a in out)) == rc, (W, d)
+    assert picks[8] == (48 << 10) // 12 and picks[512] == (48 << 10) // 516
+    assert picks[29952] == 0 and picks[28800] == 2
 
 
 @pytest.mark.parametrize("mode", MODES)

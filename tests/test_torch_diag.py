@@ -1,9 +1,10 @@
 """The port's wavefront score fill against the JAX package's, exactly.
 
 K9's plain version (``ops/diag_dp.fill_diag_ref``) and K9's host twin
-(``csrc/cell_twin.cpp`` running ``csrc/sw_diag.cuh`` lane by lane) are
-held against ``smithwaterman_tpu.ops.diag_dp.fill_diag_scores`` (the Pallas
-wavefront kernel in interpret mode) and the JAX scan oracle's LOCAL best;
+(``csrc/cell_twin.cpp`` running ``csrc/sw_diag.cuh`` lane by lane, at
+every R columns a lane the launcher can pick) are held against
+``smithwaterman_tpu.ops.diag_dp.fill_diag_scores`` (the Pallas wavefront
+kernel in interpret mode) and the JAX scan oracle's LOCAL best;
 ``BatchAligner(device="cpu", diag_scores=True)`` against the JAX
 ``BatchAligner(backend="scan")``.
 
@@ -57,17 +58,24 @@ def _ref(ch, og, eg, table=None, lanes=diag_dp.LANES):
 
 
 def _twin(ch, og, eg, table=None):
+    """The K9 twin at every R of ``diag_dp.LANE_COLS``, which must agree;
+    returns their stats."""
     table = np.ascontiguousarray(_table() if table is None else table)
     desc, floats = diag_dp.layout([ch])
     B = ch.shape[0]
-    scratch = np.zeros(max(floats, 1), np.float32)
-    stats = np.ones((B, 8), np.float32)
-    rc = native.twin_lib().sw_twin_diag_fill(
-        table.ctypes.data, table.shape[0], ch.codes1.itemsize,
-        ch.codes1.ctypes.data, ch.codes2.ctypes.data, desc.ctypes.data, B, scratch.ctypes.data,
-        stats.ctypes.data, og, eg)
-    assert rc == 0
-    return stats
+    out = None
+    for R in diag_dp.LANE_COLS:
+        scratch = np.full(max(floats, 1), np.nan, np.float32)
+        stats = np.ones((B, 8), np.float32)
+        rc = native.twin_lib().sw_twin_diag_fill(
+            R, table.ctypes.data, table.shape[0], ch.codes1.itemsize,
+            ch.codes1.ctypes.data, ch.codes2.ctypes.data, desc.ctypes.data,
+            B, scratch.ctypes.data, stats.ctypes.data, og, eg)
+        assert rc == 0, f"R={R}: rc {rc}"
+        if out is None:
+            out = stats
+        np.testing.assert_array_equal(stats, out, err_msg=f"R={R}")
+    return out
 
 
 def _jax_scan_best(ch, og, eg, table=None):
@@ -122,6 +130,49 @@ def test_rectangular_and_length_one():
                                       want)
         np.testing.assert_array_equal(_twin(ch, -10.0, -0.5, table)[:, 0],
                                       want)
+
+
+def _ragged_around_strips(dtype):
+    """Pairs whose widths sit around every strip width 32 R (m = 1, 32 R -
+    1, 32 R, 32 R + 1) and heights from 1 up; pair 0's seq1 is all code
+    0 (A, A/A = 4) against a seq2 of W (A/W = -3) one column past a strip,
+    so the dead columns of its last strip, whose codes are 0, would hold
+    far higher M than any cell of the pair; pair 1 a stretch across the
+    strip boundaries of every R."""
+    widths = [1, 33, 31, 32, 63, 64, 65, 127, 128, 129, 255, 256, 257]
+    heights = [70, 1, 2, 31, 33, 64, 70, 5, 40, 69, 1, 17, 70]
+    B, NP, MP = len(widths), max(heights), max(widths)
+    rng = np.random.default_rng(77)
+    c1 = rng.integers(0, 20, size=(B, NP)).astype(dtype)
+    c2 = rng.integers(0, 20, size=(B, MP)).astype(dtype)
+    c1[0] = 0
+    c2[0] = 17
+    c2[1, :200] = 18
+    c1[1, 10:70] = 18
+    return batch.Chunk(c1, c2, np.asarray(heights, np.int32),
+                       np.asarray(widths, np.int32))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16])
+@pytest.mark.parametrize("og,eg", [(-10.0, -0.5), (0.0, 0.0)])
+def test_twin_every_R_ragged_strips(og, eg, dtype):
+    """Widths around 32, 64, 128 and 256 (for every R, a last strip of
+    one live column, of all but one, of every one, or a lane's R cells
+    cut anywhere), heights from 1, dead columns that would win the best,
+    uint8 and int16 codes: the twin at every R, the plain wavefront and
+    the scan oracle, exactly."""
+    ch = _ragged_around_strips(dtype)
+    want = _jax_scan_best(ch, og, eg)
+    assert want[0] < 32 * 4  # the dead columns' diagonal would beat it
+    np.testing.assert_array_equal(_ref(ch, og, eg)[:, 0], want)
+    np.testing.assert_array_equal(_twin(ch, og, eg)[:, 0], want)
+
+
+def test_lane_cols():
+    """The launcher's R: the widest strip the flush's widest chunk fills."""
+    assert [diag_dp.lane_cols(MP) for MP in (1, 31, 32, 63, 64, 128, 255,
+                                             256, 700)] == \
+        [2, 2, 2, 2, 2, 4, 4, 8, 8]
 
 
 def test_open_cheaper_than_extend_raises():

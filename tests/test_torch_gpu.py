@@ -221,15 +221,18 @@ def test_kernels_write_only_their_outputs(cuda, mode, score_only):
         kernels.walk_tokens(tb10, run, want.desc, stats10, tcnt, toks,
                             local=mode == LOCAL, L=L)
     elif mode == LOCAL:
-        # K9 into a fenced scratch and stats
+        # K9 into a fenced scratch and stats, at every R
         desc9, floats = diag_dp.layout(chunks)
         desc9 = torch.from_numpy(desc9).to(cuda)
-        arenas["scratch9"], scratch9 = _fenced(4 * floats, torch.float32,
-                                               cuda)
-        arenas["stats9"], stats9 = _fenced(4 * 8 * B, torch.float32, cuda)
-        stats9 = stats9.view(B, 8)
-        kernels.diag_fill(tab, codes1, codes2, desc9, scratch9, stats9,
-                          og=-10.0, eg=-0.5)
+        stats9 = {}
+        for R in diag_dp.LANE_COLS:
+            arenas[f"scratch9 R={R}"], scratch9 = _fenced(
+                4 * floats, torch.float32, cuda)
+            arenas[f"stats9 R={R}"], st9 = _fenced(4 * 8 * B, torch.float32,
+                                                   cuda)
+            stats9[R] = st9.view(B, 8)
+            kernels.diag_fill(tab, codes1, codes2, desc9, scratch9,
+                              stats9[R], og=-10.0, eg=-0.5, R=R)
     torch.cuda.synchronize()
     for name, arena in arenas.items():
         assert bool((arena[:GUARD] == CANARY).all()), name
@@ -237,8 +240,9 @@ def test_kernels_write_only_their_outputs(cuda, mode, score_only):
     assert torch.equal(stats, want.stats)
     if score_only:
         if mode == LOCAL:
-            assert torch.equal(stats9, diag_dp.fill_diag(tab, chunks,
-                                                         og=-10.0, eg=-0.5))
+            want9 = diag_dp.fill_diag(tab, chunks, og=-10.0, eg=-0.5)
+            for R, st9 in stats9.items():
+                assert torch.equal(st9, want9), R
         return
     got = fill_dp.Filled(tb, stats, want.desc, want.shapes, want.tb_base)
     wruns = fill_dp.fill_many(tab, chunks, runs=True, **args)
@@ -306,9 +310,26 @@ def test_run_fill_and_token_walk_match_plain(cuda, mode, which):
         assert int(((toks >> 2) > 0).sum()) > 0  # runs were jumped
 
 
+def _strip_chunk(dtype):
+    """Widths around every strip of 32 R columns (1, 32 R - 1, 32 R, 32 R +
+    1), heights from 1; pair 0 all A against W one column past a strip, so
+    its last strip's dead columns (code 0) would win the best."""
+    widths = [1, 33, 31, 32, 63, 64, 65, 127, 128, 129, 255, 256, 257]
+    heights = [70, 1, 2, 31, 33, 64, 70, 5, 40, 69, 1, 17, 70]
+    rng = np.random.default_rng(41)
+    c1 = rng.integers(0, 20, size=(len(widths), max(heights))).astype(dtype)
+    c2 = rng.integers(0, 20, size=(len(widths), max(widths))).astype(dtype)
+    c1[0], c2[0] = 0, 17
+    return batch.Chunk(c1, c2, np.asarray(heights, np.int32),
+                       np.asarray(widths, np.int32))
+
+
+@pytest.mark.parametrize("R", [None, 2, 4, 8])
 @pytest.mark.parametrize("og,eg", [(-10.0, -0.5), (0.0, 0.0), (-5.0, -2.0)])
-def test_diag_kernel_matches_plain(cuda, og, eg):
-    """K9 against its plain version and K1's score-only best."""
+def test_diag_kernel_matches_plain(cuda, og, eg, R, monkeypatch):
+    """K9 against its plain version and K1's score-only best, at the
+    launcher's R (None) and at every R, on ragged chunks and on widths
+    around every strip (uint8 and int16 codes)."""
     chunks = _chunks(40)
     ch = chunks[0]
     ch.n[1], ch.m[2] = 1, 1
@@ -317,17 +338,28 @@ def test_diag_kernel_matches_plain(cuda, og, eg):
     ch.codes1[4, :60] = 18
     ch.codes2[4, 31:91] = 18
     ch.n[4], ch.m[4] = 128, 256
-    tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
-    before = diag_dp.LAUNCHES
-    got = diag_dp.fill_diag(tab, chunks, og=og, eg=eg)
-    assert diag_dp.LAUNCHES == before + 1
-    ref = torch.cat([diag_dp.fill_diag_ref(
-        tab, *(torch.from_numpy(a).to(cuda) for a in c), og=og, eg=eg)
-        for c in chunks])
-    k1 = fill_dp.fill_many(tab, chunks, mode=LOCAL, og=og, eg=eg,
-                           score_only=True)
-    assert torch.equal(got, ref)
-    assert torch.equal(got, k1.stats)
+    if R is not None:
+        monkeypatch.setattr(diag_dp, "lane_cols", lambda MP: R)
+    blosum = SubstitutionMatrix.blosum62().table
+    # int16 codes come with tables past 255 symbols: BLOSUM62 in the corner
+    # of a 300-symbol one
+    wide = np.zeros((300, 300), np.float32)
+    wide[:blosum.shape[0], :blosum.shape[1]] = blosum
+    for table, chs in ((blosum, chunks + [_strip_chunk(np.uint8)]),
+                       (wide, [_strip_chunk(np.int16)])):
+        tab = torch.from_numpy(table).to(cuda)
+        before = diag_dp.LAUNCHES
+        got = diag_dp.fill_diag(tab, chs, og=og, eg=eg)
+        assert diag_dp.LAUNCHES == before + 1
+        if R is not None:
+            assert diag_dp.SHAPE["R"] == R
+        ref = torch.cat([diag_dp.fill_diag_ref(
+            tab, *(torch.from_numpy(a).to(cuda) for a in c), og=og, eg=eg)
+            for c in chs])
+        k1 = fill_dp.fill_many(tab, chs, mode=LOCAL, og=og, eg=eg,
+                               score_only=True)
+        assert torch.equal(got, ref)
+        assert torch.equal(got, k1.stats)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -820,6 +852,41 @@ def test_banded_kernels_write_only_their_outputs(cuda, mode):
                                      L=L)
     for g, w in zip(out, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("W", [8, 130, 512, 27008, 29952])
+@pytest.mark.parametrize("mode", MODES)
+def test_banded_walk_any_width(cuda, mode, W):
+    """K8 at bands of 8 and 130 bytes a row (row starts off 16- and
+    4-byte alignment: the window copies' end pieces), 512, 27,008 (the
+    ring's largest slots of two rows) and 29,952 (no ring fits: reads
+    straight from the band), random pointer bytes, on canary-fenced
+    outputs: every canary intact, indices, counts and flags equal to the
+    plain walk's."""
+    from smithwaterman_tpu_torch.ops import banded, kernels
+
+    D = kernels.banded_walk_rows(W)
+    assert (D >= 2) if W <= 27008 else D == 0
+    tb, off, start, m, L = banded.random_band(
+        np.random.default_rng(100 + W + mode), W, mode == LOCAL)
+    B = tb.shape[0]
+    tb, off, start, m = (torch.from_numpy(a).to(cuda)
+                         for a in (tb, off, start, m))
+    want = banded.walk_banded_ref(tb, off, start, m, local=mode == LOCAL,
+                                  L=L)
+    arenas, out = {}, []
+    for name, nbytes in (("idx1", 4 * B * L), ("idx2", 4 * B * L),
+                         ("cnt", 4 * B), ("flags", 4 * B)):
+        arenas[name], t = _fenced(nbytes, torch.int32, cuda)
+        out.append(t.view(B, L) if name.startswith("idx") else t)
+    kernels.banded_walk(tb, off, start, m, *out, local=mode == LOCAL, L=L)
+    torch.cuda.synchronize()
+    for name, arena in arenas.items():
+        assert bool((arena[:GUARD] == CANARY).all()), name
+        assert bool((arena[-GUARD:] == CANARY).all()), name
+    for g, w in zip(out, want):
+        assert torch.equal(g, w)
+    assert int(out[2].max()) > 0
 
 
 def _striped_case(seed, NP=128, MP=512):

@@ -195,15 +195,16 @@ def test_twins_match_jax(tables, mode):
         return
     # K9 (score-only LOCAL: the best alone)
     desc9, floats = diag_dp.layout([ch])
-    st9 = np.ones((B, 8), np.float32)
-    scr = np.zeros(max(floats, 1), np.float32)
-    assert lib.sw_twin_diag_fill(
-        table.ctypes.data, K, ch.codes1.itemsize, ch.codes1.ctypes.data,
-        ch.codes2.ctypes.data, desc9.ctypes.data, B, scr.ctypes.data,
-        st9.ctypes.data, OG, EG) == 0
-    np.testing.assert_array_equal(st9[:, 0], want[:, 0])
     plain = diag_dp.fill_diag(torch.from_numpy(table), [ch], og=OG, eg=EG)
-    np.testing.assert_array_equal(plain.numpy(), st9)
+    for R in diag_dp.LANE_COLS:
+        st9 = np.ones((B, 8), np.float32)
+        scr = np.zeros(max(floats, 1), np.float32)
+        assert lib.sw_twin_diag_fill(
+            R, table.ctypes.data, K, ch.codes1.itemsize,
+            ch.codes1.ctypes.data, ch.codes2.ctypes.data, desc9.ctypes.data,
+            B, scr.ctypes.data, st9.ctypes.data, OG, EG) == 0
+        np.testing.assert_array_equal(st9[:, 0], want[:, 0])
+        np.testing.assert_array_equal(plain.numpy(), st9)
 
 
 @pytest.mark.parametrize("flag", ["-local", "-glocal", "-global"])
