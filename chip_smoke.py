@@ -14,7 +14,8 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    Every pair's pointer bytes and stats must be equal; K1's time on the
    3685 x 3685 pair alone (a block of a warp a stripe) is printed;
 4. K2 (the walk kernel) against its plain version on K1's own pointers:
-   move counts and packed moves must be equal;
+   move counts and packed moves must be equal; the longest walk's steps
+   are printed;
 5. the main path at a size users run: 3200 protein pairs, lengths uniform
    in 150..700, BLOSUM62, go = 10, ge = 0.5, through
    ``BatchAligner(device=dev)`` in all three modes plus one
@@ -27,7 +28,9 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    inputs (K1's in GLOCAL and GLOBAL on every third chunk): every pair's
    pointer bytes and stats, every move count and move byte must be equal,
    and both are timed (K1 and K10 by their launches alone, inputs
-   uploaded once);
+   uploaded once; K2 by its launch alone and by a ``walk_packed`` call,
+   with the longest walk's steps and their chain at SMEM_STEP_CYCLES a
+   step);
 6. the long-sequence kernels K3 (checkpointed fill), K4 (band refill) and
    K5 (segment walk) against their plain versions: 8 ragged pairs up to
    1024 x 1024 (lengths down to 1, one pair with tied maxima), all three
@@ -96,7 +99,8 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    ``SWTPU_TOKEN_WALK=1`` in all three modes, every result equal to phase
    5's, only K10 and K11 launching (not K1 or K2); warm wall, peak device
    memory, tokens against moves a pair, and K10 / K11 beside K1 / K2 and
-   their plain versions at that flush; (b)
+   their plain versions at that flush (K11 by its launch alone and by a
+   ``walk_tokens`` call, with its longest walk's chain); (b)
    ``BatchAligner(diag_scores=True).score_pairs`` on the same pairs in
    LOCAL, every score equal to phase 5's, only K9 launching; its warm wall
    beside phase 5's, and K9 beside K1's score-only fill (both by their
@@ -410,6 +414,49 @@ def relaunch(tab, chunks, got, **args):
         return got
 
     return run
+
+
+def walk_launch(got, mode, L, tokens=False):
+    """A function that launches K2 (K11 with ``tokens``) through
+    ``kernels.walk`` (``kernels.walk_tokens``) over the fill ``got`` at
+    ``device_walk.TILES``' tiles, its pairs in the fill's order, into
+    outputs allocated once: the kernel's launch alone.  These launches are
+    not counted; run() returns (cnt, moves or toks)."""
+    import torch
+
+    from smithwaterman_tpu_torch import LOCAL
+    from smithwaterman_tpu_torch.ops import device_walk, kernels
+
+    B = got.desc.shape[0]
+    dev = got.desc.device
+    cnt = torch.empty(B, dtype=torch.int32, device=dev)
+    out = torch.zeros((L, B) if tokens else (-(-L // 4), B),
+                      dtype=torch.uint8, device=dev)
+    T, C = device_walk.TILES[2 if tokens else 1]
+    kw = dict(local=mode == LOCAL, L=L, order=got.order, T=T, C=C)
+
+    def run():
+        if tokens:
+            kernels.walk_tokens(got.tb, got.run, got.desc, got.stats, cnt,
+                                out, **kw)
+        else:
+            kernels.walk(got.tb, got.desc, got.stats, cnt, out, **kw)
+        return cnt, out
+
+    return run
+
+
+def walk_by_launch(got, mode, L, ref, walk_err, what, tokens=False):
+    """K2 (K11) over the fill ``got`` timed by its launch alone (mean of 10
+    after one) and held against the plain walk's ``ref``: ms."""
+    run = walk_launch(got, mode, L, tokens)
+    run()
+    ms, out = timed(run, 10)
+    err = walk_err(out, ref)
+    if err != 0.0:
+        fail(f"{what} by its launch: differs from the plain walk "
+             f"(max error {err})")
+    return ms
 
 
 def k9_relaunch(tab, chunks, R, og, eg):
@@ -871,7 +918,7 @@ def phase11(dev, card, modes, cases, ragged, pair_masks, fill_err, walk_err):
     odd.codes2[5, 31:91] = 18
     odd.n[5], odd.m[5] = NP, MP
     sums = {"K9": [0.0, 0.0], "K10": [0.0, 0.0], "K11": [0.0, 0.0]}
-    n9 = 0
+    n9 = longest = 0
     for table, tname in ((blosum, "blosum62"),
                          (blosum * np.float32(0.5), "blosum62*0.5")):
         tab = torch.from_numpy(table).to(dev)
@@ -929,7 +976,8 @@ def phase11(dev, card, modes, cases, ragged, pair_masks, fill_err, walk_err):
             L = max(device_walk.max_path_len(NP_, MP_)
                     for _, NP_, MP_ in got.shapes)
             ms, out = event_ms(lambda: device_walk.walk_tokens(
-                got.tb, got.run, got.desc, got.stats, mode=mode, L=L))
+                got.tb, got.run, got.desc, got.stats, mode=mode, L=L,
+                order=got.order))
             pms, rout = event_ms(lambda: device_walk.walk_tokens_ref(
                 got.tb, got.run, got.desc, got.stats, mode=mode, L=L))
             sums["K11"][0] += ms
@@ -937,6 +985,7 @@ def phase11(dev, card, modes, cases, ragged, pair_masks, fill_err, walk_err):
             if walk_err(out, rout) != 0.0 or int(out[0].max()) == 0:
                 fail(f"K11 {name} {mname}: tokens differ from the plain "
                      "token walk, or none at all")
+            longest = max(longest, int(out[0].max()))
         del masks
     say(f"phase 11 K9: {n9} cases (2 tables x (go, ge) in (10, 0.5), (0, 0), "
         f"(5, 2); phase 3's ragged chunks and {B} pairs of up to {NP} x {MP}, "
@@ -945,7 +994,9 @@ def phase11(dev, card, modes, cases, ragged, pair_masks, fill_err, walk_err):
         "wavefront and to K1's "
         f"score-only best; K10 and K11: {len(cases)} cases x 3 modes, "
         "pointer bytes and stats equal to K1's, run bytes to the plain ones, "
-        "tokens to the plain token walk; summed ms kernel / plain: "
+        "tokens to the plain token walk (K11's tiles (T, C) "
+        f"{device_walk.TILES[2]}; longest walk {longest} tokens); "
+        "summed ms kernel / plain: "
         + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in sums.items())
         + f"; on {card}")
 
@@ -1064,27 +1115,38 @@ def phase12(dev, card, modes, pairs, chunks, results, scores, walls,
             [mk if c % step == 0 else torch.zeros_like(mk)
              for c, mk in enumerate(masks)])
         del plain, pview
-        device_walk.walk_tokens(got.tb, got.run, got.desc, got.stats,
-                                mode=mode, L=L)
-        k11_ms, out = timed(lambda: device_walk.walk_tokens(
-            got.tb, got.run, got.desc, got.stats, mode=mode, L=L), 5)
+        def walk():
+            return device_walk.walk_tokens(got.tb, got.run, got.desc,
+                                           got.stats, mode=mode, L=L,
+                                           order=got.order)
+
+        walk()
+        k11_call_ms, out = timed(walk, 5)
         k11_plain_ms, rout = event_ms(lambda: device_walk.walk_tokens_ref(
             got.tb, got.run, got.desc, got.stats, mode=mode, L=L))
         werr = walk_err(out, rout)
         if rerr != 0.0 or rbad or werr != 0.0:
             fail(f"K10/K11 at the main path's shapes, {mname}: {rbad} run "
                  f"bytes differ, token walk max error {werr}")
+        k11_ms = walk_by_launch(got, mode, L, rout, walk_err,
+                                f"K11 at phase 12a, {mname}", tokens=True)
+        clock11 = sm_clock_mhz()
         errs["K10"] = max(errs["K10"], err, rerr)
         errs["K11"] = max(errs["K11"], werr)
         ntok = int(out[0].sum())
-        tt[mname] = (k10_ms, k10_plain_ms, k11_ms, k11_plain_ms, ntok)
+        longest = int(out[0].max())
+        tt[mname] = (k10_ms, k10_plain_ms, k11_ms, k11_plain_ms, ntok,
+                     k11_call_ms, longest,
+                     longest * SMEM_STEP_CYCLES / (clock11 * 1e3))
         k1_ms, _, k2_ms, _ = times[mname]
         say(f"phase 12a kernels {mname} at the main path's shapes: K10 "
             f"{k10_ms:.3f} ms (K1 {k1_ms:.3f} ms) vs plain run bytes "
-            f"{k10_plain_ms:.3f} ms on {len(chunks[::step])} chunks; K11 "
-            f"{k11_ms:.4f} ms (K2 {k2_ms:.4f} ms) "
-            f"vs plain {k11_plain_ms:.3f} ms; tokens {ntok} "
-            f"({ntok / PAIRS:.1f} a pair) against moves {walk_steps[mname]} "
+            f"{k10_plain_ms:.3f} ms on {len(chunks[::step])} chunks; K11 by "
+            f"its launch {k11_ms:.4f} ms at (T, C) = {device_walk.TILES[2]} "
+            f"(a walk_tokens call {k11_call_ms:.4f} ms; K2 {k2_ms:.4f} ms) vs plain {k11_plain_ms:.3f} ms; tokens {ntok} "
+            f"({ntok / PAIRS:.1f} a pair, the longest walk {longest}, its "
+            f"chain at {SMEM_STEP_CYCLES} cycles a step {tt[mname][7]:.4f} "
+            f"ms at {clock11:.0f} MHz) against moves {walk_steps[mname]} "
             f"({walk_steps[mname] / PAIRS:.1f} a pair); all equal")
         del got, out, rout
     del masks
@@ -1191,7 +1253,7 @@ def phase12(dev, card, modes, pairs, chunks, results, scores, walls,
         f"({redone} chunks, {t_resume:.3f} s), K1 route {t_k1:.3f} s; both "
         "matrices equal")
 
-    k10_ms, k10_plain_ms, k11_ms, k11_plain_ms, ntok = tt["local"]
+    k10_ms, k10_plain_ms, k11_ms, k11_plain_ms, ntok = tt["local"][:5]
     k9_bound = bound(DIAG_CELL_FLOPS * true_cells,
                      code_bytes + 32 * PAIRS)
     k10_bound = bound((CELL_FLOPS[LOCAL] + RUN_OPS) * true_cells,
@@ -1214,9 +1276,14 @@ def phase12(dev, card, modes, pairs, chunks, results, scores, walls,
             "replaces": repl, "launches": launches[k], "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": bd[0], "bound_by": bd[1],
             "library_ms": None})
-    # K9's "ms" is its launch alone, as K1's and K2's; a fill_diag call,
-    # with its host layout and uploads, is "call_ms"
+    # K9's and K11's "ms" is the launch alone, as K1's and K2's; a
+    # fill_diag (LOCAL walk_tokens) call, with its host work and the
+    # zeroed outputs, is "call_ms"
     out[0]["call_ms"] = k9_call_ms
+    out[2].update(
+        call_ms=tt["local"][5],
+        ms_by_mode={mn: tt[mn][2] for _, mn in modes},
+        longest_steps={mn: tt[mn][6] for _, mn in modes})
     return out
 
 
@@ -1880,10 +1947,11 @@ def main() -> int:
             del got, run
 
     # ---- phase 4: K2 against its plain version on K1's own pointers
+    longest = 0
     for name, mode, mname, got in walk_inputs:
         L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in got.shapes)
         cnt, mv = device_walk.walk_packed(got.tb, got.desc, got.stats,
-                                          mode=mode, L=L)
+                                          mode=mode, L=L, order=got.order)
         torch.cuda.synchronize()
         ref = device_walk.walk_packed_ref(got.tb, got.desc, got.stats,
                                           mode=mode, L=L)
@@ -1891,8 +1959,10 @@ def main() -> int:
             fail(f"K2 {name} {mname}: walk differs from the plain walk")
         if int(cnt.max()) == 0:
             fail(f"K2 {name} {mname}: no moves at all")
+        longest = max(longest, int(cnt.max()))
     say(f"phase 4 K2: {len(walk_inputs)} walks equal to the plain walk "
-        "(counts and every move byte)")
+        f"(counts and every move byte) at tiles (T, C) "
+        f"{device_walk.TILES[1]}; longest walk {longest} steps")
     say(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- phase 5: the main path at a size users run
@@ -1972,7 +2042,7 @@ def main() -> int:
 
     main_err = {"K1": 0.0, "K2": 0.0}
     times = {}
-    walk_steps = {}
+    walk_steps, walk_longest, k2_modes, clock = {}, {}, {}, {}
     fill_dp.fill_many_ref(tab, chunks[:1], mode=LOCAL, og=-10.0, eg=-0.5)
     for mode, mname in modes:
         args = dict(mode=mode, og=-10.0, eg=-0.5)
@@ -1996,26 +2066,34 @@ def main() -> int:
         del ref, cgot
         def walk():
             return device_walk.walk_packed(got.tb, got.desc, got.stats,
-                                           mode=mode, L=L)
+                                           mode=mode, L=L, order=got.order)
 
         walk()
-        k2_ms, out = timed(walk, 5)
+        k2_call_ms, out = timed(walk, 5)
         k2_plain_ms, rout = timed(lambda: device_walk.walk_packed_ref(
             got.tb, got.desc, got.stats, mode=mode, L=L), 1)
         werr = walk_err(out, rout)
         if werr != 0.0:
             fail(f"K2 at the main path's shapes, {mname}: walk differs "
                  f"from the plain walk (max error {werr})")
+        k2_ms = walk_by_launch(got, mode, L, rout, walk_err,
+                               f"K2 at phase 5, {mname}")
+        clock[mname] = sm_clock_mhz()
         main_err["K1"] = max(main_err["K1"], err)
         main_err["K2"] = max(main_err["K2"], werr)
         walk_steps[mname] = int(out[0].sum())
+        walk_longest[mname] = int(out[0].max())
         times[mname] = (k1_ms, k1_plain_ms, k2_ms, k2_plain_ms)
+        k2_modes[mname] = (k2_ms, k2_call_ms)
         say(f"phase 5 kernels {mname} at the main path's shapes ({PAIRS} "
             f"pairs, {len(chunks)} chunks, L={L}; K1 against the plain fill "
             f"on {len(chunks[::step])} chunks) on {card}: every pointer "
             f"byte, stat, count and move equal to the plain versions; K1 "
-            f"{k1_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms; K2 {k2_ms:.3f} "
-            f"ms vs plain {k2_plain_ms:.3f} ms")
+            f"{k1_ms:.3f} ms vs plain {k1_plain_ms:.3f} ms; K2 by its launch "
+            f"{k2_ms:.4f} ms at (T, C) = {device_walk.TILES[1]} (a "
+            f"walk_packed call {k2_call_ms:.4f} ms) vs plain "
+            f"{k2_plain_ms:.3f} ms; {walk_steps[mname]} steps, the longest "
+            f"walk {walk_longest[mname]}; SM clock {clock[mname]:.0f} MHz")
         del got, out, rout
     k1_ms, k1_plain_ms, k2_ms, k2_plain_ms = times["local"]
     # bounds of the LOCAL flush timed above: K1 reads the codes and writes
@@ -2028,6 +2106,14 @@ def main() -> int:
                      cells + code_bytes + 32 * PAIRS)
     steps = walk_steps["local"]
     k2_bound = bound(STEP_OPS * steps, steps + steps / 4 + 36 * PAIRS)
+    # beside the bound, not the bound: the longest walk's chain of steps at
+    # one dependent shared-memory read a step, at the SM clock read after
+    # the mode's launches
+    k2_chain = {mn: walk_longest[mn] * SMEM_STEP_CYCLES / (clock[mn] * 1e3)
+                for _, mn in modes}
+    say("phase 5 K2 longest walks' chains at " f"{SMEM_STEP_CYCLES} cycles "
+        "a step: " + ", ".join(f"{mn} {walk_longest[mn]} steps, "
+                               f"{k2_chain[mn]:.4f} ms" for _, mn in modes))
     records = [
         {"name": "K1 fill", "route": "cuda",
          "source": "smithwaterman_tpu_torch/csrc/fill.cu",
@@ -2040,7 +2126,10 @@ def main() -> int:
          "replaces": "smithwaterman_tpu/ops/device_walk.py:220",
          "launches": launches["K2"], "max_abs_err": main_err["K2"],
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "call_ms": k2_modes["local"][1],
+         "ms_by_mode": {mn: k2_modes[mn][0] for _, mn in modes},
+         "longest_steps": walk_longest},
     ]
     del masks
     say(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")

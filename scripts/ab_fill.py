@@ -179,11 +179,14 @@ def one(tree: str) -> dict:
                                     for c in range(len(chunks))])
         dig[f"stats_{mname}"] = short(got.stats.cpu().numpy())
         if mode == LOCAL:
+            # the walk order, where the tree's fill makes one
+            kw = ({"order": got.order} if getattr(got, "order", None)
+                  is not None else {})
             device_walk.walk_packed(got.tb, got.desc, got.stats, mode=mode,
-                                    L=L)
+                                    L=L, **kw)
             out["k2_local_ms"], (cnt, mv) = cs.timed(
                 lambda: device_walk.walk_packed(got.tb, got.desc, got.stats,
-                                                mode=mode, L=L), 5)
+                                                mode=mode, L=L, **kw), 5)
             dig["k2_local"] = short(cnt.cpu().numpy()) + short(
                 mv.cpu().numpy())
         del got

@@ -239,11 +239,11 @@ class BatchAligner:
             if tokens:
                 cnt_d, mv_d = device_walk.walk_tokens(
                     filled.tb, filled.run, filled.desc, filled.stats,
-                    mode=self.mode, L=L)
+                    mode=self.mode, L=L, order=filled.order)
             else:
                 cnt_d, mv_d = device_walk.walk_packed(
                     filled.tb, filled.desc, filled.stats, mode=self.mode,
-                    L=L)
+                    L=L, order=filled.order)
         ph["dispatch"] += time.time() - t0
         t0 = time.time()
         st = stats_d.cpu().numpy()

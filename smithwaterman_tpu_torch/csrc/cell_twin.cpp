@@ -16,15 +16,17 @@
 // card may take.  For K5 and K8 it walks each pair (K5: its group of
 // bands) through the window ring (sw_walk.cuh Windows) with its copies
 // landing only when the card's warp waits for them, and checks every byte
-// read against the landed copies.  For K7 it runs each stripe's lanes in
-// turn at each step (sw_banded.cuh) and the launch's stripes in ticket
-// order with a given number in flight, each advanced once the feed tiles
-// it reads are published, every publication checked against the fence
-// rule.  For K12 and K13 it runs each column tile as its warp would, a
-// row at a time, every thread in turn, and the launch's tiles in
-// ticket order with a given number in flight, each advanced once its left
-// neighbour has published the edges it needs, every publication checked
-// against the fence rule (sw_striped.cuh).
+// read against the landed copies; for K2 and K11 likewise through a
+// warp's two tile slots (sw_walk.cuh Tiles), every lane's pieces of a
+// tile cut as the card's, at the T and C given.  For K7 it runs each
+// stripe's lanes in turn at each step (sw_banded.cuh) and the launch's
+// stripes in ticket order with a given number in flight, each advanced
+// once the feed tiles it reads are published, every publication checked
+// against the fence rule.  For K12 and K13 it runs each column tile as
+// its warp would, a row at a time, every thread in turn, and the launch's
+// tiles in ticket order with a given number in flight, each advanced once
+// its left neighbour has published the edges it needs, every publication
+// checked against the fence rule (sw_striped.cuh).
 // For K9 it runs every lane of a warp in turn at each step, R columns a
 // lane, handing each lane its left neighbour's values from before the
 // step, as the card's shuffles do, and lane 0 its row from the stage the
@@ -816,6 +818,115 @@ struct TwinCopy {
   }
 };
 
+// The tiles of K2 and K11 as a warp of the card copies them (sw_walk.cuh
+// Tiles and LaneCopy): every lane's rows of a tile, each piece checked for
+// alignment and for landing inside the slot begun and at its source's
+// address mod 16, stays pending until the warp waits, and
+// only then do its bytes land and count as loaded; a slot's first copy
+// unloads what it held.  A read of a byte that is not loaded, a copy into
+// a slot with copies pending, or a misplaced piece marks the walk broken.
+struct TwinTiles {
+  struct Piece {
+    uint8_t* dst;
+    const uint8_t* src;
+    int n;
+  };
+  int64_t bytes;  // the warp's slots
+  std::vector<uint8_t> mem, loaded;
+  uint8_t* buf;  // mem, 16-byte aligned
+  uint8_t *lo = nullptr, *hi = nullptr;  // the slot being copied into
+  std::vector<Piece> pending;
+  bool broken = false;
+
+  explicit TwinTiles(int64_t b) : bytes(b), mem(b + 16, 0), loaded(b, 0) {
+    buf = mem.data() + ((16 - ((uintptr_t)mem.data() & 15)) & 15);
+  }
+  void reset() {
+    pending.clear();
+    std::fill(loaded.begin(), loaded.end(), 0);
+  }
+};
+
+struct TwinTileCopy {
+  TwinTiles* t;
+  int first, last;  // every lane of the warp
+
+  void begin(uint8_t* slot, int64_t n) {
+    for (const auto& c : t->pending)
+      if (c.dst < slot + n && c.dst + c.n > slot) t->broken = true;
+    std::fill_n(t->loaded.begin() + (slot - t->buf), n, 0);
+    t->lo = slot;
+    t->hi = slot + n;
+  }
+  void put(uint8_t* dst, const uint8_t* src, int n, int align) {
+    if ((uintptr_t)dst % align || (uintptr_t)src % align ||
+        dst < t->lo || dst + n > t->hi)
+      t->broken = true;
+    t->pending.push_back({dst, src, n});
+  }
+  // as LaneCopy::piece cuts it
+  void piece(uint8_t* dst, const uint8_t* src, int n) {
+    if (n < 1 || n > 16 || ((uintptr_t)dst & 15) != ((uintptr_t)src & 15)) {
+      t->broken = true;
+      return;
+    }
+    if (n == 16) return put(dst, src, 16, 16);
+    const sw::Pieces p = sw::pieces((uint64_t)src, n);
+    for (int o = 0; o < (int)p.w0; ++o) put(dst + o, src + o, 1, 1);
+    for (int o = (int)p.w0; o < (int)p.w1; o += 4) put(dst + o, src + o, 4, 4);
+    for (int o = (int)p.w1; o < n; ++o) put(dst + o, src + o, 1, 1);
+  }
+  void commit() {}
+  void wait_all() {
+    for (const auto& c : t->pending) {
+      std::memcpy(c.dst, c.src, (size_t)c.n);
+      std::fill_n(t->loaded.begin() + (c.dst - t->buf), c.n, 1);
+    }
+    t->pending.clear();
+  }
+  void sync() {}
+  uint32_t read(int off) {
+    if (off < 0 || off >= t->bytes || !t->loaded[off]) {
+      t->broken = true;
+      return 0;
+    }
+    return t->buf[off];
+  }
+};
+
+// K2 (P = 1) and K11 (P = 2) over B pairs as the card's launch takes them:
+// block t of the launch walks pair order[t], a warp
+// with tiles of T rows x C columns; the warps one after another.  Returns 0, 1 for arguments the launch refuses, or 3
+// if a walk read a byte no finished copy had brought.
+template <int P>
+int tile_walks(int local, const uint8_t* const* pools, const int64_t* desc,
+               const float* stats, const int32_t* order, int64_t B,
+               int64_t L, int32_t* cnt, uint8_t* out, int T, int C) {
+  const int64_t slots = sw::TILE_SLOTS * P * sw::tile_slot_bytes(T, C);
+  if (!order || B <= 0 || L <= 0 || T < 1 || C < 1 || slots > sw::BLOCK_SMEM)
+    return 1;
+  if (P == 2 && (((uintptr_t)pools[0] - (uintptr_t)pools[1]) & 15)) return 1;
+  TwinTiles tw(slots);
+  for (int64_t t = 0; t < B; ++t) {
+    const int64_t b = order[t];
+    const int64_t* d = desc + b * sw::DESC_W;
+    const uint8_t* src[P];
+    for (int q = 0; q < P; ++q) src[q] = pools[q] + d[sw::D_TB];
+    tw.reset();
+    auto cells = sw::tiles<P>(src, d[sw::D_RS], T, C, tw.buf,
+                              TwinTileCopy{&tw, 0, 32});
+    const float* st = stats + b * sw::STATS_W;
+    if constexpr (P == 1)
+      cnt[b] = sw::walk_pair(local != 0, cells, (int)d[sw::D_N],
+                             (int)d[sw::D_M], st, L, out + b, B);
+    else
+      cnt[b] = sw::walk_tokens_pair(local != 0, cells, (int)d[sw::D_N],
+                                    (int)d[sw::D_M], st, L, out + b, B);
+    if (tw.broken || !tw.pending.empty()) return 3;
+  }
+  return 0;
+}
+
 namespace st = sw::striped;
 
 // One K12 / K13 tile as its warp runs it (striped_fill.cu run_tile), a row
@@ -1028,31 +1139,25 @@ int sw_twin_diag_fill(int R, const float* table, int K, int code_bytes,
   return bad ? 1 : (broken ? 3 : 0);
 }
 
-// Same arguments and layout as sw_walk_tokens_launch (token_walk.cu).
+// Same arguments and layout as sw_walk_tokens_launch (token_walk.cu), host
+// pointers, no stream.  Returns tile_walks' codes.
 int sw_twin_walk_tokens(int local, const uint8_t* tb, const uint8_t* run,
-                        const int64_t* desc, const float* stats, int64_t B,
-                        int64_t L, int32_t* cnt, uint8_t* toks) {
-  for (int64_t b = 0; b < B; ++b) {
-    const int64_t* d = desc + b * sw::DESC_W;
-    cnt[b] = sw::walk_tokens_pair(
-        local != 0, tb + d[sw::D_TB], run + d[sw::D_TB], d[sw::D_RS],
-        d[sw::D_CS], (int)d[sw::D_N], (int)d[sw::D_M],
-        stats + b * sw::STATS_W, L, toks + b, B);
-  }
-  return 0;
+                        const int64_t* desc, const float* stats,
+                        const int32_t* order, int64_t B, int64_t L, int T,
+                        int C, int32_t* cnt, uint8_t* toks) {
+  const uint8_t* pools[2] = {tb, run};
+  return tile_walks<2>(local, pools, desc, stats, order, B, L, cnt, toks, T,
+                       C);
 }
 
-// Same arguments and layout as sw_walk_launch (walk.cu), host pointers.
+// Same arguments and layout as sw_walk_launch (walk.cu), host pointers, no
+// stream.  Returns tile_walks' codes.
 int sw_twin_walk(int local, const uint8_t* tb, const int64_t* desc,
-                 const float* stats, int64_t B, int64_t L, int32_t* cnt,
-                 uint8_t* moves) {
-  for (int64_t b = 0; b < B; ++b) {
-    const int64_t* d = desc + b * sw::DESC_W;
-    cnt[b] = sw::walk_pair(local != 0, tb + d[sw::D_TB], d[sw::D_RS],
-                           d[sw::D_CS], (int)d[sw::D_N], (int)d[sw::D_M],
-                           stats + b * sw::STATS_W, L, moves + b, B);
-  }
-  return 0;
+                 const float* stats, const int32_t* order, int64_t B,
+                 int64_t L, int T, int C, int32_t* cnt, uint8_t* moves) {
+  const uint8_t* pools[1] = {tb};
+  return tile_walks<1>(local, pools, desc, stats, order, B, L, cnt, moves, T,
+                       C);
 }
 
 // Same arguments and layout as sw_ckpt_fill_launch (longseq_fill.cu), host

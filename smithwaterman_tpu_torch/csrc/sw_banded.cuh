@@ -534,7 +534,7 @@ struct DirectRows {
 // issue and a wait, so the windows are as large as four fit: WALK_WINDOW
 // bytes of rows and their offset words (PERF.md: 16, 32 and 48 KB
 // measured), at least two rows.
-constexpr int64_t WALK_SMEM = 232448;
+constexpr int64_t WALK_SMEM = BLOCK_SMEM;
 constexpr int WALK_WINDOW = 48 << 10;
 
 // K8's rows a window for a band of W bytes a row, or 0 when a ring of two

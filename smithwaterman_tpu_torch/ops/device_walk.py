@@ -16,8 +16,12 @@ That is ``walk_bundle_pooled``'s exact contract, which
 first boundary cell; the rebuild synthesizes the terminal-gap tail.
 
 On CUDA tensors :func:`walk_packed` launches K2 (``csrc/walk.cu``) once
-per flush; on CPU tensors it runs :func:`walk_packed_ref`, a lockstep
-loop of tensor operations that mirrors ``device_walk.py:281-311``.
+per flush: a warp a pair, walking it from tiles of its pointer bytes that
+the lanes copy into shared memory ahead of the walk (``csrc/sw_walk.cuh``
+Tiles, :data:`TILES` rows x columns), the pairs started in the fill's
+``order`` (the longest n + m first); on CPU tensors it runs
+:func:`walk_packed_ref`, a lockstep loop of tensor operations that
+mirrors ``device_walk.py:281-311``.
 
 The token walk (:func:`walk_tokens`) replaces ``walk_bundle_pooled_tokens``
 (``device_walk.py:322``): over the fill's pointer pool and its match-run
@@ -29,8 +33,8 @@ diagonal cells a step, and each step emits one token byte, state in bits
 * ``toks`` (L, B) uint8: token ``t`` of pair ``k`` at ``toks[t, k]`` for
   ``t < cnt[k]``, in walk order; every other byte is 0.
 
-On CUDA tensors it launches K11 (``csrc/token_walk.cu``) once per flush;
-on CPU tensors it runs :func:`walk_tokens_ref`, mirroring
+On CUDA tensors it launches K11 (``csrc/token_walk.cu``, K2's design over
+both pools) once per flush; on CPU tensors it runs :func:`walk_tokens_ref`, mirroring
 ``device_walk.py:392-432``.
 """
 
@@ -48,6 +52,12 @@ from .fill_dp import D_CS, D_M, D_N, D_RS, D_TB
 # walk_tokens (plain counts, read by chip_smoke.py)
 LAUNCHES = 0
 LAUNCHES_TOKENS = 0
+# K2's and K11's tiles (csrc/sw_walk.cuh Tiles), by the pools a walk reads:
+# two slots a pair of T rows x C columns of its block, of each pool.
+# Measured on an H100 (PERF.md: T x C from 16 x 48 to 64 x 128), K2
+# is fastest at 32 x 64, within a few per cent of 24 x 64 and 64 x 64; K11,
+# with its two pools, at 16 x 48, which halves its shared memory a pair.
+TILES = {1: (32, 64), 2: (16, 48)}
 
 
 def max_path_len(np_pad: int, mp_pad: int) -> int:
@@ -121,10 +131,13 @@ def walk_packed_ref(tb: torch.Tensor, desc: torch.Tensor,
 
 
 def walk_packed(tb: torch.Tensor, desc: torch.Tensor, stats: torch.Tensor,
-                *, mode: int, L: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Walk every pair of a fill (``fill_dp.Filled``'s tb pool, desc and
-    stats).  CUDA: one launch of K2.  CPU: :func:`walk_packed_ref`.  Any
-    other device raises."""
+                *, mode: int, L: int, order: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Walk every pair of a fill (``fill_dp.Filled``'s tb pool, desc,
+    stats and ``order``, the pairs in the order the kernel starts them).
+    CUDA: one launch of K2 at :data:`TILES`' tiles.  CPU:
+    :func:`walk_packed_ref`, which walks every pair at once (no order).
+    Any other device raises."""
     global LAUNCHES
     dev = tb.device
     if dev.type == "cpu":
@@ -138,7 +151,9 @@ def walk_packed(tb: torch.Tensor, desc: torch.Tensor, stats: torch.Tensor,
     moves = torch.zeros((-(-L // 4), B), dtype=torch.uint8, device=dev)
     if B == 0:
         return cnt, moves
-    kernels.walk(tb, desc, stats, cnt, moves, local=mode == LOCAL, L=L)
+    T, C = TILES[1]
+    kernels.walk(tb, desc, stats, cnt, moves, local=mode == LOCAL, L=L,
+                 order=order, T=T, C=C)
     LAUNCHES += 1
     return cnt, moves
 
@@ -195,11 +210,12 @@ def walk_tokens_ref(tb: torch.Tensor, run: torch.Tensor, desc: torch.Tensor,
 
 
 def walk_tokens(tb: torch.Tensor, run: torch.Tensor, desc: torch.Tensor,
-                stats: torch.Tensor, *, mode: int,
-                L: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                stats: torch.Tensor, *, mode: int, L: int,
+                order: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-walk every pair of a fill with run bytes (``fill_dp.Filled``'s
-    tb and run pools, desc and stats).  CUDA: one launch of K11.  CPU:
-    :func:`walk_tokens_ref`.  Any other device raises."""
+    tb and run pools, desc, stats and ``order``).  CUDA: one launch of K11
+    at :data:`TILES`' tiles for two pools.  CPU: :func:`walk_tokens_ref`.
+    Any other device raises."""
     global LAUNCHES_TOKENS
     dev = tb.device
     if dev.type == "cpu":
@@ -213,8 +229,9 @@ def walk_tokens(tb: torch.Tensor, run: torch.Tensor, desc: torch.Tensor,
     toks = torch.zeros((L, B), dtype=torch.uint8, device=dev)
     if B == 0:
         return cnt, toks
+    T, C = TILES[2]
     kernels.walk_tokens(tb, run, desc, stats, cnt, toks, local=mode == LOCAL,
-                        L=L)
+                        L=L, order=order, T=T, C=C)
     LAUNCHES_TOKENS += 1
     return cnt, toks
 

@@ -18,7 +18,9 @@ One call fills every chunk of a flush (:func:`fill_many`).  Its outputs:
   i-major, j-minor order (best_i, best_j zero for score-only fills);
   GLOBAL/GLOCAL ``[0, 0, 0, finalM, finalX, finalY, 0, 0]``.
 * ``desc`` (B, 8) int64 per-pair descriptors (``csrc/sw_cell.cuh`` Desc),
-  which the walk (``device_walk``) reads too.
+  which the walk (``device_walk``) reads too, and ``order`` (B,) int32,
+  the pairs in the order the walks start them: the longest n + m first
+  (:func:`walk_order`).
 * ``run`` (with ``runs=True``, for the token walk): a second uint8 pool in
   ``tb``'s layout holding each cell's match-run byte (``pallas_dp.py``
   ``fill_tiled(emit_runs=True)``): e in bits 0-3, the exit state in bits
@@ -115,6 +117,7 @@ class Filled:
     shapes: List[Tuple[int, int, int]]  # per chunk (B, NP, MP)
     tb_base: List[int]             # per chunk offset into the pool
     run: Optional[torch.Tensor] = None  # run-byte pool in tb's layout
+    order: Optional[torch.Tensor] = None  # (B,) int32, walk_order's
 
     def tb_view(self, c: int, pool: Optional[torch.Tensor] = None):
         """Chunk ``c``'s pointers (or its bytes of ``pool``, a pool in the
@@ -158,6 +161,14 @@ def layout(chunks: Sequence[batch.Chunk]):
     desc = (np.concatenate(rows) if rows
             else np.zeros((0, DESC_W), np.int64))
     return desc, tb_base, tb, carry
+
+
+def walk_order(desc: np.ndarray) -> np.ndarray:
+    """The descriptor rows of ``desc`` in the order K2 and K11 start their
+    walks: the longest n + m first (a pair's longest walk), so that the
+    longest chains start in the launch's first blocks; int32."""
+    return np.argsort(-(desc[:, D_N] + desc[:, D_M]),
+                      kind="stable").astype(np.int32)
 
 
 def launch_plan(chunks: Sequence[batch.Chunk], pools: int = 1,
@@ -278,11 +289,17 @@ def _alloc(chunks, table: torch.Tensor, score_only: bool, runs: bool):
         return (torch.empty(max(tb_bytes, 1), dtype=torch.uint8, device=dev)
                 if on else None)
 
-    stats = torch.empty((desc_np.shape[0], STATS_W), dtype=torch.float32,
-                        device=dev)
+    B = desc_np.shape[0]
+    stats = torch.empty((B, STATS_W), dtype=torch.float32, device=dev)
+    # the descriptors and the walk order in one upload
+    both = np.empty(B * DESC_W + (B + 1) // 2, np.int64)
+    both[:B * DESC_W] = desc_np.ravel()
+    both[B * DESC_W:].view(np.int32)[:B] = walk_order(desc_np)
+    both = torch.from_numpy(both).to(dev)
     out = Filled(pool(not score_only), stats,
-                 torch.from_numpy(desc_np).to(dev),
-                 [ch.shape for ch in chunks], tb_base, pool(runs))
+                 both[:B * DESC_W].view(B, DESC_W),
+                 [ch.shape for ch in chunks], tb_base, pool(runs),
+                 both[B * DESC_W:].view(torch.int32)[:B])
     return out, carry_floats
 
 

@@ -107,7 +107,9 @@ def lib() -> ctypes.CDLL:
         vp, f32, f32, vp,
     ]
     so.sw_walk_launch.restype = i32
-    so.sw_walk_launch.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp, vp]
+    so.sw_walk_launch.argtypes = [
+        i32, vp, vp, vp, vp, i64, i64, i32, i32, vp, vp, vp,
+    ]
     so.sw_ckpt_fill_launch.restype = i32
     so.sw_ckpt_fill_launch.argtypes = native.LONG_FILL_ARGS + [
         vp, vp, vp, vp, vp, f32, f32, vp,
@@ -140,7 +142,7 @@ def lib() -> ctypes.CDLL:
     ]
     so.sw_walk_tokens_launch.restype = i32
     so.sw_walk_tokens_launch.argtypes = [
-        i32, vp, vp, vp, vp, i64, i64, vp, vp, vp,
+        i32, vp, vp, vp, vp, vp, i64, i64, i32, i32, vp, vp, vp,
     ]
     so.sw_striped_block_launch.restype = i32
     so.sw_striped_block_launch.argtypes = native.STRIPED_BLOCK_ARGS + [
@@ -219,21 +221,36 @@ def fill(table, codes1, codes2, desc, order, tb, carry, stats, *,
     _raise_on(rc, "K1 (fill)" if run is None else "K10 (fill with runs)")
 
 
-def walk(tb, desc, stats, cnt, moves, *, local: bool, L: int) -> None:
-    """Launch K2 (csrc/walk.cu) on the current stream; see device_walk."""
+def _check_walk(what, tb, desc, stats, cnt, order, T, C):
+    """The walks' common inputs (K2, K11); returns B."""
     dev = tb.device
     if dev.type != "cuda":
-        raise ValueError(f"K2 runs on CUDA tensors, got {dev}")
+        raise ValueError(f"{what} runs on CUDA tensors, got {dev}")
     B = desc.shape[0]
     _check(tb, "tb", torch.uint8, dev)
     _check(desc, "desc", torch.int64, dev, (B, 8))
     _check(stats, "stats", torch.float32, dev, (B, 8))
     _check(cnt, "cnt", torch.int32, dev, (B,))
+    _check(order, "order", torch.int32, dev, (B,))
+    if T < 1 or C < 1:
+        raise ValueError(f"{what} takes tiles of T, C >= 1, got T={T}, C={C}")
+    return B
+
+
+def walk(tb, desc, stats, cnt, moves, *, local: bool, L: int, order,
+         T: int, C: int) -> None:
+    """Launch K2 (csrc/walk.cu) on the current stream, a warp a pair,
+    tiles of T rows x C columns, the pairs started in ``order`` ((B,)
+    int32, a permutation of the descriptor rows); see
+    device_walk.walk_packed."""
+    B = _check_walk("K2", tb, desc, stats, cnt, order, T, C)
+    dev = tb.device
     _check(moves, "moves", torch.uint8, dev, (-(-L // 4), B))
     with torch.cuda.device(dev):
         rc = lib().sw_walk_launch(
             1 if local else 0, tb.data_ptr(), desc.data_ptr(),
-            stats.data_ptr(), B, int(L), cnt.data_ptr(), moves.data_ptr(),
+            stats.data_ptr(), order.data_ptr(), B, int(L), int(T), int(C),
+            cnt.data_ptr(), moves.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K2 (walk)")
@@ -494,24 +511,22 @@ def diag_fill(table, codes1, codes2, desc, scratch, stats, *, og: float,
     _raise_on(rc, "K9 (wavefront score fill)")
 
 
-def walk_tokens(tb, run, desc, stats, cnt, toks, *, local: bool,
-                L: int) -> None:
-    """Launch K11 (csrc/token_walk.cu) on the current stream; see
+def walk_tokens(tb, run, desc, stats, cnt, toks, *, local: bool, L: int,
+                order, T: int, C: int) -> None:
+    """Launch K11 (csrc/token_walk.cu) on the current stream, as
+    :func:`walk` (``run`` at ``tb``'s address mod 16); see
     device_walk.walk_tokens."""
+    B = _check_walk("K11", tb, desc, stats, cnt, order, T, C)
     dev = tb.device
-    if dev.type != "cuda":
-        raise ValueError(f"K11 runs on CUDA tensors, got {dev}")
-    B = desc.shape[0]
-    _check(tb, "tb", torch.uint8, dev)
     _check(run, "run", torch.uint8, dev, tuple(tb.shape))
-    _check(desc, "desc", torch.int64, dev, (B, 8))
-    _check(stats, "stats", torch.float32, dev, (B, 8))
-    _check(cnt, "cnt", torch.int32, dev, (B,))
+    if (tb.data_ptr() - run.data_ptr()) % 16:
+        raise ValueError("K11 takes tb and run at the same address mod 16")
     _check(toks, "toks", torch.uint8, dev, (L, B))
     with torch.cuda.device(dev):
         rc = lib().sw_walk_tokens_launch(
             1 if local else 0, tb.data_ptr(), run.data_ptr(), desc.data_ptr(),
-            stats.data_ptr(), B, int(L), cnt.data_ptr(), toks.data_ptr(),
+            stats.data_ptr(), order.data_ptr(), B, int(L), int(T), int(C),
+            cnt.data_ptr(), toks.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K11 (token walk)")

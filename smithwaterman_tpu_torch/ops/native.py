@@ -189,7 +189,9 @@ def twin_lib() -> ctypes.CDLL:
         f32, f32,
     ]
     lib.sw_twin_walk.restype = i32
-    lib.sw_twin_walk.argtypes = [i32, vp, vp, vp, i64, i64, vp, vp]
+    lib.sw_twin_walk.argtypes = [
+        i32, vp, vp, vp, vp, i64, i64, i32, i32, vp, vp,
+    ]
     lib.sw_twin_ckpt_fill.restype = i32
     lib.sw_twin_ckpt_fill.argtypes = LONG_FILL_ARGS + [
         vp, vp, vp, vp, vp, f32, f32,  # ckm, ckx, cky, stats, scratch
@@ -218,7 +220,7 @@ def twin_lib() -> ctypes.CDLL:
     ]
     lib.sw_twin_walk_tokens.restype = i32
     lib.sw_twin_walk_tokens.argtypes = [
-        i32, vp, vp, vp, vp, i64, i64, vp, vp,
+        i32, vp, vp, vp, vp, vp, i64, i64, i32, i32, vp, vp,
     ]
     lib.sw_twin_striped_block.restype = i32
     lib.sw_twin_striped_block.argtypes = STRIPED_BLOCK_ARGS + [i32]

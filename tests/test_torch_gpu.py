@@ -127,17 +127,39 @@ def test_fill_kernel_takes_any_depth_and_warps(cuda, mode):
                             ref.tb_view(0, ref.run)[:nb, :mb, b])
 
 
+# (T, C) forced on K2 and K11 beside the launcher's own: small tiles that
+# walks leave many times (odd sizes: rows off 16-byte pieces), a tile a
+# cell, and wide short tiles
+FORCED_WALKS = [(4, 8), (3, 5), (1, 1), (8, 200)]
+
+
+def _walk_shapes(monkeypatch, pools):
+    """The launcher's tiles for ``pools`` pools, then each of
+    FORCED_WALKS set in device_walk.TILES; yields the tiles."""
+    own = device_walk.TILES[pools]
+    yield own
+    for shape in FORCED_WALKS:
+        monkeypatch.setitem(device_walk.TILES, pools, shape)
+        yield shape
+    monkeypatch.setitem(device_walk.TILES, pools, own)
+
+
 @pytest.mark.parametrize("mode", MODES)
-def test_walk_kernel_matches_plain(cuda, mode):
+def test_walk_kernel_matches_plain(cuda, mode, monkeypatch):
+    """K2 at the launcher's tiles and at every forced one, in the fill's
+    order and in descriptor order, against the plain walk."""
     chunks = _chunks(10 + mode)
     tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
     got = fill_dp.fill_many(tab, chunks, mode=mode, og=-10.0, eg=-0.5)
     L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in got.shapes)
-    cnt, mv = device_walk.walk_packed(got.tb, got.desc, got.stats,
-                                      mode=mode, L=L)
     rcnt, rmv = device_walk.walk_packed_ref(got.tb, got.desc, got.stats,
                                             mode=mode, L=L)
-    assert torch.equal(cnt, rcnt) and torch.equal(mv, rmv)
+    desc_order = torch.arange(len(rcnt), dtype=torch.int32, device=cuda)
+    for shape in _walk_shapes(monkeypatch, 1):
+        for order in (got.order, desc_order):
+            cnt, mv = device_walk.walk_packed(got.tb, got.desc, got.stats,
+                                              mode=mode, L=L, order=order)
+            assert torch.equal(cnt, rcnt) and torch.equal(mv, rmv), shape
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -174,8 +196,10 @@ def _fenced(nbytes, dtype, dev, inner=CANARY):
 def test_kernels_write_only_their_outputs(cuda, mode, score_only):
     """K1 and K2 (traceback), K10 and K11 (traceback) and K9 (score-only
     LOCAL) launched on outputs fenced by canary bytes, K1 and K10 at every
-    R (one launch each): every canary stays intact and the outputs equal
-    the wrappers' on the same inputs."""
+    R (one launch each), K2 and K11 at small tiles (their scratch is
+    shared memory only): every canary stays intact and the
+    outputs equal the wrappers' (the walks' plain versions') on the same
+    inputs."""
     from smithwaterman_tpu_torch.ops import kernels
 
     chunks = _chunks(20 + mode)
@@ -198,13 +222,19 @@ def test_kernels_write_only_their_outputs(cuda, mode, score_only):
                    tab, codes1, codes2, want.desc, tb, carry, stats,
                    traceback=not score_only, **args)
     L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in want.shapes)
+    walks = {}
     if not score_only:
         L4 = -(-L // 4)
-        arenas["cnt"], cnt = _fenced(4 * B, torch.int32, cuda)
-        arenas["moves"], moves = _fenced(L4 * B, torch.uint8, cuda, inner=0)
-        moves = moves.view(L4, B)
-        kernels.walk(tb, want.desc, stats, cnt, moves, local=mode == LOCAL,
-                     L=L)
+        # K2 and K11 at small tiles, into fenced outputs
+        for T, C in FORCED_WALKS:
+            arenas[f"cnt {T, C}"], cnt = _fenced(4 * B, torch.int32, cuda)
+            arenas[f"moves {T, C}"], moves = _fenced(L4 * B, torch.uint8,
+                                                     cuda, inner=0)
+            moves = moves.view(L4, B)
+            kernels.walk(tb, want.desc, stats, cnt, moves,
+                         local=mode == LOCAL, L=L, order=want.order, T=T,
+                         C=C)
+            walks[T, C] = (cnt, moves)
         # K10 into fenced pointer and run pools, K11 into fenced outputs
         arenas["tb10"], tb10 = _fenced(tb_bytes, torch.uint8, cuda)
         arenas["run"], run = _fenced(tb_bytes, torch.uint8, cuda)
@@ -215,11 +245,15 @@ def test_kernels_write_only_their_outputs(cuda, mode, score_only):
         fill_dp.launch(fill_dp.device_plan(chunks, 2, cuda), tab, codes1,
                        codes2, want.desc, tb10, carry10, stats10,
                        traceback=True, run=run, **args)
-        arenas["tcnt"], tcnt = _fenced(4 * B, torch.int32, cuda)
-        arenas["toks"], toks = _fenced(L * B, torch.uint8, cuda, inner=0)
-        toks = toks.view(L, B)
-        kernels.walk_tokens(tb10, run, want.desc, stats10, tcnt, toks,
-                            local=mode == LOCAL, L=L)
+        for T, C in FORCED_WALKS:
+            arenas[f"tcnt {T, C}"], tcnt = _fenced(4 * B, torch.int32, cuda)
+            arenas[f"toks {T, C}"], toks = _fenced(L * B, torch.uint8, cuda,
+                                                   inner=0)
+            toks = toks.view(L, B)
+            kernels.walk_tokens(tb10, run, want.desc, stats10, tcnt, toks,
+                                local=mode == LOCAL, L=L, order=want.order,
+                                T=T, C=C)
+            walks["tokens", T, C] = (tcnt, toks)
     elif mode == LOCAL:
         # K9 into a fenced scratch and stats, at every R
         desc9, floats = diag_dp.layout(chunks)
@@ -257,12 +291,14 @@ def test_kernels_write_only_their_outputs(cuda, mode, score_only):
                                    want.tb_view(c)[:n, :m, b])
             assert torch.equal(got10.tb_view(c, run)[:n, :m, b],
                                wruns.tb_view(c, wruns.run)[:n, :m, b])
-    wcnt, wmv = device_walk.walk_packed(want.tb, want.desc, want.stats,
-                                        mode=mode, L=L)
-    assert torch.equal(cnt, wcnt) and torch.equal(moves, wmv)
-    wtcnt, wtoks = device_walk.walk_tokens(wruns.tb, wruns.run, wruns.desc,
-                                           wruns.stats, mode=mode, L=L)
-    assert torch.equal(tcnt, wtcnt) and torch.equal(toks, wtoks)
+    wcnt, wmv = device_walk.walk_packed_ref(want.tb, want.desc, want.stats,
+                                            mode=mode, L=L)
+    wtcnt, wtoks = device_walk.walk_tokens_ref(wruns.tb, wruns.run,
+                                               wruns.desc, wruns.stats,
+                                               mode=mode, L=L)
+    for key, (c, out) in walks.items():
+        w = (wtcnt, wtoks) if key[0] == "tokens" else (wcnt, wmv)
+        assert torch.equal(c, w[0]) and torch.equal(out, w[1]), key
 
 
 def _run_chunks(seed):
@@ -277,10 +313,11 @@ def _run_chunks(seed):
 
 @pytest.mark.parametrize("which", ["ragged", "one", "sixteen"])
 @pytest.mark.parametrize("mode", MODES)
-def test_run_fill_and_token_walk_match_plain(cuda, mode, which):
+def test_run_fill_and_token_walk_match_plain(cuda, mode, which,
+                                            monkeypatch):
     """K10 (pointer bytes, run bytes, stats) against its plain version and
-    K1, at every R, and K11 on K10's own pools against its plain
-    version."""
+    K1, at every R, and K11 on K10's own pools against its plain version,
+    at the launcher's tiles and every forced one."""
     chunks = (_run_chunks(30 + mode) if which == "ragged"
               else _batch(30 + mode, which))
     tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
@@ -302,11 +339,13 @@ def test_run_fill_and_token_walk_match_plain(cuda, mode, which):
                 assert torch.equal(got.tb_view(c, got.run)[:n, :m, b],
                                    ref.tb_view(c, ref.run)[:n, :m, b])
         L = max(device_walk.max_path_len(NP, MP) for _, NP, MP in got.shapes)
-        cnt, toks = device_walk.walk_tokens(got.tb, got.run, got.desc,
-                                            got.stats, mode=mode, L=L)
         rcnt, rtoks = device_walk.walk_tokens_ref(got.tb, got.run, got.desc,
                                                   got.stats, mode=mode, L=L)
-        assert torch.equal(cnt, rcnt) and torch.equal(toks, rtoks)
+        for shape in _walk_shapes(monkeypatch, 2):
+            cnt, toks = device_walk.walk_tokens(got.tb, got.run, got.desc,
+                                                got.stats, mode=mode, L=L,
+                                                order=got.order)
+            assert torch.equal(cnt, rcnt) and torch.equal(toks, rtoks), shape
         assert int(((toks >> 2) > 0).sum()) > 0  # runs were jumped
 
 

@@ -6,8 +6,10 @@ K10's run bytes (the plain ``fill_dp.run_bytes_ref`` through
 ``run_byte`` inside the fill) are held against the Pallas kernel
 ``pallas_dp.fill_tiled(emit_runs=True)`` in interpret mode and a scalar
 reference; K11's plain version ``device_walk.walk_tokens_ref`` and its twin
-(``csrc/sw_walk.cuh`` ``walk_tokens_pair``) against
-``walk_bundle_pooled_tokens``; the native token rebuild against its Python
+(``csrc/sw_walk.cuh`` ``walk_tokens_pair`` through the checked tiles of
+both pools, at the launcher's tile shape and at small forced tiles that
+jumps of up to 16 cells cross) against
+``walk_bundle_pooled_tokens``, also cut at L; the native token rebuild against its Python
 path and the JAX rebuild; ``BatchAligner(device="cpu")`` with
 ``SWTPU_TOKEN_WALK=1`` against the move-stream path and the JAX scan
 backend.
@@ -231,31 +233,53 @@ def _L(chunks):
                for ch in chunks)
 
 
+def _twin_tokens(filled, mode, L, shape):
+    """K11 through the twin at ``shape`` (T, C), in the fill's order."""
+    B = filled.desc.shape[0]
+    cnt = np.zeros(B, np.int32)
+    toks = np.zeros((L, B), np.uint8)
+    rc = native.twin_lib().sw_twin_walk_tokens(
+        1 if mode == LOCAL else 0, filled.tb.numpy().ctypes.data,
+        filled.run.numpy().ctypes.data, filled.desc.numpy().ctypes.data,
+        filled.stats.numpy().ctypes.data, filled.order.numpy().ctypes.data,
+        B, L, *shape, cnt.ctypes.data, toks.ctypes.data)
+    assert rc == 0, f"twin token walk at {shape}: rc {rc}"
+    return cnt, toks
+
+
+# (T, C): the launcher's tiles for two pools, and forced small tiles that
+# jumps of up to 16 cells cross (1 x 1: a tile a cell)
+TILES = [device_walk.TILES[2], (4, 8), (3, 5), (12, 20), (1, 1)]
+
+
+@pytest.mark.parametrize("shape", TILES)
 @pytest.mark.parametrize("og,eg", PENALTIES)
 @pytest.mark.parametrize("mode", MODES)
-def test_token_walk_plain_and_twin_match_jax(mode, og, eg):
+def test_token_walk_plain_and_twin_match_jax(mode, og, eg, shape):
+    """The plain token walk and the twin at every tile shape against the
+    JAX walk, the twin also cut at half the longest walk's tokens; jumps
+    of 9 cells or more (over two 4-row tiles) occur."""
     chunks, filled = _filled_runs(mode, og, eg)
     L = _L(chunks)
     cnt, toks = device_walk.walk_tokens(filled.tb, filled.run, filled.desc,
-                                        filled.stats, mode=mode, L=L)
+                                        filled.stats, mode=mode, L=L,
+                                        order=filled.order)
     jcnt, jtoks = _jax_tokens(chunks, filled, mode, L)
     np.testing.assert_array_equal(cnt.numpy(), jcnt)
     np.testing.assert_array_equal(toks.numpy(), jtoks)
-    B = filled.desc.shape[0]
-    tcnt = np.zeros(B, np.int32)
-    ttoks = np.zeros((L, B), np.uint8)
-    tb, run = filled.tb.numpy(), filled.run.numpy()
-    desc, stats = filled.desc.numpy(), filled.stats.numpy()
-    rc = native.twin_lib().sw_twin_walk_tokens(
-        1 if mode == LOCAL else 0, tb.ctypes.data, run.ctypes.data,
-        desc.ctypes.data, stats.ctypes.data, B, L, tcnt.ctypes.data,
-        ttoks.ctypes.data)
-    assert rc == 0
+    tcnt, ttoks = _twin_tokens(filled, mode, L, shape)
+    np.testing.assert_array_equal(tcnt, jcnt)
+    np.testing.assert_array_equal(ttoks, jtoks)
+    assert ((jtoks >> 2) >= 8).any()
+    cut = max(1, int(jcnt.max()) // 2)
+    tcnt, ttoks = _twin_tokens(filled, mode, cut, shape)
+    jcnt, jtoks = _jax_tokens(chunks, filled, mode, cut)
+    assert jcnt.max() == cut
     np.testing.assert_array_equal(tcnt, jcnt)
     np.testing.assert_array_equal(ttoks, jtoks)
     # tokens are fewer than moves: the runs were jumped
     mcnt, _ = device_walk.walk_packed(filled.tb, filled.desc, filled.stats,
-                                      mode=mode, L=L)
+                                      mode=mode, L=L, order=filled.order)
     assert int(cnt.sum()) < int(mcnt.sum())
 
 
@@ -263,7 +287,7 @@ def _rebuild_inputs(mode):
     chunks, filled = _filled_runs(mode, -10.0, -0.5)
     cnt, toks = device_walk.walk_tokens(filled.tb, filled.run, filled.desc,
                                         filled.stats, mode=mode,
-                                        L=_L(chunks))
+                                        L=_L(chunks), order=filled.order)
     st = filled.stats.numpy()
     if mode == LOCAL:
         hit = st[:, 0] > 0

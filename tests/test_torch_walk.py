@@ -1,10 +1,15 @@
 """The port's traceback walk and string rebuild against the JAX package's.
 
 K2's plain version (``ops/device_walk.walk_packed_ref``) and K2's host
-twin (``csrc/cell_twin.cpp`` running ``csrc/sw_walk.cuh``) are held against
+twin (``csrc/cell_twin.cpp`` running ``csrc/sw_walk.cuh``'s walk through
+its shared-memory tiles, every byte read checked against the tile copies
+that have landed) are held against
 ``smithwaterman_tpu.ops.device_walk.walk_bundle_pooled`` on the same pointer
-bytes; the native rebuild against its exact Python path and the JAX
-package's rebuild.
+bytes, the twin at the launcher's tile shape and at small forced tiles, on
+pairs with gaps longer than a tile, one-row and one-column pairs, a LOCAL
+pair with no positive cell, and walks cut at L;
+the native rebuild against its exact Python path and the JAX package's
+rebuild.
 
 Tolerance: exact equality of move counts, every packed move byte, and the
 rebuilt strings, scores and spans.
@@ -38,8 +43,28 @@ def _chunk(seed, B, NP, MP):
     return batch.Chunk(c1, c2, n, m)
 
 
+def _gap_chunk(seed=3):
+    """Pairs whose walks leave tiles sideways and stop at once: a gap of 80
+    in each sequence (longer than a tile is wide or tall) between two
+    copies of a 30-residue motif, W against C (no positive cell: a LOCAL
+    walk of no step), W against W, a pair identical along its 150
+    residues and a random one."""
+    rng = np.random.default_rng(seed)
+    NP = MP = 150
+    c1 = rng.integers(0, 20, size=(6, NP)).astype(np.uint8)
+    c2 = rng.integers(0, 20, size=(6, MP)).astype(np.uint8)
+    n = np.array([60, 140, 1, 1, 150, 97], np.int32)
+    m = np.array([140, 60, 1, 1, 150, 120], np.int32)
+    c2[0, :30], c2[0, 110:140] = c1[0, :30], c1[0, 30:60]
+    c1[1, :30], c1[1, 110:140] = c2[1, :30], c2[1, 30:60]
+    w, c = LETTERS.index("W"), LETTERS.index("C")
+    c1[2, 0], c2[2, 0], c1[3, 0], c2[3, 0] = w, c, w, w
+    c2[4] = c1[4]
+    return batch.Chunk(c1, c2, n, m)
+
+
 def _filled(mode, og, eg):
-    chunks = [_chunk(1, 7, 16, 24), _chunk(2, 5, 24, 12)]
+    chunks = [_chunk(1, 7, 16, 24), _chunk(2, 5, 24, 12), _gap_chunk()]
     table = torch.from_numpy(SubstitutionMatrix.blosum62().table)
     return chunks, fill_dp.fill_many(table, chunks, mode=mode, og=og, eg=eg)
 
@@ -69,38 +94,91 @@ def test_walk_packed_ref_matches_jax(mode, og, eg):
     chunks, filled = _filled(mode, og, eg)
     L = _L(chunks)
     cnt, mv = device_walk.walk_packed(filled.tb, filled.desc, filled.stats,
-                                      mode=mode, L=L)
+                                      mode=mode, L=L, order=filled.order)
     jcnt, jmv = _jax_walk(chunks, filled, mode, L)
     np.testing.assert_array_equal(cnt.numpy(), jcnt)
     np.testing.assert_array_equal(mv.numpy(), jmv)
 
 
+# (T, C): tile rows x columns.  The launcher's, and forced small tiles,
+# which walks leave through the top and the left many times (odd sizes:
+# tile rows off the source's 16-byte pieces; 12 x 20: four-step blocks
+# between frequent events; 1 x 1: a tile a cell)
+TILES = [device_walk.TILES[1], (4, 8), (3, 5), (12, 20), (1, 1)]
+
+
+def twin_walk(filled, mode, L, shape, tokens=False, order=None):
+    """K2 (K11 with ``tokens``) through the twin at ``shape`` (T, C),
+    the pairs started in ``order`` (the fill's by default): (cnt, out)."""
+    B = filled.desc.shape[0]
+    T, C = shape
+    order = filled.order.numpy() if order is None else order
+    cnt = np.zeros(B, np.int32)
+    out = np.zeros((L, B) if tokens else (-(-L // 4), B), np.uint8)
+    pools = [filled.tb.numpy()] + ([filled.run.numpy()] if tokens else [])
+    lib = native.twin_lib()
+    fn = lib.sw_twin_walk_tokens if tokens else lib.sw_twin_walk
+    rc = fn(1 if mode == LOCAL else 0, *(p.ctypes.data for p in pools),
+            filled.desc.numpy().ctypes.data, filled.stats.numpy().ctypes.data,
+            order.ctypes.data, B, L, T, C, cnt.ctypes.data,
+            out.ctypes.data)
+    assert rc == 0, f"twin walk at {shape}: rc {rc}"
+    return cnt, out
+
+
+@pytest.mark.parametrize("shape", TILES)
 @pytest.mark.parametrize("og,eg", PENALTIES)
 @pytest.mark.parametrize("mode", MODES)
-def test_walk_twin_matches_jax(mode, og, eg):
-    """K2's own walk header through the g++ twin."""
+def test_walk_twin_matches_jax(mode, og, eg, shape):
+    """K2's own walk header through the g++ twin's checked tiles, at every
+    tile shape, in the fill's order and in reverse; then cut at L = 7."""
     chunks, filled = _filled(mode, og, eg)
     L = _L(chunks)
-    B = filled.desc.shape[0]
-    tb = filled.tb.numpy()
-    desc = filled.desc.numpy()
-    stats = filled.stats.numpy()
-    cnt = np.zeros(B, np.int32)
-    mv = np.zeros((-(-L // 4), B), np.uint8)
-    rc = native.twin_lib().sw_twin_walk(
-        1 if mode == LOCAL else 0, tb.ctypes.data, desc.ctypes.data,
-        stats.ctypes.data, B, L, cnt.ctypes.data, mv.ctypes.data)
-    assert rc == 0
     jcnt, jmv = _jax_walk(chunks, filled, mode, L)
+    for order in (None, filled.order.numpy()[::-1].copy()):
+        cnt, mv = twin_walk(filled, mode, L, shape, order=order)
+        np.testing.assert_array_equal(cnt, jcnt)
+        np.testing.assert_array_equal(mv, jmv)
+    assert (jcnt > 80).any() and (jcnt == 0).any() == (mode == LOCAL)
+    cnt, mv = twin_walk(filled, mode, 7, shape)
+    jcnt, jmv = _jax_walk(chunks, filled, mode, 7)
+    assert jcnt.max() == 7
     np.testing.assert_array_equal(cnt, jcnt)
     np.testing.assert_array_equal(mv, jmv)
+
+
+def test_walk_twins_refuse_what_the_launchers_refuse():
+    """No order, tiles of no row or column, tiles past a block's shared
+    memory and (K11) a run pool off the pointer pool's address mod 16
+    return rc 1."""
+    chunks, filled = _filled(GLOBAL, -10.0, -0.5)
+    L = _L(chunks)
+    B = filled.desc.shape[0]
+    head = (filled.desc.numpy().ctypes.data,
+            filled.stats.numpy().ctypes.data)
+    tail = head + (filled.order.numpy().ctypes.data, B, L)
+    cnt = np.zeros(B, np.int32)
+    out = np.zeros((L, B), np.uint8)
+    tb = np.zeros(filled.tb.numel() + 16, np.uint8)
+    tb[:-16] = filled.tb.numpy()
+    lib = native.twin_lib()
+    for T, C in ((4, 0), (400, 400), (0, 8)):
+        assert lib.sw_twin_walk(0, tb.ctypes.data, *tail, T, C,
+                                cnt.ctypes.data, out.ctypes.data) == 1
+    assert lib.sw_twin_walk(0, tb.ctypes.data, *head, None, B, L, 4, 8,
+                            cnt.ctypes.data, out.ctypes.data) == 1
+    assert lib.sw_twin_walk(0, tb.ctypes.data, *tail, 4, 8,
+                            cnt.ctypes.data, out.ctypes.data) == 0
+    assert lib.sw_twin_walk_tokens(0, tb.ctypes.data, tb.ctypes.data + 1,
+                                   *tail, 4, 8, cnt.ctypes.data,
+                                   out.ctypes.data) == 1
 
 
 def _rebuild_inputs(mode):
     chunks, filled = _filled(mode, -10.0, -0.5)
     L = _L(chunks)
     cnt, mv = device_walk.walk_packed(filled.tb, filled.desc, filled.stats,
-                                      mode=mode, L=L)
+                                      mode=mode, L=L, order=filled.order)
     st = filled.stats.numpy()
     if mode == LOCAL:
         hit = st[:, 0] > 0
@@ -170,4 +248,5 @@ def test_walk_packed_rejects_other_devices():
         device_walk.walk_packed(torch.zeros(4, dtype=torch.uint8,
                                             device="meta"),
                                 torch.zeros((1, 8), dtype=torch.int64),
-                                torch.zeros((1, 8)), mode=LOCAL, L=4)
+                                torch.zeros((1, 8)), mode=LOCAL, L=4,
+                                order=torch.zeros(1, dtype=torch.int32))
