@@ -83,9 +83,12 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    used must be at most 2048, the score the full DP's, the trimmed
    strings must re-score to it at 85 % identity or more; cold and warm
    walls, peak device memory and ``phase_probe``'s stages are printed, and
-   K7 at the verified band's launch is held against its plain version.
-   At 10a and 10b K7's launch shape (rows a lane, stripes, blocks) is
-   printed, and the phase fails if a pair's stripes ran on one block;
+   K6 and K7 at the verified band's launch are held against their plain
+   versions (K6 timed beside its plain version, its byte bound and the
+   indexing expression, as at 10a).  At 10a and 10b K6's tile plan (rows
+   a tile, blocks, 16-byte stores) and K7's launch shape (rows a lane,
+   stripes, blocks) are printed, and the phase fails if a pair's stripes
+   ran on one block;
 11. the opt-in routes' kernels against their plain versions: K9 (the
    wavefront score fill) on ragged pairs down to length 1 with NP not a
    multiple of the strip width, at (go, ge) = (10, 0.5), (0, 0) and (5, 2)
@@ -386,6 +389,45 @@ def timed(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def queued_ms(fn, reps):
+    """Mean CUDA-event time (ms) of ``reps`` calls of ``fn`` queued behind
+    a device sleep, and the last result: the host enqueues every call
+    before the first starts, so the device's time alone is measured, not
+    the host's per call (for kernels of tens of microseconds)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(5_000_000)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def k6_library(tab, c1, c2, n, m, W):
+    """K6's library yardstick: the time (ms, mean of 3) and result of one
+    indexing expression over the codes, with the band's columns and mask
+    (geometry, no codes) computed beforehand."""
+    import torch
+
+    from smithwaterman_tpu_torch.ops import banded
+
+    B, NP = c1.shape
+    cols = (banded.row_offsets(n, m, W, NP)[:, 1:, None]
+            + torch.arange(W, device=tab.device))
+    valid = cols < m.to(torch.int64)[:, None, None]
+    colc = torch.minimum(cols, (m.to(torch.int64) - 1)[:, None, None])
+    del cols
+    bidx = torch.arange(B, device=tab.device)[:, None, None]
+    l1, l2 = c1.to(torch.int64), c2.to(torch.int64)
+    return timed(lambda: torch.where(
+        valid, tab[l1[:, :, None], l2[bidx, colc]], 0.0), 3)
 
 
 def relaunch(tab, chunks, got, **args):
@@ -744,24 +786,18 @@ def phase10(dev, card, modes):
                     for a in (pk.codes1, pk.codes2, pk.n, pk.m))
     B, NP = pk.codes1.shape
     W = pk.W
-    k6_ms, S = timed(lambda: banded.banded_scores(tab, c1, c2, n, m, W=W), 5)
+    banded.banded_scores(tab, c1, c2, n, m, W=W)
+    k6_ms, S = queued_ms(lambda: banded.banded_scores(tab, c1, c2, n, m,
+                                                      W=W), 20)
+    k6_shape = dict(banded.SHAPES["K6"])
     k6_plain_ms, rS = event_ms(lambda: banded.banded_scores_ref(
         tab, c1, c2, n, m, W=W))
     k6_err = float((S - rS).abs().max())
     del rS
-    # the library yardstick: one indexing expression over the codes, with
-    # the band's columns and mask (geometry, no codes) computed beforehand
-    cols = (banded.row_offsets(n, m, W, NP)[:, 1:, None]
-            + torch.arange(W, device=dev))
-    valid = cols < m.to(torch.int64)[:, None, None]
-    colc = torch.minimum(cols, (m.to(torch.int64) - 1)[:, None, None])
-    bidx = torch.arange(B, device=dev)[:, None, None]
-    l1, l2 = c1.to(torch.int64), c2.to(torch.int64)
-    lib_ms, lS = timed(lambda: torch.where(
-        valid, tab[l1[:, :, None], l2[bidx, colc]], 0.0), 3)
+    lib_ms, lS = k6_library(tab, c1, c2, n, m, W)
     if not torch.equal(lS, S):
         fail("K6's library yardstick computes another function")
-    del lS, cols, valid, colc
+    del lS
     kw = dict(mode=LOCAL, og=og, eg=eg)
     banded.fill_banded(S, n, m, **kw)
     k7_ms, (tb, st) = timed(lambda: banded.fill_banded(S, n, m, **kw), 3)
@@ -793,7 +829,9 @@ def phase10(dev, card, modes):
     k7_bound = bound(BANDED_CELL_OPS * cells, 5 * cells + 32 * B)
     k8_bound = bound(STEP_OPS * steps, 8 * B * L + 5 * steps + 28 * B)
     say(f"phase 10a kernels at these shapes ({B} pairs, NP={NP}, W={W}, "
-        f"LOCAL) on {card}: K6 {k6_ms:.4f} ms vs plain {k6_plain_ms:.3f} ms "
+        f"LOCAL) on {card}: K6 {k6_ms:.4f} ms by its queued launches "
+        f"({k6_shape['rows']} rows a tile, {k6_shape['blocks']} blocks, "
+        f"16-byte stores {k6_shape['vec']}) vs plain {k6_plain_ms:.3f} ms "
         f"vs one indexing expression {lib_ms:.4f} ms, bound "
         f"{k6_bound[0]:.4f} ms; K7 {k7_ms:.3f} ms ({cells} band cells, "
         f"{k7_ms * 1e6 / NP:.1f} ns a band row; R {k7_shape['rows']}, "
@@ -848,6 +886,24 @@ def phase10(dev, card, modes):
     g1, g2, gn, gm = (torch.from_numpy(x).to(dev)
                       for x in (gp.codes1, gp.codes2, gp.n, gp.m))
     gS = banded.banded_scores(tab, g1, g2, gn, gm, W=gp.W)
+    # K6 at the verified band's launch beside its plain version, its byte
+    # bound and the indexing expression
+    gk6_ms, gS = queued_ms(lambda: banded.banded_scores(tab, g1, g2, gn, gm,
+                                                        W=gp.W), 20)
+    gk6_shape = dict(banded.SHAPES["K6"])
+    gk6_plain_ms, grS = event_ms(lambda: banded.banded_scores_ref(
+        tab, g1, g2, gn, gm, W=gp.W))
+    gk6_err = float((gS - grS).abs().max())
+    del grS
+    glib_ms, glS = k6_library(tab, g1, g2, gn, gm, gp.W)
+    if not torch.equal(glS, gS):
+        fail("phase 10b: K6's library yardstick computes another function")
+    del glS
+    if gk6_err != 0.0:
+        fail(f"phase 10b: K6 at W={gp.W} differs from the plain scores by "
+             f"{gk6_err}")
+    gk6_bound = bound(0, int(gp.n.sum() + gp.m.sum())
+                      + 4 * gp.codes1.size * gp.W)
     banded.fill_banded(gS, gn, gm, **kw)
     gk7_ms, (gtb, gst) = timed(lambda: banded.fill_banded(gS, gn, gm, **kw),
                                3)
@@ -869,7 +925,11 @@ def phase10(dev, card, modes):
         f"{rc}, identity {ident:.4f}; cold wall {cold:.4f} s (launches "
         f"{json.dumps(gcounts)}), warm wall {warm:.4f} s, peak device memory "
         f"{peak / 1e9:.3f} GB; phase_probe " + json.dumps(
-            {str(w): p for w, p in probes.items()}) + f"; K7 at W={gp.W} "
+            {str(w): p for w, p in probes.items()}) + f"; K6 at W={gp.W} "
+        f"{gk6_ms:.4f} ms by its queued launches ({gk6_shape['rows']} rows "
+        f"a tile, {gk6_shape['blocks']} blocks) vs plain {gk6_plain_ms:.3f} "
+        f"ms vs one indexing expression {glib_ms:.4f} ms, bound "
+        f"{gk6_bound[0]:.4f} ms, equal; K7 at W={gp.W} "
         f"{gk7_ms:.3f} ms ({gk7_ms * 1e6 / gp.codes1.shape[1]:.1f} ns a band "
         f"row; R {g_shape['rows']}, {g_shape['stripes']} stripes, "
         f"{g_shape['blocks']} blocks) vs plain (CPU) {gk7_plain_ms:.3f} ms, "

@@ -1,7 +1,7 @@
 // Host twin of the GPU kernels K1 and K10 (fill.cu), K2 (walk.cu), K3 and
-// K4 (longseq_fill.cu), K5 (seg_walk.cu), K7 (banded_fill.cu), K8
-// (banded_walk.cu), K9 (diag_fill.cu), K11 (token_walk.cu), and K12 and K13
-// (striped_fill.cu).
+// K4 (longseq_fill.cu), K5 (seg_walk.cu), K6 (banded_scores.cu), K7
+// (banded_fill.cu), K8 (banded_walk.cu), K9 (diag_fill.cu), K11
+// (token_walk.cu), and K12 and K13 (striped_fill.cu).
 //
 // It includes the kernels' own headers and runs them over a batch in the
 // kernels' loop order, one pair after another, with the same per-pair
@@ -22,7 +22,10 @@
 // stripe's lanes in turn at each step (sw_banded.cuh) and the launch's
 // stripes in ticket order with a given number in flight, each advanced
 // once the feed tiles it reads are published, every publication checked
-// against the fence rule.  For K12 and K13 it runs each column tile as
+// against the fence rule.  For K6 it runs each tile's block a thread at a
+// time between the barriers (sw_scores.cuh), every code read from the
+// staged window checked against the window's landed pieces.  For K12 and
+// K13 it runs each column tile as
 // its warp would, a row at a time, every thread in turn, and the launch's
 // tiles in ticket order with a given number in flight, each advanced once
 // its left neighbour has published the edges it needs, every publication
@@ -49,6 +52,7 @@
 #include "sw_banded.cuh"
 #include "sw_cell.cuh"
 #include "sw_diag.cuh"
+#include "sw_scores.cuh"
 #include "sw_striped.cuh"
 #include "sw_walk.cuh"
 
@@ -1080,6 +1084,114 @@ int twin_launch(int mode, st::Launch& a, int blocks) {
   }
 }
 
+
+// K6's block as the twin runs it (sw_scores.cuh): every thread in turn
+// between the block's barriers, every global read checked to lie in the
+// codes' buffers, every window read checked to be a byte the current
+// window's pieces brought (a window's landed bytes are dropped when the
+// next window's staging begins), every store checked to lie in S and, for
+// the 16-byte ones, to be 16-byte aligned.
+struct ScoresExec {
+  template <class F>
+  void each(F&& f) {
+    for (int tid = 0; tid < sw::scores::THREADS; ++tid) f(tid);
+  }
+};
+
+struct ScoresMem {
+  const uint8_t *c1, *c1_end, *c2, *c2_end;
+  const uint8_t* win;
+  int win_bytes;
+  const float *S, *S_end;
+  std::vector<uint8_t> landed;
+  bool reading = false, broken = false;
+
+  bool in(const void* p, int bytes, const uint8_t* lo, const uint8_t* hi) {
+    const uint8_t* q = static_cast<const uint8_t*>(p);
+    return q >= lo && q + bytes <= hi;
+  }
+  template <typename CODE>
+  void land(CODE* dst) {
+    if (reading) std::fill(landed.begin(), landed.end(), 0);
+    reading = false;
+    const int64_t at = reinterpret_cast<const uint8_t*>(dst) - win;
+    if (at < 0 || at % 16 || at + 16 > win_bytes) {
+      broken = true;
+      return;
+    }
+    std::fill_n(landed.begin() + at, 16, 1);
+  }
+  template <typename CODE>
+  void load16(CODE* dst, const CODE* src) {
+    if (!in(src, 16, c2, c2_end) || (uintptr_t)src % 16) broken = true;
+    land(dst);
+    if (!broken) std::memcpy(dst, src, 16);
+  }
+  template <typename CODE>
+  CODE load(const CODE* p) {
+    if (in(p, sizeof(CODE), c1, c1_end) || in(p, sizeof(CODE), c2, c2_end))
+      return *p;
+    broken = true;
+    return 0;
+  }
+  template <typename CODE>
+  void put16(CODE* dst, const CODE* piece) {
+    land(dst);
+    if (!broken) std::memcpy(dst, piece, 16);
+  }
+  template <typename CODE>
+  CODE code(const CODE* w, int j) {
+    reading = true;
+    const int64_t at = (int64_t)j * (int64_t)sizeof(CODE);
+    if (at < 0 || at + (int64_t)sizeof(CODE) > win_bytes) {
+      broken = true;
+      return 0;
+    }
+    for (int k = 0; k < (int)sizeof(CODE); ++k)
+      if (!landed[at + k]) broken = true;
+    return broken ? 0 : w[j];
+  }
+  void store4(float* out, const float* v) {
+    if (out < S || out + 4 > S_end || (out - S) % 4) {
+      broken = true;
+      return;
+    }
+    std::memcpy(out, v, 16);
+  }
+  void store1(float* out, float v) {
+    if (out < S || out >= S_end) {
+      broken = true;
+      return;
+    }
+    *out = v;
+  }
+};
+
+template <bool VEC, typename CODE>
+int scores_all(const sw::scores::Args& a) {
+  const int64_t cb = sizeof(CODE);
+  std::vector<uint8_t> wmem(a.win_bytes + 16, 0);
+  // the window 16-byte aligned, as the card's shared memory
+  CODE* win = reinterpret_cast<CODE*>(
+      wmem.data() + ((16 - ((uintptr_t)wmem.data() & 15)) & 15));
+  std::vector<int> offs(a.T), rbase(a.T);
+  ScoresMem mem;
+  mem.c1 = static_cast<const uint8_t*>(a.codes1);
+  mem.c1_end = mem.c1 + a.B * a.NP * cb;
+  mem.c2 = static_cast<const uint8_t*>(a.codes2);
+  mem.c2_end = mem.c2 + a.B * a.MP * cb;
+  mem.win = reinterpret_cast<const uint8_t*>(win);
+  mem.win_bytes = a.win_bytes;
+  mem.S = a.S;
+  mem.S_end = a.S + a.B * a.NP * a.W;
+  mem.landed.assign(a.win_bytes, 0);
+  ScoresExec ex;
+  for (int64_t t = 0; t < a.B * a.tiles && !mem.broken; ++t)
+    sw::scores::run_tile<VEC, CODE>(ex, mem, a, a.table, t, win,
+                                    offs.data(), rbase.data());
+  return mem.broken ? 3 : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1340,6 +1452,35 @@ int sw_twin_striped_grid(int mode, int s_int8, const void* S, int64_t B,
     return 1;
   return s_int8 ? twin_launch<false, int8_t, true>(mode, a, blocks)
                 : twin_launch<false, float, true>(mode, a, blocks);
+}
+
+
+// Same arguments and layout as sw_banded_scores_launch (banded_scores.cu),
+// host pointers, no stream, the tiles in order (they are independent), 16-
+// or 4-byte stores as `vec` says (1 needs W % 4 == 0), and a window of
+// win_bytes bytes taking chunks of `chunk` columns (0, 0: the card's
+// WIN_BYTES and CHUNK_COLS).  Returns 0, 1 for arguments the kernel does
+// not take, 3 for a read outside the codes or of a window byte no piece of
+// the current window brought, or a store outside S or misaligned.
+int sw_twin_banded_scores(const float* table, int K, int code_bytes,
+                          const void* codes1, const void* codes2,
+                          const int32_t* n, const int32_t* m, int64_t B,
+                          int64_t NP, int64_t MP, int W, float* S, int T,
+                          int vec, int win_bytes, int chunk) {
+  if (win_bytes == 0 && chunk == 0) {
+    win_bytes = sw::scores::WIN_BYTES;
+    chunk = sw::scores::CHUNK_COLS;
+  }
+  if (B <= 0 || NP <= 0 || MP <= 0 || W <= 0 || K <= 0 ||
+      (code_bytes != 1 && code_bytes != 2) || T < 1 ||
+      T > sw::scores::MAX_TILE || (vec && W % 4) ||
+      !sw::scores::window_fits(win_bytes, chunk, code_bytes))
+    return 1;
+  const sw::scores::Args a{table, K, codes1, codes2, n, m, B, NP, MP, W, S,
+                           T, win_bytes, chunk, sw::scores::tiles_of(NP, T)};
+  if (code_bytes == 1)
+    return vec ? scores_all<true, uint8_t>(a) : scores_all<false, uint8_t>(a);
+  return vec ? scores_all<true, int16_t>(a) : scores_all<false, int16_t>(a);
 }
 
 }  // extern "C"

@@ -48,9 +48,10 @@ TBP = 8  # pairs per batch: the JAX kernel's sublanes, kept as the API's cap
 # launches made through the wrappers below (plain counts, read by
 # chip_smoke.py)
 LAUNCHES = {"K6": 0, "K7": 0, "K8": 0}
-# the shape of K7's last launch (kernels.banded_fill: rows a lane, stripes,
-# blocks) and K8's (rows a window, 0 for reads straight from the band),
-# read by chip_smoke.py
+# the shape of K6's last launch (kernels.banded_scores: rows a tile,
+# blocks, 16-byte stores), K7's (kernels.banded_fill: rows a lane,
+# stripes, blocks) and K8's (rows a window, 0 for reads straight from the
+# band), read by chip_smoke.py
 SHAPES: dict = {}
 
 
@@ -108,16 +109,17 @@ def banded_scores_ref(table, codes1, codes2, n, m, *, W: int) -> torch.Tensor:
 def banded_scores(table, codes1, codes2, n, m, *, W: int) -> torch.Tensor:
     """Band scores S (B, NP, W) f32 of B pairs: S[b, i-1, w] =
     table[codes1[b, i-1], codes2[b, off_b(i) + w]] where that column is
-    below m_b, else 0.  ``codes1`` (B, NP) / ``codes2`` (B, MP) uint8 and
-    ``n``, ``m`` (B,) int32 on ``table``'s device.  CUDA: one launch of K6.
-    CPU: :func:`banded_scores_ref`."""
+    below m_b, else 0.  ``codes1`` (B, NP) / ``codes2`` (B, MP) uint8 (int16
+    past 255 symbols) and ``n``, ``m`` (B,) int32 on ``table``'s device.
+    CUDA: one launch of K6, its shape in ``SHAPES["K6"]``.  CPU:
+    :func:`banded_scores_ref`."""
     if _device(table) == "cpu":
         return banded_scores_ref(table, codes1, codes2, n, m, W=W)
     from . import kernels
 
     B, NP = codes1.shape
     S = torch.empty((B, NP, W), dtype=torch.float32, device=table.device)
-    kernels.banded_scores(table, codes1, codes2, n, m, S, W=W)
+    SHAPES["K6"] = kernels.banded_scores(table, codes1, codes2, n, m, S, W=W)
     LAUNCHES["K6"] += 1
     return S
 

@@ -124,7 +124,8 @@ def lib() -> ctypes.CDLL:
     ]
     so.sw_banded_scores_launch.restype = i32
     so.sw_banded_scores_launch.argtypes = [
-        vp, i32, i32, vp, vp, vp, vp, i64, i64, i64, i32, vp, vp,
+        vp, i32, i32, vp, vp, vp, vp, i64, i64, i64, i32, vp, i32, i32, vp,
+        vp,
     ]
     so.sw_banded_fill_launch.restype = i32
     so.sw_banded_fill_launch.argtypes = [
@@ -379,8 +380,38 @@ def _check_lengths(B: int, dev, what: str, **lengths) -> None:
         _check(t, name, torch.int32, dev, (B,))
 
 
-def banded_scores(table, codes1, codes2, n, m, S, *, W: int) -> None:
-    """Launch K6 (csrc/banded_scores.cu) on the current stream; see
+# K6's tiles (csrc/sw_scores.cuh): rows a tile it may take, the columns of
+# S a tile aims at (128 KB of scores), and blocks of 256 threads an SM in
+# its persistent grid
+SCORES_TILES = (64, 32, 16, 8)
+SCORES_TILE_COLS = 32768
+SCORES_BLOCKS_PER_SM = 8
+
+
+def scores_plan(B: int, NP: int, W: int, sms: int):
+    """K6's launch over B pairs of NP rows of W columns on a card of
+    ``sms`` SMs: ``(T, blocks)``.  T, the rows a tile, is the largest of
+    :data:`SCORES_TILES` whose tile holds at most
+    :data:`SCORES_TILE_COLS` columns of S, else the smallest; blocks, the
+    persistent grid, :data:`SCORES_BLOCKS_PER_SM` an SM, at most the
+    tiles.  On an H100 (``scripts/ab_banded.py --plans``, PERF.md) this
+    is within 1 % of the best of T in 8-64 at 4 or 8 blocks an SM at phase
+    10a (W = 512: T = 64), 10b (W = 2048: T = 16) and phase 9 at W = 2048
+    (T = 16), and 2.5 % at W = 128 (T = 64 against 32), where picking T
+    for 4 tiles a block (T = 8) was 43 % slower."""
+    T = SCORES_TILES[-1]
+    for t in SCORES_TILES:
+        if t * W <= SCORES_TILE_COLS:
+            T = t
+            break
+    return T, min(SCORES_BLOCKS_PER_SM * sms, B * -(-NP // T))
+
+
+def banded_scores(table, codes1, codes2, n, m, S, *, W: int) -> dict:
+    """Launch K6 (csrc/banded_scores.cu) on the current stream, tiles and
+    grid from :func:`scores_plan`.  Returns the launch's shape (``rows`` a
+    tile, ``blocks``, ``vec``: 16-byte stores, taken when W % 4 == 0 and
+    S is 16-byte aligned, which the launcher checks); see
     ops/banded.banded_scores."""
     dev = table.device
     B, NP = codes1.shape
@@ -390,14 +421,19 @@ def banded_scores(table, codes1, codes2, n, m, S, *, W: int) -> None:
     _check(table, "table", torch.float32, dev)
     _check_codes(codes1, codes2, dev, (B, NP), (B, MP))
     _check(S, "S", torch.float32, dev, (B, NP, W))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    T, blocks = scores_plan(B, NP, W, sms)
+    vec = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib().sw_banded_scores_launch(
             table.data_ptr(), K, codes1.element_size(), codes1.data_ptr(),
             codes2.data_ptr(),
             n.data_ptr(), m.data_ptr(), B, NP, MP, int(W), S.data_ptr(),
+            T, blocks, ctypes.byref(vec),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "K6 (banded scores)")
+    return {"rows": T, "blocks": blocks, "vec": bool(vec.value)}
 
 
 # K7's rows a lane, R (csrc/sw_banded.cuh ROWS): a stripe of a pair is

@@ -214,6 +214,11 @@ def twin_lib() -> ctypes.CDLL:
     ]
     lib.sw_twin_banded_walk_rows.restype = i32
     lib.sw_twin_banded_walk_rows.argtypes = [i32]
+    lib.sw_twin_banded_scores.restype = i32
+    lib.sw_twin_banded_scores.argtypes = [
+        vp, i32, i32, vp, vp, vp, vp, i64, i64, i64, i32, vp, i32, i32, i32,
+        i32,
+    ]
     lib.sw_twin_diag_fill.restype = i32
     lib.sw_twin_diag_fill.argtypes = [
         i32, vp, i32, i32, vp, vp, vp, i64, vp, vp, f32, f32,

@@ -12,7 +12,10 @@ them:
 * the host twin of kernels K7 and K8 (``csrc/cell_twin.cpp``, which runs
   the kernels' own header ``sw_banded.cuh``: K7's stripes of 64 rows,
   every lane of a stripe in turn at each step, the stripes in ticket order
-  as their feed tiles are published) against the same;
+  as their feed tiles are published) against the same, and the twin of
+  K6's tiling (``sw_scores.cuh``: tiles of T rows, their offsets, sub-tiles
+  cut to fit seq2's code window, quads of 4 columns, every window read
+  checked) against ``banded_scores_ref`` and ``_banded_scores``;
 * the entry points on the CPU (``align_banded_batch``,
   ``align_banded_verified``, ``Aligner(device="cpu").align_banded``) and
   the host walk ``walk_banded`` against JAX's.
@@ -34,7 +37,7 @@ from smithwaterman_tpu.matrices import SubstitutionMatrix as JaxSM
 from smithwaterman_tpu.ops import banded as jb
 from smithwaterman_tpu_torch import Aligner
 from smithwaterman_tpu_torch.config import GLOBAL, GLOCAL, LOCAL
-from smithwaterman_tpu_torch.ops import banded, native, traceback
+from smithwaterman_tpu_torch.ops import banded, batch, native, traceback
 
 MODES = [LOCAL, GLOCAL, GLOBAL]
 OG, EG = -10.0, -0.5
@@ -172,6 +175,70 @@ def test_banded_scores_ref_matches_jax(band):
         jnp.asarray(pk.offs[:, 1:NP + 1]), jnp.asarray(pk.m), W=pk.W))
     np.testing.assert_array_equal(S, fast.transpose(1, 0, 2))
     np.testing.assert_array_equal(S, ref)
+
+
+# (ns, ms, W, K): m ~ n (ragged, NP not a multiple of any tile), m >> n
+# (the offset rises ~49 and ~48 columns a row: sub-tiles), m <= W
+# (offsets all 0), n = 1, W % 4 != 0 (4-byte stores), a 65-symbol table
+# (uint8 codes, read from device memory) and a 300-symbol one (int16)
+SCORES_CASES = {
+    "m~n": (RAGGED[0], RAGGED[1], 128, 20),
+    "m>>n": ([100, 60], [5000, 3000], 128, 20),
+    "m<=W": ([50, 100, 7], [100, 128, 3], 256, 20),
+    "n=1": ([1, 1, 2], [300, 128, 500], 128, 20),
+    "W%4": ([77, 40], [90, 170], 130, 20),
+    "K=65": (RAGGED[0], RAGGED[1], 128, 65),
+    "K=300": (RAGGED[0], RAGGED[1], 256, 300),
+}
+# (T, window bytes, columns a window): the card's window (0, 0) at 64-row
+# tiles, and 7-row tiles through a window of 128 bytes in chunks of 32
+# columns (every row a sub-tile of its own in "m>>n")
+SCORES_PLANS = {"card": (64, 0, 0), "small": (7, 128, 32)}
+
+
+def _scores_inputs(case):
+    ns, ms, W, K = SCORES_CASES[case]
+    rng = np.random.default_rng(sorted(SCORES_CASES).index(case))
+    B, NP, MP = len(ns), max(ns) + 3, max(ms) + 5
+    ct = batch.code_dtype(K)
+    c1 = np.zeros((B, NP), ct)
+    c2 = np.zeros((B, MP), ct)
+    for b, (n, m) in enumerate(zip(ns, ms)):
+        c1[b, :n] = rng.integers(0, K, size=n)
+        c2[b, :m] = rng.integers(0, K, size=m)
+    table = rng.standard_normal((K, K)).astype(np.float32)
+    return (table, c1, c2, np.asarray(ns, np.int32), np.asarray(ms, np.int32),
+            W)
+
+
+@pytest.mark.parametrize("plan", list(SCORES_PLANS))
+@pytest.mark.parametrize("case", list(SCORES_CASES))
+def test_twin_banded_scores_match_jax(case, plan):
+    """K6's tiling in the twin (16-byte stores where W % 4 == 0) against
+    the plain scores and JAX's XLA-gather ``_banded_scores`` at the
+    kernels' offsets: every value, bit for bit; every code read came from
+    the current window's staged pieces (rc 3 otherwise)."""
+    table, c1, c2, n, m, W = _scores_inputs(case)
+    B, NP = c1.shape
+    T, win, chunk = SCORES_PLANS[plan]
+    S = np.full((B, NP, W), np.nan, np.float32)
+    rc = native.twin_lib().sw_twin_banded_scores(
+        table.ctypes.data, table.shape[0], c1.itemsize, c1.ctypes.data,
+        c2.ctypes.data, n.ctypes.data, m.ctypes.data, B, NP, c2.shape[1], W,
+        S.ctypes.data, T, int(W % 4 == 0), win, chunk)
+    assert rc == 0, f"twin rc {rc}"
+    ref = banded.banded_scores_ref(_t(table), _t(c1), _t(c2), _t(n), _t(m),
+                                   W=W).numpy()
+    off = banded.row_offsets(_t(n), _t(m), W, NP)[:, 1:].numpy()
+    want = np.asarray(jb._banded_scores(
+        jnp.asarray(c1.astype(np.int32)), jnp.asarray(c2.astype(np.int32)),
+        jnp.asarray(table), jnp.asarray(off.astype(np.int32)),
+        jnp.asarray(m), W=W))
+    np.testing.assert_array_equal(ref, want)
+    np.testing.assert_array_equal(S, want)
+    if case == "m>>n":  # the offset rises more than 40 columns a row
+        for b, x in enumerate(n.tolist()):
+            assert (np.diff(off[b, :x]) > 40).all()
 
 
 # ------------------------------------------------------------ fill

@@ -486,11 +486,56 @@ def _wide(K, seed):
     return tab, chunks
 
 
+def _k6_shapes(W, B, K, dev, seed):
+    """B ragged pairs for K6 alone, codes below K: every other seq2 up to
+    3000 times its seq1 plus W (the offset rises up to ~3000 columns a
+    row: the window cuts a tile into sub-tiles), the rest m <= W (offsets
+    all 0); of eight, seq1 of one residue first."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(1, 300, size=B)
+    if B > 1:
+        n[0] = 1
+    m = np.where(np.arange(B) % 2 == 0,
+                 n * rng.integers(5, 3000, size=B) + W,
+                 rng.integers(1, W + 1, size=B))
+    NP, MP = int(n.max()) + 5, int(m.max()) + 3
+    ct = batch.code_dtype(K)
+    c1 = rng.integers(0, K, size=(B, NP)).astype(ct)
+    c2 = rng.integers(0, K, size=(B, MP)).astype(ct)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (c1, c2, n.astype(np.int32), m.astype(np.int32)))
+
+
+def _check_k6(tab, c1, c2, n, m, W, monkeypatch):
+    """K6 equal to its plain version at the launcher's plan, at forced ones
+    (tiles of 1, 7 and 64 rows on 1 to 3 blocks), with 4-byte stores (S
+    one float off 16-byte alignment) and at W + 2 (W % 4 != 0)."""
+    from smithwaterman_tpu_torch.ops import banded, kernels
+
+    ref = banded.banded_scores_ref(tab, c1, c2, n, m, W=W)
+    assert torch.equal(banded.banded_scores(tab, c1, c2, n, m, W=W), ref)
+    assert banded.SHAPES["K6"]["vec"] == (W % 4 == 0)
+    for T, blocks in ((1, 3), (7, 1), (64, 2)):
+        with monkeypatch.context() as mp:
+            mp.setattr(kernels, "scores_plan",
+                       lambda *a, T=T, blocks=blocks: (T, blocks))
+            S = banded.banded_scores(tab, c1, c2, n, m, W=W)
+        assert torch.equal(S, ref), (T, blocks)
+    B, NP = c1.shape
+    flat = torch.empty(B * NP * W + 1, dtype=torch.float32, device=tab.device)
+    S = flat[1:].view(B, NP, W)
+    assert not kernels.banded_scores(tab, c1, c2, n, m, S, W=W)["vec"]
+    assert torch.equal(S, ref)
+    assert torch.equal(banded.banded_scores(tab, c1, c2, n, m, W=W + 2),
+                       banded.banded_scores_ref(tab, c1, c2, n, m, W=W + 2))
+
+
 @pytest.mark.parametrize("K", [65, 300])
-def test_kernels_take_wide_tables(cuda, K):
+def test_kernels_take_wide_tables(cuda, K, monkeypatch):
     """K1 (traceback and score-only) and K10, K3, K4 (every band in one
     launch), K6 and K9 with a K-symbol table read from device memory, int16
-    codes past 255 symbols: each equal to its plain version."""
+    codes past 255 symbols: each equal to its plain version; K6 also at
+    skewed and m <= W pairs, one and eight of them, W 128 and 2048."""
     from smithwaterman_tpu_torch.ops import banded
 
     table, chunks = _wide(K, K)
@@ -544,6 +589,10 @@ def test_kernels_take_wide_tables(cuda, K):
     S = banded.banded_scores(tab, t1, t2, tn, tm, W=pk.W)
     assert torch.equal(S, banded.banded_scores_ref(tab, t1, t2, tn, tm,
                                                    W=pk.W))
+    for W in (128, 2048):
+        for B in (1, 8):
+            _check_k6(tab, *_k6_shapes(W, B, K, cuda, K + W + B), W,
+                      monkeypatch)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -783,11 +832,12 @@ def _banded_on(pk, dev):
 @pytest.mark.parametrize("which", ["eight", "one"])
 @pytest.mark.parametrize("band", [128, 512, 2048])
 @pytest.mark.parametrize("mode", MODES)
-def test_banded_kernels_match_plain(cuda, mode, band, which):
+def test_banded_kernels_match_plain(cuda, mode, band, which, monkeypatch):
     """K6, K7 and K8 against their plain versions on the card: every score,
     every pointer byte of rows i <= n, stats, indices, counts and flags;
     eight ragged pairs (n around K7's stripes of 64 rows and below one) or
-    one of 3000 x 3100 (W up to 2048), K7 on more blocks than pairs."""
+    one of 3000 x 3100 (W up to 2048), K7 on more blocks than pairs; K6
+    also alone at as many skewed and m <= W pairs at the same W."""
     from smithwaterman_tpu_torch.ops import banded
 
     table = SubstitutionMatrix.blosum62().table
@@ -803,6 +853,8 @@ def test_banded_kernels_match_plain(cuda, mode, band, which):
     S = banded.banded_scores(tab, c1, c2, n, m, W=pk.W)
     assert torch.equal(S, banded.banded_scores_ref(tab, c1, c2, n, m,
                                                    W=pk.W))
+    _check_k6(tab, *_k6_shapes(pk.W, len(pairs), 20, cuda, band + mode),
+              pk.W, monkeypatch)
     args = dict(mode=mode, og=-10.0, eg=-0.5)
     rtb, rst = banded.fill_banded_ref(S, n, m, **args)
     tb, st = banded.fill_banded(S, n, m, **args)
