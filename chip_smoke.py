@@ -128,14 +128,32 @@ JAX and nothing of the JAX package.  Phases, one or more stdout lines each:
    ``striped_align`` at D = 1 in three modes, its strings and score equal
    to ``BatchAligner(longseq_cells=1)``'s; only K12 and K13 launch in
    (a) and (b).  Then K12 and K13 beside their plain versions and their
-   bounds at these shapes.
+   bounds at these shapes;
+15. pair sharding, the web surface and the graft entry, each driven with
+   the launch counts set to 0 just before each call: (a) phase 5's 3200
+   pairs through ``BatchAligner(device="cuda",
+   device_axis=DataParallel(make_mesh(devices=["cuda:0"] * 4)))`` in all
+   three modes and a LOCAL ``score_pairs``: every result (strings, score,
+   spans) of all 3200 pairs equal to phase 5's, only K1 and K2 launching
+   (K1 alone for scores), K1 at least once and K2 once a shard a flush;
+   (b) the same ``score_pairs`` with ``diag_scores=True``: only K9, every
+   score equal to phase 5's; each warm wall (median of 3 calls) beside
+   phase 5's; (d) the web surface (``web.Server`` on 127.0.0.1, port 0,
+   on the card): ``GET /`` and one ``POST /align`` of two of phase 5's
+   records against two, equal to ``web.align_request(..., device="cpu")``,
+   K1 and K2 launched; (e) ``__graft_entry_torch__``: ``entry()``'s stats
+   equal to the plain fill's, and ``dryrun_multichip(4)`` on the card
+   repeated four times.  The multi-process rendezvous
+   (``parallel/multihost``) is host-level gloo and is not driven here:
+   NCCL needs a card a rank, and this runs on one card.
 
 The last two stdout lines are the kernels' JSON record and the result
 line; each kernel's ``max_abs_err`` is its comparison at its main path's
 shapes (phase 5 for K1 and K2, phase 8 for K3-K5, phase 10a for K6-K8,
 phase 12 for K9-K11, phase 14 for K12-K13),
 its ``launches`` the
-count from that path's run, and ``bound_ms`` the least time the card could
+count from that path's run (K1, K2 and K9 also ``launches_sharded``, the
+count from phase 15's warm calls), and ``bound_ms`` the least time the card could
 take for the same work on this run's inputs (the larger of its f32
 operations at 67 TFLOP/s and its bytes at 3.35 TB/s).  Any failure raises
 and exits non-zero without a result line; so does a machine without CUDA.
@@ -188,6 +206,8 @@ RUN_OPS = 10
 # step's 12 plus the run byte's fields, the marker test and the jump
 TOKEN_STEP_OPS = 18
 SWEEP_SEQS, SWEEP_CHUNK = 400, 8192
+# phase 15: shards of the pair-sharded path, all on the one card
+SHARDS = 4
 # phase 5's warm wall a mode with K1 one thread a pair (medians of 7 calls,
 # scripts/measure_torch.py on one H100 80GB HBM3 at 700 W, PERF.md section 5)
 THREAD_A_PAIR_WALL = {"local": 0.2455, "glocal": 0.2375, "global": 0.2523}
@@ -1868,6 +1888,174 @@ def phase6_wide(dev, modes):
         "CPU path in 3 modes")
 
 
+def phase15(dev, card, modes, pairs, chunks, results, scores, walls):
+    """The sharded path at the main path's full width, the web surface and
+    the graft entry on the card; returns the launches of K1, K2 and K9 on
+    the sharded path."""
+    import statistics
+    import threading
+    import urllib.request
+
+    import torch
+
+    import __graft_entry_torch__ as graft
+    from smithwaterman_tpu_torch import LOCAL, BatchAligner, web
+    from smithwaterman_tpu_torch.ops import (banded, batch, device_walk,
+                                             diag_dp, fill_dp, longseq)
+    from smithwaterman_tpu_torch.parallel import (DataParallel, make_mesh,
+                                                  seq_tiled)
+
+    def reset():
+        fill_dp.LAUNCHES = fill_dp.LAUNCHES_RUNS = 0
+        device_walk.LAUNCHES = device_walk.LAUNCHES_TOKENS = 0
+        diag_dp.LAUNCHES = 0
+        for d in (longseq.LAUNCHES, banded.LAUNCHES, seq_tiled.LAUNCHES):
+            d.update({k: 0 for k in d})
+
+    def counts():
+        return {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES,
+                "K9": diag_dp.LAUNCHES, "K10": fill_dp.LAUNCHES_RUNS,
+                "K11": device_walk.LAUNCHES_TOKENS, **longseq.LAUNCHES,
+                **banded.LAUNCHES, **seq_tiled.LAUNCHES}
+
+    def only(c, allowed, what):
+        if any(v for k, v in c.items() if k not in allowed):
+            fail(f"phase 15 {what}: a kernel off the path launched: {c}")
+
+    def same(a, b):
+        return (a.aligned1, a.aligned2, a.score, a.start1, a.end1, a.start2,
+                a.end2) == (b.aligned1, b.aligned2, b.score, b.start1,
+                            b.end1, b.start2, b.end2)
+
+    def warm(call, check):
+        """Three warm calls, each with the counts set to 0 just before it
+        and checked just after; (median wall, summed counts)."""
+        total, ts = {}, []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            out = call()
+            ts.append(time.perf_counter() - t0)
+            c = counts()
+            check(out, c)
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        return statistics.median(ts), total
+
+    t_phase = time.perf_counter()
+    shards = SHARDS
+    dp = DataParallel(make_mesh(devices=[dev] * shards))
+    nflush = len(batch.plan_flushes(chunks, batch.tb_budget(), False))
+    launched = {"K1": 0, "K2": 0, "K9": 0}
+
+    # (a) alignments and scores, sharded over four shards of the card
+    for mode, mname in modes:
+        eng = BatchAligner(mode=mode, device="cuda", device_axis=dp)
+        eng.align_pairs(pairs)                  # cold
+        want = results[mname][0]
+
+        def check(res, c, mname=mname, want=want):
+            only(c, ("K1", "K2"), mname)
+            if c["K1"] < shards * nflush or c["K2"] != shards * nflush:
+                fail(f"phase 15a {mname}: launches {c} on {shards} shards "
+                     f"and {nflush} flush(es)")
+            diff = [k for k, (g, w) in enumerate(zip(res, want))
+                    if not same(g, w)]
+            if len(res) != PAIRS or diff:
+                fail(f"phase 15a {mname}: {len(diff)} of {len(res)} results "
+                     f"differ from phase 5's (first pair "
+                     f"{diff[0] if diff else None})")
+
+        wall, c = warm(lambda: eng.align_pairs(pairs), check)
+        launched["K1"] += c["K1"]
+        launched["K2"] += c["K2"]
+        say(f"phase 15a {mname}: {PAIRS} pairs on {shards} shards of the "
+            f"card, warm wall {wall:.4f} s (median of 3; unsharded, phase "
+            f"5: {walls[mname]:.4f} s), launches over the 3 calls "
+            f"{json.dumps(c)}; all {PAIRS} results equal to phase 5's; "
+            "phases " + json.dumps({k: round(v, 4)
+                                    for k, v in eng.phase.items()})
+            + f"; on {card}")
+    for diag in (False, True):
+        eng = BatchAligner(mode=LOCAL, device="cuda", device_axis=dp,
+                           diag_scores=diag)
+        eng.score_pairs(pairs)                  # cold
+        kernel = "K9" if diag else "K1"
+
+        def check(got, c, kernel=kernel):
+            only(c, (kernel,), f"score_pairs with {kernel}")
+            if c[kernel] < shards:
+                fail(f"phase 15 score_pairs: launches {c} on {shards} "
+                     "shards")
+            if not np.array_equal(got, scores):
+                fail(f"phase 15 score_pairs through {kernel}: scores differ "
+                     "from phase 5's")
+
+        wall, c = warm(lambda: eng.score_pairs(pairs), check)
+        launched[kernel] += c[kernel]
+        say(f"phase 15{'b' if diag else 'a'} score_pairs local"
+            f"{', diag_scores=True' if diag else ''}: {PAIRS} pairs on "
+            f"{shards} shards, warm wall {wall:.4f} s (median of 3; "
+            f"unsharded through K1, phase 5: "
+            f"{walls['local score_pairs']:.4f} s), launches over the 3 "
+            f"calls {json.dumps(c)}; every score equal to phase 5's")
+
+    # (d) the web surface on the card against the same request on the CPU
+    req = {"seq1": "".join(f">a{k}\n{pairs[k][0].seq}\n" for k in (0, 1)),
+           "seq2": "".join(f">b{k}\n{pairs[k][1].seq}\n" for k in (0, 1)),
+           "gap_open": 10, "gap_extend": 0.5, "matrix": "protein"}
+    srv = web.Server(("127.0.0.1", 0), device="cuda")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        page = urllib.request.urlopen(url + "/", timeout=60).read()
+        if b"smithwaterman_tpu_torch" not in page or \
+                b"Gap Open Penalty" not in page:
+            fail("phase 15d: GET / did not serve the port's page")
+        reset()
+        got = json.loads(urllib.request.urlopen(urllib.request.Request(
+            url + "/align", data=json.dumps(req).encode(), method="POST"),
+            timeout=300).read())
+        c = counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    want = json.loads(json.dumps(web.align_request(req, device="cpu")))
+    if "error" in got or got != want or len(got["results"]) != 4:
+        fail(f"phase 15d: POST /align on the card differs from the CPU: "
+             f"{str(got)[:300]}")
+    if c["K1"] == 0 or c["K2"] == 0:
+        fail(f"phase 15d: the web surface did not run K1 and K2: {c}")
+    say(f"phase 15d web: GET / and POST /align (2 x 2 records of phase 5) "
+        f"on the card, every result equal to the CPU's; scores "
+        f"{[r['score'] for r in got['results']]}; launches {json.dumps(c)}")
+
+    # (e) the graft entry: one K1 fill, and the dry run over four shards
+    fn, args = graft.entry()
+    reset()
+    st = fn(*args)
+    torch.cuda.synchronize()
+    c = counts()
+    ref = fill_dp.fill_many_ref(args[0], args[1], mode=LOCAL, og=graft.OG,
+                                eg=graft.EG, score_only=True).stats
+    if c["K1"] == 0 or not torch.equal(st, ref):
+        fail(f"phase 15e: entry()'s stats differ from the plain fill, or "
+             f"K1 never launched: {c}")
+    reset()
+    graft.dryrun_multichip(shards)
+    c = counts()
+    if c["K1"] < shards or c["K12"] == 0:
+        fail(f"phase 15e: dryrun_multichip({shards}) launches {c}")
+    say(f"phase 15e graft entry: entry() stats {tuple(st.shape)} equal to "
+        f"the plain fill; dryrun_multichip({shards}) on the card repeated "
+        f"{shards} times passed, launches {json.dumps(c)}; phase 15 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -2595,6 +2783,14 @@ def main() -> int:
     # ---- phase 14: the striped path at a real size
     records += phase14(dev, card, modes)
     say(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+    # ---- phase 15: pair sharding, the web surface, the graft entry
+    sharded = phase15(dev, card, modes, pairs, chunks, results, scores,
+                      walls)
+    for rec in records:
+        kernel = rec["name"].split()[0]
+        if kernel in sharded:
+            rec["launches_sharded"] = sharded[kernel]
+    say(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}"
         f" s on {card}")
     say(json.dumps({"kernels": records}))

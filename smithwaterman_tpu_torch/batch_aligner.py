@@ -33,10 +33,25 @@ Two opt-in routes, off by default as in the JAX package, change no result:
   step and ships one byte a token; the rebuild expands the tokens
   (``reconstruct_packed(tokens=True)``).  The long route is unchanged.
 
+With ``device_axis`` (a ``parallel.DataParallel``, JAX's
+``batch_aligner.py:167``, ``:388-399``, ``:491-539``) every flush that
+is not long is sharded over the mesh's devices: alignments through
+``DataParallel.fill_walk_packed`` (K1 then K2 on each shard's pairs),
+score-only flushes through ``DataParallel.fill_many(score_only=True)``
+(K1), or with ``diag_scores`` through ``DataParallel.fill_diag`` (K9).
+The token walk is not taken there, as in JAX, whose sharded branch is
+the fill and the packed walk only.  A long flush runs unsharded on the
+engine's device (by default ``mesh.devices[0]``) through
+``longseq.align_long_packed``: JAX with ``device_axis`` never takes the
+long route (``:457-462``) and walks on the host past its per-shard cap
+(``:491-497``); the port has no host walk, and both routes are exact, so
+the results are the same.
+
 Results come back in input order and are bit-identical to the single-pair
-``Aligner``.  ``device="cpu"`` runs the same stages with the kernels'
-plain PyTorch versions: the tests' reference path.  Without a device the
-engine runs on the card, and raises where there is none.
+``Aligner``, with or without ``device_axis``.  ``device="cpu"`` runs the
+same stages with the kernels' plain PyTorch versions: the tests' reference
+path.  Without a device (or a mesh) the engine runs on the card, and
+raises where there is none.
 """
 
 from __future__ import annotations
@@ -108,13 +123,31 @@ class BatchAligner:
         perl_compat: bool = False,
         longseq_cells: Optional[int] = None,
         diag_scores: Optional[bool] = None,
+        device_axis=None,
     ):
         if config is None:
             config = AlignConfig(mode=mode, gap_open=gap_open,
                                  gap_extend=gap_extend)
         self.config = config
         self.scoring_matrix = scoring_matrix or SubstitutionMatrix.blosum62()
-        self.device = resolve_device(device)
+        # parallel.DataParallel or None: shard each flush's pairs over its
+        # mesh, whose first device is the engine's by default (a mesh of
+        # CPU devices asks for the CPU); a device outside the mesh raises
+        self.device_axis = device_axis
+        if device_axis is None:
+            self.device = resolve_device(device)
+        elif device is None:
+            self.device = device_axis.mesh.devices[0]
+        else:
+            self.device = torch.device(device)
+            if self.device.type == "cuda" and self.device.index is None \
+                    and torch.cuda.is_available():
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+            if self.device not in device_axis.mesh.devices:
+                raise ValueError(
+                    f"device {self.device} is not in the mesh "
+                    f"{list(device_axis.mesh.devices)}")
         # buckets with at least this many padded cells take the
         # long-sequence route (ops/longseq.py) for alignments; None: only
         # buckets whose single pair's pointers exceed SWTPU_TB_HBM_BYTES
@@ -126,8 +159,9 @@ class BatchAligner:
         self.diag_scores = diag_scores
         # token walks (K10 fill with run bytes, K11 walk) for alignments;
         # SWTPU_TOKEN_WALK=1 turns them on (default off, as in the JAX
-        # package)
-        self.token_walk = os.environ.get("SWTPU_TOKEN_WALK", "0") == "1"
+        # package), never under device_axis
+        self.token_walk = (os.environ.get("SWTPU_TOKEN_WALK", "0") == "1"
+                           and device_axis is None)
         # replicate the Perl engine's input rewrite (aligner.perl_sanitize)
         self.perl_compat = perl_compat
         # opt-in observability: assign a utils.metrics.StatsCollector
@@ -229,6 +263,11 @@ class BatchAligner:
                 table, chunk, mode=self.mode, og=og, eg=eg)
         elif score_only:
             stats_d = self._fill_scores(table, chunks)
+        elif self.device_axis is not None:
+            L = max(device_walk.max_path_len(NP, MP)
+                    for _, NP, MP in (ch.shape for ch in chunks))
+            stats_d, cnt_d, mv_d = self.device_axis.fill_walk_packed(
+                table, chunks, mode=self.mode, og=og, eg=eg, L=L)
         else:
             tokens = self.token_walk
             filled = fill_dp.fill_many(table, chunks, mode=self.mode, og=og,
@@ -282,13 +321,20 @@ class BatchAligner:
         else through K1.  The port's eligibility is the flush's mode and
         penalties and lengths of at least 1, which every bucketed pair has,
         so one flush never holds both kinds (the JAX package decides per
-        bucket, on its TPU tiling too)."""
+        bucket, on its TPU tiling too).  With ``device_axis`` either fill
+        is sharded over its mesh."""
         og, eg = self.config.og, self.config.eg
+        dp = self.device_axis
         if self.diag_scores and diag_dp.eligible(
                 mode=self.mode, og=og, eg=eg, score_only=True,
                 n=np.concatenate([ch.n for ch in chunks]),
                 m=np.concatenate([ch.m for ch in chunks])):
+            if dp is not None:
+                return dp.fill_diag(table, chunks, og=og, eg=eg)
             return diag_dp.fill_diag(table, chunks, og=og, eg=eg)
+        if dp is not None:
+            return dp.fill_many(table, chunks, mode=self.mode, og=og, eg=eg,
+                                score_only=True)[1]
         return fill_dp.fill_many(table, chunks, mode=self.mode, og=og,
                                  eg=eg, score_only=True).stats
 
