@@ -226,6 +226,20 @@ STRIPED_CELL_OPS = {0: 19, 1: 19, 2: 22}  # GLOBAL, GLOCAL, LOCAL
 STRIPED_TB_OPS = 16
 
 
+def launch_counts(*kernels):
+    """The port's launch counters (``launch.K1`` ...) of ``kernels``."""
+    from smithwaterman_tpu_torch.utils import metrics
+
+    return {k: metrics.counter("launch." + k) for k in kernels}
+
+
+def reset_launches():
+    """Zero the port's counters (and empty its log of traced calls)."""
+    from smithwaterman_tpu_torch.utils import metrics
+
+    metrics.reset()
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
@@ -732,15 +746,10 @@ def phase10(dev, card, modes):
                                              longseq)
     from smithwaterman_tpu_torch.utils.calc_score import recalc_score
 
-    def reset():
-        fill_dp.LAUNCHES = 0
-        device_walk.LAUNCHES = 0
-        longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
-        banded.LAUNCHES.update(K6=0, K7=0, K8=0)
+    reset = reset_launches
 
     def counts():
-        return {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES,
-                **longseq.LAUNCHES, **banded.LAUNCHES}
+        return launch_counts("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 
     sm = SubstitutionMatrix.blosum62()
     table = np.asarray(sm.table, np.float32)
@@ -1097,16 +1106,11 @@ def phase12(dev, card, modes, pairs, chunks, results, scores, walls,
     from smithwaterman_tpu_torch.ops import (batch, device_walk, diag_dp,
                                              fill_dp, longseq)
 
-    def reset():
-        fill_dp.LAUNCHES = fill_dp.LAUNCHES_RUNS = 0
-        device_walk.LAUNCHES = device_walk.LAUNCHES_TOKENS = 0
-        diag_dp.LAUNCHES = 0
-        longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
+    reset = reset_launches
 
     def counts():
-        return {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES,
-                "K9": diag_dp.LAUNCHES, "K10": fill_dp.LAUNCHES_RUNS,
-                "K11": device_walk.LAUNCHES_TOKENS, **longseq.LAUNCHES}
+        return launch_counts("K1", "K2", "K9", "K10", "K11", "K3", "K4",
+                             "K5")
 
     def same(a, b):
         return (a.aligned1, a.aligned2, a.score, a.start1, a.end1, a.start2,
@@ -1580,19 +1584,11 @@ def phase14(dev, card, modes):
                                              fill_dp, longseq)
     from smithwaterman_tpu_torch.parallel import make_mesh, seq_tiled
 
-    def reset():
-        fill_dp.LAUNCHES = fill_dp.LAUNCHES_RUNS = 0
-        device_walk.LAUNCHES = device_walk.LAUNCHES_TOKENS = 0
-        diag_dp.LAUNCHES = 0
-        longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
-        banded.LAUNCHES.update(K6=0, K7=0, K8=0)
-        seq_tiled.LAUNCHES.update(K12=0, K13=0)
+    reset = reset_launches
 
     def counts():
-        return {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES,
-                **longseq.LAUNCHES, **banded.LAUNCHES, "K9": diag_dp.LAUNCHES,
-                "K10": fill_dp.LAUNCHES_RUNS,
-                "K11": device_walk.LAUNCHES_TOKENS, **seq_tiled.LAUNCHES}
+        return launch_counts("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
+                             "K9", "K10", "K11", "K12", "K13")
 
     og, eg, K, C = -10.0, -0.5, 64, longseq.DEFAULT_CKPT_ROWS
     sm = SubstitutionMatrix.blosum62()
@@ -1905,18 +1901,11 @@ def phase15(dev, card, modes, pairs, chunks, results, scores, walls):
     from smithwaterman_tpu_torch.parallel import (DataParallel, make_mesh,
                                                   seq_tiled)
 
-    def reset():
-        fill_dp.LAUNCHES = fill_dp.LAUNCHES_RUNS = 0
-        device_walk.LAUNCHES = device_walk.LAUNCHES_TOKENS = 0
-        diag_dp.LAUNCHES = 0
-        for d in (longseq.LAUNCHES, banded.LAUNCHES, seq_tiled.LAUNCHES):
-            d.update({k: 0 for k in d})
+    reset = reset_launches
 
     def counts():
-        return {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES,
-                "K9": diag_dp.LAUNCHES, "K10": fill_dp.LAUNCHES_RUNS,
-                "K11": device_walk.LAUNCHES_TOKENS, **longseq.LAUNCHES,
-                **banded.LAUNCHES, **seq_tiled.LAUNCHES}
+        return launch_counts("K1", "K2", "K9", "K10", "K11", "K3", "K4",
+                             "K5", "K6", "K7", "K8", "K12", "K13")
 
     def only(c, allowed, what):
         if any(v for k, v in c.items() if k not in allowed):
@@ -2218,8 +2207,7 @@ def main() -> int:
     cells = sum(len(a.seq) * len(b.seq) for a, b in pairs)
     sub = np.random.default_rng(SEED + 1).choice(PAIRS, CHECKED,
                                                  replace=False)
-    fill_dp.LAUNCHES = 0
-    device_walk.LAUNCHES = 0
+    reset_launches()
     walls = {}
     results = {}
     for mode, mname in modes:
@@ -2234,7 +2222,7 @@ def main() -> int:
     t0 = time.perf_counter()
     scores = eng.score_pairs(pairs)
     walls["local score_pairs"] = time.perf_counter() - t0
-    launches = {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES}
+    launches = launch_counts("K1", "K2")
     if launches["K1"] == 0 or launches["K2"] == 0:
         fail(f"a kernel of the main path never launched: {launches}")
 
@@ -2510,14 +2498,15 @@ def main() -> int:
             b = b[:300] + a[500:1400] + b[1200:]
         pairs7.append((a, b))
     for mode, mname in modes:
-        longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
+        reset_launches()
         t0 = time.perf_counter()
         got = BatchAligner(mode=mode, device="cuda",
                            longseq_cells=1).align_pairs(pairs7)
         t_long = time.perf_counter() - t0
-        if min(longseq.LAUNCHES.values()) == 0:
+        long_counts = launch_counts("K3", "K4", "K5")
+        if min(long_counts.values()) == 0:
             fail(f"phase 7 {mname}: the long route did not run "
-                 f"{longseq.LAUNCHES}")
+                 f"{long_counts}")
         t0 = time.perf_counter()
         want = BatchAligner(mode=mode, device="cuda").align_pairs(pairs7)
         t_ord = time.perf_counter() - t0
@@ -2527,7 +2516,7 @@ def main() -> int:
                                 w.end1, w.start2, w.end2):
                 fail(f"phase 7 {mname} pair {k}: long route differs")
         say(f"phase 7 {mname}: 16 pairs of 1500..4000 a side, long route "
-            f"{t_long:.3f} s (launches {json.dumps(longseq.LAUNCHES)}) vs "
+            f"{t_long:.3f} s (launches {json.dumps(long_counts)}) vs "
             f"ordinary {t_ord:.3f} s: every field equal")
 
     say(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
@@ -2542,9 +2531,7 @@ def main() -> int:
     lengths = [(len(a), len(b)) for a, b in pairs8]
     run8 = {}
     for mode, mname in modes:
-        fill_dp.LAUNCHES = 0
-        device_walk.LAUNCHES = 0
-        longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         eng = BatchAligner(scoring_matrix=dna, gap_open=10.0, gap_extend=0.5,
                            mode=mode, device="cuda")
@@ -2552,8 +2539,7 @@ def main() -> int:
         res = eng.align_pairs(pairs8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"K1": fill_dp.LAUNCHES, "K2": device_walk.LAUNCHES,
-                  **longseq.LAUNCHES}
+        counts = launch_counts("K1", "K2", "K3", "K4", "K5")
         peak = torch.cuda.max_memory_allocated()
         if counts["K1"] or counts["K2"] or not all(
                 counts[k] for k in ("K3", "K4", "K5")):

@@ -52,12 +52,22 @@ Results come back in input order and are bit-identical to the single-pair
 same stages with the kernels' plain PyTorch versions: the tests' reference
 path.  Without a device (or a mesh) the engine runs on the card, and
 raises where there is none.
+
+Each call is one ``utils.metrics.call`` with a span around every stage
+(the layer map of ``PERF.md`` section 3): ``bucket`` (``encode``,
+``table``, ``pack``, ``plan``), then a ``flush`` a flush (attributes:
+route, pairs, padded cells, pointer bytes) holding ``dispatch``
+(``fill``, ``walk``, or ``long`` with ``ckpt`` and a ``group`` a band
+group), ``gather`` (``wait`` for the card's stream, ``copy`` of the
+results) and ``reconstruct``.  :attr:`BatchAligner.phase` is the last
+call's seconds by span name.  The call is traced (its spans and counts
+logged, ``utils.metrics.calls()``) while a ``torch.profiler`` records or
+a :class:`~.utils.metrics.StatsCollector` is attached.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -76,6 +86,10 @@ from .matrices import ScoringMatrix, SubstitutionMatrix
 from .ops import batch as batch_ops
 from .ops import device_walk, diag_dp, fill_dp, longseq
 from .ops import reconstruct as recon
+from .utils import metrics
+
+# the phases BatchAligner.phase always holds
+PHASES = ("bucket", "dispatch", "gather", "reconstruct")
 
 
 @dataclass
@@ -164,10 +178,11 @@ class BatchAligner:
                            and device_axis is None)
         # replicate the Perl engine's input rewrite (aligner.perl_sanitize)
         self.perl_compat = perl_compat
-        # opt-in observability: assign a utils.metrics.StatsCollector
+        # opt-in observability: assign a utils.metrics.StatsCollector,
+        # which also traces every call
         self.stats = None
-        # wall-time phase breakdown of the last call (seconds):
-        # bucket / dispatch / gather / reconstruct
+        # the last call's seconds by span name: always PHASES (bucket,
+        # dispatch, gather, reconstruct), call and the spans it opened
         self.phase: Dict[str, float] = {}
 
     @property
@@ -187,7 +202,7 @@ class BatchAligner:
     # ------------------------------------------------------------------
     def _table_on_device(self) -> torch.Tensor:
         table = np.asarray(self.scoring_matrix.table, np.float32)
-        return torch.from_numpy(table.copy()).to(self.device)
+        return batch_ops.to_device(table.copy(), self.device)
 
     def _run(self, pairs: Sequence[Tuple], retain_all: bool,
              score_only: bool) -> List[AlignResult]:
@@ -197,44 +212,58 @@ class BatchAligner:
                 "BatchAligner needs a letter-indexed scoring matrix; "
                 "position-specific matrices are per-pair — use Aligner"
             )
-        ph = self.phase = {"bucket": 0.0, "dispatch": 0.0, "gather": 0.0,
-                           "reconstruct": 0.0}
-        t_run0 = t0 = time.time()
+        with metrics.call(trace=self.stats is not None,
+                          pairs=len(pairs)) as call:
+            call.totals.update(dict.fromkeys(PHASES, 0))
+            results = self._stages(call, pairs, retain_all, score_only)
+        self.phase = {k: ns * 1e-9 for k, ns in call.totals.items()}
+        if self.stats is not None:
+            self.stats.add_call(call)
+        return results
+
+    def _stages(self, call, pairs, retain_all, score_only):
+        sm = self.scoring_matrix
         og, eg = self.config.og, self.config.eg
         results: List[Optional[AlignResult]] = [None] * len(pairs)
         seqs: List[Tuple] = []
         buckets: Dict[Tuple[int, int], _Bucket] = {}
-        for idx, (a, b) in enumerate(pairs):
-            s1, s2 = _as_seqdata(a), _as_seqdata(b)
-            if self.perl_compat:
-                s1, s2 = _perl_compat_seq(s1), _perl_compat_seq(s2)
-            seqs.append((s1, s2))
-            c1 = sm.seq_to_index(s1.seq)
-            c2 = sm.seq_to_index(s2.seq)
-            if len(c1) == 0 or len(c2) == 0:
-                results[idx] = degenerate_result(
-                    s1.seq, s2.seq, self.mode, og, eg, retain_all, score_only
-                )
-                continue
-            key = (bucket_len(len(c1), self.config.buckets),
-                   bucket_len(len(c2), self.config.buckets))
-            bk = buckets.get(key)
-            if bk is None:
-                bk = buckets[key] = _Bucket(*key)
-            bk.indices.append(idx)
-            bk.codes1.append(c1)
-            bk.codes2.append(c2)
-        order = sorted(buckets.values(), key=lambda b: (b.np_pad, b.mp_pad))
-        table = self._table_on_device() if order else None
-        ctype = batch_ops.code_dtype(np.shape(sm.table)[0])
-        flushes = batch_ops.plan_flushes(
-            [bk.chunk(ctype) for bk in order], batch_ops.tb_budget(),
-            score_only,
-            long_cells=self.longseq_cells,
-            runs=self.token_walk and not score_only)
-        # caller positions of each pair, in flush order
-        positions = [i for bk in order for i in bk.indices]
-        ph["bucket"] = time.time() - t0
+        with metrics.span("bucket"):
+            with metrics.span("encode"):
+                for idx, (a, b) in enumerate(pairs):
+                    s1, s2 = _as_seqdata(a), _as_seqdata(b)
+                    if self.perl_compat:
+                        s1, s2 = _perl_compat_seq(s1), _perl_compat_seq(s2)
+                    seqs.append((s1, s2))
+                    c1 = sm.seq_to_index(s1.seq)
+                    c2 = sm.seq_to_index(s2.seq)
+                    if len(c1) == 0 or len(c2) == 0:
+                        results[idx] = degenerate_result(
+                            s1.seq, s2.seq, self.mode, og, eg, retain_all,
+                            score_only)
+                        continue
+                    key = (bucket_len(len(c1), self.config.buckets),
+                           bucket_len(len(c2), self.config.buckets))
+                    bk = buckets.get(key)
+                    if bk is None:
+                        bk = buckets[key] = _Bucket(*key)
+                    bk.indices.append(idx)
+                    bk.codes1.append(c1)
+                    bk.codes2.append(c2)
+                order = sorted(buckets.values(),
+                               key=lambda b: (b.np_pad, b.mp_pad))
+            with metrics.span("table"):
+                table = self._table_on_device() if order else None
+            with metrics.span("pack"):
+                ctype = batch_ops.code_dtype(np.shape(sm.table)[0])
+                chunks = [bk.chunk(ctype) for bk in order]
+            with metrics.span("plan"):
+                flushes = batch_ops.plan_flushes(
+                    chunks, batch_ops.tb_budget(), score_only,
+                    long_cells=self.longseq_cells,
+                    runs=self.token_walk and not score_only)
+            # caller positions of each pair, in flush order
+            positions = [i for bk in order for i in bk.indices]
+        call.attrs["flushes"] = len(flushes)
 
         lo = 0
         for fl in flushes:
@@ -245,61 +274,108 @@ class BatchAligner:
             lo += B
         if self.stats is not None:
             self._record(order)
-            # non-overlapped engine wall: the throughput denominator
-            self.stats.run_seconds += time.time() - t_run0
         return results  # type: ignore[return-value]
+
+    def _route(self, flush, score_only: bool) -> str:
+        if flush.long:
+            return "long"
+        if score_only:
+            return "scores"
+        if self.device_axis is not None:
+            return "sharded"
+        return "tokens" if self.token_walk else "ordinary"
 
     def _flush(self, flush, pos, table, seqs, results, retain_all,
                score_only) -> None:
         """Fill and walk one flush on the device, then rebuild on the host."""
-        ph = self.phase
-        t0 = time.time()
-        og, eg = self.config.og, self.config.eg
         chunks = flush.chunks
-        tokens = False
-        if flush.long:
-            (chunk,) = chunks
-            stats_d, cnt_d, mv_d = longseq.align_long_packed(
-                table, chunk, mode=self.mode, og=og, eg=eg)
-        elif score_only:
-            stats_d = self._fill_scores(table, chunks)
-        elif self.device_axis is not None:
-            L = max(device_walk.max_path_len(NP, MP)
-                    for _, NP, MP in (ch.shape for ch in chunks))
-            stats_d, cnt_d, mv_d = self.device_axis.fill_walk_packed(
-                table, chunks, mode=self.mode, og=og, eg=eg, L=L)
+        route = self._route(flush, score_only)
+        padded = sum(B * NP * MP for B, NP, MP in (ch.shape for ch in chunks))
+        if score_only:
+            ptr = 0
+        elif flush.long:
+            ptr = longseq.band_buffer_bytes(*chunks[0].shape)
         else:
-            tokens = self.token_walk
-            filled = fill_dp.fill_many(table, chunks, mode=self.mode, og=og,
-                                       eg=eg, runs=tokens)
-            stats_d = filled.stats
-            L = max(device_walk.max_path_len(NP, MP)
-                    for _, NP, MP in filled.shapes)
-            if tokens:
-                cnt_d, mv_d = device_walk.walk_tokens(
-                    filled.tb, filled.run, filled.desc, filled.stats,
-                    mode=self.mode, L=L, order=filled.order)
+            ptr = sum(B * NP * fill_dp.row_stride(MP) for B, NP, MP in
+                      (ch.shape for ch in chunks))
+            ptr *= 2 if route == "tokens" else 1
+        metrics.count("cells.true", sum(int(np.dot(ch.n.astype(np.int64),
+                                                   ch.m)) for ch in chunks))
+        with metrics.span("flush", route=route, pairs=len(pos),
+                          padded_cells=padded, pointer_bytes=ptr):
+            stats_d, cnt_d, mv_d = self._dispatch(route, chunks, table)
+            with metrics.span("gather"):
+                # the sharded route's outputs are on the host already
+                on_card = stats_d.device.type == "cuda"
+                if on_card:
+                    with metrics.span("wait"):
+                        torch.cuda.current_stream(
+                            stats_d.device).synchronize()
+                outs = (stats_d,) if score_only else (stats_d, cnt_d, mv_d)
+                nbytes = sum(t.numel() * t.element_size() for t in outs)
+                with metrics.span("copy", bytes=nbytes if on_card else 0):
+                    outs = [t.cpu().numpy() for t in outs]
+                if on_card:
+                    metrics.count("copy.d2h", len(outs))
+                    metrics.count("copy.d2h_bytes", nbytes)
+            with metrics.span("reconstruct"):
+                self._rebuild(outs, chunks, pos, seqs, results, retain_all,
+                              route == "tokens")
+
+    def _dispatch(self, route: str, chunks, table):
+        """Enqueue a flush's fill and walk: (stats, move counts, moves) on
+        the device; None for the last two of a score-only flush."""
+        og, eg = self.config.og, self.config.eg
+        cnt_d = mv_d = None
+        with metrics.span("dispatch"):
+            if route == "long":
+                (chunk,) = chunks
+                with metrics.span("long"):
+                    stats_d, cnt_d, mv_d = longseq.align_long_packed(
+                        table, chunk, mode=self.mode, og=og, eg=eg)
+            elif route == "scores":
+                with metrics.span("fill"):
+                    stats_d = self._fill_scores(table, chunks)
+            elif route == "sharded":
+                L = max(device_walk.max_path_len(NP, MP)
+                        for _, NP, MP in (ch.shape for ch in chunks))
+                with metrics.span("fill"):
+                    stats_d, cnt_d, mv_d = self.device_axis.fill_walk_packed(
+                        table, chunks, mode=self.mode, og=og, eg=eg, L=L)
             else:
-                cnt_d, mv_d = device_walk.walk_packed(
-                    filled.tb, filled.desc, filled.stats, mode=self.mode,
-                    L=L, order=filled.order)
-        ph["dispatch"] += time.time() - t0
-        t0 = time.time()
-        st = stats_d.cpu().numpy()
-        if not score_only:
-            cnt = cnt_d.cpu().numpy()
-            mv = mv_d.cpu().numpy()
-        ph["gather"] += time.time() - t0
-        t0 = time.time()
+                tokens = route == "tokens"
+                with metrics.span("fill"):
+                    filled = fill_dp.fill_many(table, chunks, mode=self.mode,
+                                               og=og, eg=eg, runs=tokens)
+                stats_d = filled.stats
+                L = max(device_walk.max_path_len(NP, MP)
+                        for _, NP, MP in filled.shapes)
+                with metrics.span("walk"):
+                    if tokens:
+                        cnt_d, mv_d = device_walk.walk_tokens(
+                            filled.tb, filled.run, filled.desc, filled.stats,
+                            mode=self.mode, L=L, order=filled.order)
+                    else:
+                        cnt_d, mv_d = device_walk.walk_packed(
+                            filled.tb, filled.desc, filled.stats,
+                            mode=self.mode, L=L, order=filled.order)
+        return stats_d, cnt_d, mv_d
+
+    def _rebuild(self, outs, chunks, pos, seqs, results, retain_all,
+                 tokens: bool) -> None:
+        """Scores and, for alignments, strings of a flush's pairs from its
+        copied-back stats, move counts and moves."""
+        st = outs[0]
         if self.mode == LOCAL:
             scores = np.maximum(st[:, 0], 0.0)
         else:
             scores = st[:, 3:6].max(axis=1)
-        if score_only:
+        if len(outs) == 1:
             for k, idx in enumerate(pos):
                 results[idx] = AlignResult("", "", float(scores[k]))
-            ph["reconstruct"] += time.time() - t0
             return
+        _, cnt, mv = outs
+        metrics.count("walk.steps", int(cnt.sum(dtype=np.int64)))
         if self.mode == LOCAL:
             hit = st[:, 0] > 0.0
             i0 = np.where(hit, st[:, 1], 0).astype(np.int32)
@@ -313,7 +389,6 @@ class BatchAligner:
         )
         for k, idx in enumerate(pos):
             results[idx] = res[k]
-        ph["reconstruct"] += time.time() - t0
 
     def _fill_scores(self, table, chunks) -> torch.Tensor:
         """Stats of a score-only flush: through the wavefront fill (K9)

@@ -38,6 +38,7 @@ import torch
 
 from ..config import CELL_GAPINX, CELL_GAPINY, CELL_MATCH, CELL_STOP, LOCAL
 from ..config import GLOBAL, GLOCAL
+from ..utils import metrics
 from .batch import code_dtype
 from .fill_dp import STATS_W
 
@@ -45,9 +46,6 @@ NEG = -1.0e30
 BIGI = 2**30
 TBP = 8  # pairs per batch: the JAX kernel's sublanes, kept as the API's cap
 
-# launches made through the wrappers below (plain counts, read by
-# chip_smoke.py)
-LAUNCHES = {"K6": 0, "K7": 0, "K8": 0}
 # the shape of K6's last launch (kernels.banded_scores: rows a tile,
 # blocks, 16-byte stores), K7's (kernels.banded_fill: rows a lane,
 # stripes, blocks) and K8's (rows a window, 0 for reads straight from the
@@ -120,7 +118,7 @@ def banded_scores(table, codes1, codes2, n, m, *, W: int) -> torch.Tensor:
     B, NP = codes1.shape
     S = torch.empty((B, NP, W), dtype=torch.float32, device=table.device)
     SHAPES["K6"] = kernels.banded_scores(table, codes1, codes2, n, m, S, W=W)
-    LAUNCHES["K6"] += 1
+    metrics.count("launch.K6")
     return S
 
 
@@ -298,7 +296,7 @@ def fill_banded(S, n, m, *, mode: int, og: float, eg: float
     stats = torch.empty((B, STATS_W), dtype=torch.float32, device=S.device)
     SHAPES["K7"] = kernels.banded_fill(S, n, m, scratch, tb, stats,
                                        mode=mode, og=og, eg=eg)
-    LAUNCHES["K7"] += 1
+    metrics.count("launch.K7")
     return tb, stats
 
 
@@ -381,7 +379,7 @@ def walk_banded_device(tb, off, start, m, *, local: bool, L: int) -> Walked:
                   for _ in range(2))
     kernels.banded_walk(tb, off, start, m, idx1, idx2, cnt, flags,
                         local=local, L=L)
-    LAUNCHES["K8"] += 1
+    metrics.count("launch.K8")
     SHAPES["K8"] = {"rows": kernels.banded_walk_rows(tb.shape[2])}
     return idx1, idx2, cnt, flags
 

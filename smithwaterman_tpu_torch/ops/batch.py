@@ -23,6 +23,8 @@ from typing import Iterable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import metrics
+
 DEFAULT_TB_BUDGET = 4 << 30
 
 
@@ -35,6 +37,16 @@ def code_dtype(K: int) -> np.dtype:
     """The codes of a K-symbol table: uint8, or int16 past 255 symbols (the
     JAX package widens to int32 past 127; every kernel here takes both)."""
     return np.dtype(np.uint8 if K <= 255 else np.int16)
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """The host array ``a`` as a tensor on ``device``: one copy to a card,
+    counted (``copy.h2d``, ``copy.h2d_bytes``), none on the CPU."""
+    t = torch.from_numpy(a)
+    if torch.device(device).type == "cuda":
+        metrics.count("copy.h2d")
+        metrics.count("copy.h2d_bytes", a.nbytes)
+    return t.to(device)
 
 
 def is_integer_table(table: np.ndarray) -> bool:

@@ -46,12 +46,9 @@ import numpy as np
 import torch
 
 from ..config import CELL_GAPINX, CELL_GAPINY, CELL_MATCH, CELL_STOP, LOCAL
+from ..utils import metrics
 from .fill_dp import D_CS, D_M, D_N, D_RS, D_TB
 
-# K2 launches made through walk_packed and K11 launches made through
-# walk_tokens (plain counts, read by chip_smoke.py)
-LAUNCHES = 0
-LAUNCHES_TOKENS = 0
 # K2's and K11's tiles (csrc/sw_walk.cuh Tiles), by the pools a walk reads:
 # two slots a pair of T rows x C columns of its block, of each pool.
 # Measured on an H100 (PERF.md: T x C from 16 x 48 to 64 x 128), K2
@@ -138,7 +135,6 @@ def walk_packed(tb: torch.Tensor, desc: torch.Tensor, stats: torch.Tensor,
     CUDA: one launch of K2 at :data:`TILES`' tiles.  CPU:
     :func:`walk_packed_ref`, which walks every pair at once (no order).
     Any other device raises."""
-    global LAUNCHES
     dev = tb.device
     if dev.type == "cpu":
         return walk_packed_ref(tb, desc, stats, mode=mode, L=L)
@@ -154,7 +150,7 @@ def walk_packed(tb: torch.Tensor, desc: torch.Tensor, stats: torch.Tensor,
     T, C = TILES[1]
     kernels.walk(tb, desc, stats, cnt, moves, local=mode == LOCAL, L=L,
                  order=order, T=T, C=C)
-    LAUNCHES += 1
+    metrics.count("launch.K2")
     return cnt, moves
 
 
@@ -216,7 +212,6 @@ def walk_tokens(tb: torch.Tensor, run: torch.Tensor, desc: torch.Tensor,
     tb and run pools, desc, stats and ``order``).  CUDA: one launch of K11
     at :data:`TILES`' tiles for two pools.  CPU: :func:`walk_tokens_ref`.
     Any other device raises."""
-    global LAUNCHES_TOKENS
     dev = tb.device
     if dev.type == "cpu":
         return walk_tokens_ref(tb, run, desc, stats, mode=mode, L=L)
@@ -232,7 +227,7 @@ def walk_tokens(tb: torch.Tensor, run: torch.Tensor, desc: torch.Tensor,
     T, C = TILES[2]
     kernels.walk_tokens(tb, run, desc, stats, cnt, toks, local=mode == LOCAL,
                         L=L, order=order, T=T, C=C)
-    LAUNCHES_TOKENS += 1
+    metrics.count("launch.K11")
     return cnt, toks
 
 

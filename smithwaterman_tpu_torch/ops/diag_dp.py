@@ -28,13 +28,12 @@ import numpy as np
 import torch
 
 from ..config import LOCAL
+from ..utils import metrics
 from . import batch, fill_dp
 
 LANES = 32  # lanes of a strip: one warp (csrc/sw_diag.cuh LANES)
 LANE_COLS = (2, 4, 8)  # the R K9 is built for
 
-# K9 launches made through fill_diag (a plain count, read by chip_smoke.py)
-LAUNCHES = 0
 # the last K9 launch's columns a lane (read by chip_smoke.py)
 SHAPE = {"R": 0}
 
@@ -49,6 +48,15 @@ def lane_cols(MP: int) -> int:
     from 256); R = 1 beat R = 2 nowhere by more than the run-to-run
     spread, not even at 32 columns."""
     return max((R for R in LANE_COLS if LANES * R <= MP), default=2)
+
+
+def computed_cells(chunks: Sequence[batch.Chunk], R: int) -> int:
+    """The cells K9 computes over ``chunks`` at ``R`` columns a lane: each
+    pair's rows times its columns rounded up to strips of ``LANES * R``."""
+    w = LANES * R
+    return sum(int(np.dot(ch.n.astype(np.int64),
+                          -(-ch.m.astype(np.int64) // w) * w))
+               for ch in chunks)
 
 
 def eligible(*, mode: int, og: float, eg: float, score_only: bool,
@@ -156,7 +164,6 @@ def fill_diag(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
     CUDA: one launch of K9 over all pairs, :func:`lane_cols` columns a
     lane.  CPU: :func:`fill_diag_ref` per chunk.  Any other device raises;
     so does ``og <= eg <= 0`` failing."""
-    global LAUNCHES
     _check_penalties(og, eg)
     dev = table.device
     fill_dp._validate(chunks, table.shape[0])
@@ -175,16 +182,17 @@ def fill_diag(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
                         device=dev)
     if B == 0:
         return stats
-    codes1 = torch.from_numpy(np.concatenate(
-        [ch.codes1.ravel() for ch in chunks])).to(dev)
-    codes2 = torch.from_numpy(np.concatenate(
-        [ch.codes2.ravel() for ch in chunks])).to(dev)
+    codes1 = batch.to_device(np.concatenate(
+        [ch.codes1.ravel() for ch in chunks]), dev)
+    codes2 = batch.to_device(np.concatenate(
+        [ch.codes2.ravel() for ch in chunks]), dev)
     scratch = torch.empty(max(scratch_floats, 1), dtype=torch.float32,
                           device=dev)
     R = lane_cols(max(ch.shape[2] for ch in chunks))
     kernels.diag_fill(table.to(torch.float32).contiguous(), codes1, codes2,
-                      torch.from_numpy(desc_np).to(dev), scratch, stats,
+                      batch.to_device(desc_np, dev), scratch, stats,
                       og=og, eg=eg, R=R)
-    LAUNCHES += 1
+    metrics.count("launch.K9")
+    metrics.count("cells.computed.K9", computed_cells(chunks, R))
     SHAPE["R"] = R
     return stats

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..config import CELL_MATCH, CELL_STOP, LOCAL
+from ..utils import metrics
 from . import batch, scan_dp
 
 STATS_W = 8
@@ -53,10 +54,6 @@ STATS_W = 8
 D_OFF1, D_OFF2, D_N, D_M, D_TB, D_CS, D_RS, D_CARRY = range(8)
 DESC_W = 8
 
-# K1 and K10 launches made through fill_many (plain counts, read by
-# chip_smoke.py)
-LAUNCHES = 0
-LAUNCHES_RUNS = 0
 # a run byte: (e, exit state); row 0 and column 0 read (15, M)
 RUN_EDGE = 15
 # K1's rows a lane (csrc/fill.cu template instantiations), deepest first
@@ -204,6 +201,18 @@ def launch_plan(chunks: Sequence[batch.Chunk], pools: int = 1,
     return plan
 
 
+def computed_cells(chunks: Sequence[batch.Chunk], pools: int = 1) -> int:
+    """The cells K1 computes over ``chunks`` writing ``pools`` byte pools:
+    each pair's rows rounded up to its stripes of 32 R rows
+    (:func:`stripe_rows`) times its columns."""
+    pairs = sum(ch.shape[0] for ch in chunks)
+    total = 0
+    for ch in chunks:
+        rows = WARP * stripe_rows(ch.shape[1], pairs, pools)
+        total += int(np.dot(-(-ch.n.astype(np.int64) // rows) * rows, ch.m))
+    return total
+
+
 def fill_ref(table: torch.Tensor, codes1: torch.Tensor, codes2: torch.Tensor,
              n: torch.Tensor, m: torch.Tensor, *, mode: int, og: float,
              eg: float, score_only: bool = False):
@@ -295,7 +304,7 @@ def _alloc(chunks, table: torch.Tensor, score_only: bool, runs: bool):
     both = np.empty(B * DESC_W + (B + 1) // 2, np.int64)
     both[:B * DESC_W] = desc_np.ravel()
     both[B * DESC_W:].view(np.int32)[:B] = walk_order(desc_np)
-    both = torch.from_numpy(both).to(dev)
+    both = batch.to_device(both, dev)
     out = Filled(pool(not score_only), stats,
                  both[:B * DESC_W].view(B, DESC_W),
                  [ch.shape for ch in chunks], tb_base, pool(runs),
@@ -337,7 +346,6 @@ def fill_many(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
     (:func:`device_plan`, :func:`launch`; codes uploaded as two flat
     buffers, the per-pair descriptors as one (B, 8) array).  CPU: the plain
     version, :func:`fill_many_ref`.  Any other device raises."""
-    global LAUNCHES, LAUNCHES_RUNS
     dev = table.device
     if dev.type == "cpu":
         return fill_many_ref(table, chunks, mode=mode, og=og, eg=eg,
@@ -347,19 +355,19 @@ def fill_many(table: torch.Tensor, chunks: Sequence[batch.Chunk], *,
     out, carry_floats = _alloc(chunks, table, score_only, runs)
     if out.desc.shape[0] == 0:
         return out
-    codes1 = torch.from_numpy(np.concatenate(
-        [ch.codes1.ravel() for ch in chunks])).to(dev)
-    codes2 = torch.from_numpy(np.concatenate(
-        [ch.codes2.ravel() for ch in chunks])).to(dev)
+    codes1 = batch.to_device(np.concatenate(
+        [ch.codes1.ravel() for ch in chunks]), dev)
+    codes2 = batch.to_device(np.concatenate(
+        [ch.codes2.ravel() for ch in chunks]), dev)
     carry = torch.empty(carry_floats, dtype=torch.float32, device=dev)
-    plan = device_plan(chunks, 0 if score_only else 2 if runs else 1, dev)
+    pools = 0 if score_only else 2 if runs else 1
+    plan = device_plan(chunks, pools, dev)
     launch(plan, table.to(torch.float32).contiguous(), codes1, codes2,
            out.desc, out.tb, carry, out.stats, mode=mode,
            traceback=not score_only, og=og, eg=eg, run=out.run)
-    if runs:
-        LAUNCHES_RUNS += len(plan)
-    else:
-        LAUNCHES += len(plan)
+    K = "K10" if runs else "K1"
+    metrics.count("launch." + K, len(plan))
+    metrics.count("cells.computed." + K, computed_cells(chunks, pools))
     return out
 
 
@@ -369,8 +377,7 @@ def device_plan(chunks: Sequence[batch.Chunk], pools: int,
     rows uploaded there (one copy): ``[(R, NW, order int32 tensor)]``."""
     plan = launch_plan(chunks, pools, torch.cuda.get_device_properties(
         device).multi_processor_count)
-    order = torch.from_numpy(np.concatenate([o for *_, o in plan])).to(
-        device)
+    order = batch.to_device(np.concatenate([o for *_, o in plan]), device)
     out, lo = [], 0
     for R, NW, rows in plan:
         out.append((R, NW, order[lo:lo + len(rows)]))

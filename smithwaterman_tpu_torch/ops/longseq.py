@@ -40,6 +40,7 @@ import torch
 
 from ..config import (CELL_GAPINX, CELL_GAPINY, CELL_MATCH, CELL_STOP,
                       GLOBAL, LOCAL)
+from ..utils import metrics
 from . import batch
 from .device_walk import _walk_starts
 from .fill_dp import STATS_W
@@ -51,10 +52,6 @@ DEFAULT_CKPT_ROWS = 256
 # refills as many bands of every pair in one launch (a block a band) as fit
 # this and the pointer budget
 REFILL_BYTES = 320 << 20
-
-# launches made through the wrappers below (plain counts, read by
-# chip_smoke.py)
-LAUNCHES = {"K3": 0, "K4": 0, "K5": 0}
 
 Ckpts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -90,6 +87,24 @@ def group_bands(B: int, NP: int, MP: int, budget: int,
     bb = band_bytes(C, MP)
     room = (budget // max(B, 1) - ckpt_bytes(NP, MP, C)) // bb
     return max(1, min(n_ckpts(NP, C), REFILL_BYTES // bb, room))
+
+
+def band_buffer_bytes(B: int, NP: int, MP: int,
+                      C: int = DEFAULT_CKPT_ROWS) -> int:
+    """Device bytes of the refilled bands :func:`align_long_packed` holds
+    for a B-pair chunk: :func:`group_bands` bands of every pair."""
+    return group_bands(B, NP, MP, batch.tb_budget(), C) * B * band_bytes(C, MP)
+
+
+def band_cells(n: np.ndarray, m: np.ndarray, C: int, lo: int = 0,
+               hi: Optional[int] = None) -> int:
+    """The cells K3 (bands ``lo`` ..) or K4 (bands ``lo`` .. ``hi - 1``)
+    computes for pairs of lengths ``n``, ``m``: C rows of each band the
+    pair has rows in, times its columns."""
+    bands = -(-n.astype(np.int64) // C)
+    rows = np.clip(bands if hi is None else np.minimum(bands, hi), lo,
+                   None) - lo
+    return int(np.dot(rows * C, m))
 
 
 def band_view(band: torch.Tensor, C: int, MP: int) -> torch.Tensor:
@@ -216,7 +231,7 @@ def fill_checkpointed(table, codes1, codes2, n, m, *, mode: int, og: float,
                           dtype=torch.int32, device=dev)
     kernels.ckpt_fill(table, codes1, codes2, n, m, *ck, stats, scratch,
                       mode=mode, C=C, og=og, eg=eg)
-    LAUNCHES["K3"] += 1
+    metrics.count("launch.K3")
     return stats, ck
 
 
@@ -264,7 +279,7 @@ def fill_bands(table, codes1, codes2, n, m, ck: Ckpts, bands, *, sk0: int,
 
     kernels.band_fill(table, codes1, codes2, n, m, *ck, bands, mode=mode,
                       C=C, sk0=sk0, og=og, eg=eg)
-    LAUNCHES["K4"] += 1
+    metrics.count("launch.K4")
 
 
 def fill_band(table, codes1, codes2, n, m, ck: Ckpts, band, *, sk: int,
@@ -366,7 +381,7 @@ def walk_segments(bands, walk, cnt, moves, *, sk0: int, C: int, MP: int,
 
     kernels.seg_walk(bands, walk, cnt, moves, local=local, C=C, sk0=sk0,
                      MP=MP, L=L)
-    LAUNCHES["K5"] += 1
+    metrics.count("launch.K5")
 
 
 def walk_segment(band, walk, cnt, moves, *, sk: int, C: int, MP: int, L: int,
@@ -389,18 +404,22 @@ def align_long_packed(table: torch.Tensor, chunk: batch.Chunk, *, mode: int,
     contract, for ``ops/reconstruct.reconstruct_packed``.  One K3 launch,
     then one K4 launch per group of :func:`group_bands` bands (at the
     pointer budget ``batch.tb_budget``), each followed by one K5 launch
-    that walks the group's bands."""
+    that walks the group's bands.  On a card each launch counts the cells
+    it computes (``cells.computed.K3`` / ``.K4``)."""
     dev = table.device
-    _device(table)
+    card = _device(table) == "cuda"
     C = ckpt_rows or DEFAULT_CKPT_ROWS
     table = table.to(torch.float32).contiguous()
-    codes1, codes2, n, m = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                            for a in chunk)
-    B, NP = codes1.shape
-    MP = codes2.shape[1]
+    B, NP, MP = chunk.shape
     L = NP + MP + 2
     args = dict(mode=mode, og=og, eg=eg, C=C)
-    stats, ck = fill_checkpointed(table, codes1, codes2, n, m, **args)
+    with metrics.span("ckpt"):
+        codes1, codes2, n, m = (
+            batch.to_device(np.ascontiguousarray(a), dev) for a in chunk)
+        stats, ck = fill_checkpointed(table, codes1, codes2, n, m, **args)
+        if card:
+            metrics.count("cells.computed.K3",
+                          band_cells(chunk.n, chunk.m, C))
     walk = walk_start(stats, n, m, mode)
     cnt = torch.zeros((B,), dtype=torch.int32, device=dev)
     moves = torch.zeros((-(-L // 4), B), dtype=torch.uint8, device=dev)
@@ -410,7 +429,13 @@ def align_long_packed(table: torch.Tensor, chunk: batch.Chunk, *, mode: int,
     for top in range(n_ckpts(NP, C) - 1, -1, -G):
         sk0 = max(0, top - G + 1)
         group = bands[:top - sk0 + 1]
-        fill_bands(table, codes1, codes2, n, m, ck, group, sk0=sk0, **args)
-        walk_segments(group, walk, cnt, moves, sk0=sk0, C=C, MP=MP, L=L,
-                      local=mode == LOCAL)
+        with metrics.span("group", bands=top - sk0 + 1,
+                          rows=min((top + 1) * C, NP) - sk0 * C):
+            fill_bands(table, codes1, codes2, n, m, ck, group, sk0=sk0,
+                       **args)
+            if card:
+                metrics.count("cells.computed.K4", band_cells(
+                    chunk.n, chunk.m, C, sk0, top + 1))
+            walk_segments(group, walk, cnt, moves, sk0=sk0, C=C, MP=MP, L=L,
+                          local=mode == LOCAL)
     return stats, cnt, moves

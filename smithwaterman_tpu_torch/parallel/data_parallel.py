@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops import batch, device_walk, diag_dp, fill_dp
+from ..utils import metrics
 
 
 @dataclass(frozen=True)
@@ -144,6 +145,9 @@ class DataParallel:
         full.insert(axis, B)
         out = torch.zeros(full, dtype=dtype)
         for rows, t in parts:
+            if t.device.type == "cuda":
+                metrics.count("copy.d2h")
+                metrics.count("copy.d2h_bytes", t.numel() * t.element_size())
             idx = torch.from_numpy(rows)
             out.index_copy_(axis, idx, t.cpu())
         return out

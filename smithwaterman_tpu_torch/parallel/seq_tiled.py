@@ -38,14 +38,12 @@ import torch
 
 from ..config import CELL_MATCH, CELL_STOP, GLOBAL, GLOCAL, LOCAL
 from ..ops import longseq
+from ..utils import metrics
 from .data_parallel import Mesh
 
 NEG = -3.0e38
 BIGI = 2 ** 30
 
-# launches made through the wrappers below (plain counts, read by
-# chip_smoke.py)
-LAUNCHES = {"K12": 0, "K13": 0}
 # each kernel's last launch's shape (ops/kernels.striped_block's return:
 # tiles, lanes, E, blocks), read by chip_smoke.py and scripts/ab_striped.py
 SHAPES: Dict[str, dict] = {}
@@ -269,7 +267,7 @@ def block_fill(S, n, m, rows, box, above, best, best_i, acc, tb, *, ds, t,
     for k in range(0, len(ds), kernels.MAX_SHARDS):
         SHAPES["K12"] = kernels.striped_block(
             *state, ds=ds[k:k + kernels.MAX_SHARDS], **args)
-        LAUNCHES["K12"] += 1
+        metrics.count("launch.K12")
 
 
 # ------------------------------------------------------------ K13
@@ -335,7 +333,7 @@ def grid_fill(S, n, m, *, mode: int, pen: Pen, C: Optional[int] = None):
 
         SHAPES["K13"] = kernels.striped_grid(S, n, m, best, best_i, acc, ck,
                                              C=C or 0, mode=mode, pen=pen)
-        LAUNCHES["K13"] += 1
+        metrics.count("launch.K13")
     else:
         raise ValueError(f"no striped fill for device {dev}")
     return best, best_i, acc, ck

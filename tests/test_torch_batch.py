@@ -198,7 +198,12 @@ def test_stats_and_phases():
     s = ba.stats.summary()
     assert s["pairs"] == sum(1 for a, b in pairs if a and b)
     assert ba.stats.run_seconds > 0
-    assert set(ba.phase) == {"bucket", "dispatch", "gather", "reconstruct"}
+    assert set(ba.phase) == {"call", "bucket", "encode", "table", "pack",
+                             "plan", "flush", "dispatch", "fill", "walk",
+                             "gather", "copy", "reconstruct"}
+    assert set(s["spans"]) == set(ba.phase)
+    assert s["counters"]["cells.true"] == sum(len(a) * len(b)
+                                              for a, b in pairs)
 
 
 def test_banded_not_ported():

@@ -6,6 +6,7 @@ be identical bytes.  The port runs on the CPU here, asked for with
 ``device="cpu"``: its default is the card.
 """
 
+import json
 import os
 
 import pytest
@@ -95,6 +96,19 @@ def frozen_clock(monkeypatch):
                             lambda cls=cls: cls(wall_start=1000.0))
 
 
+def _without_spans(err: str) -> str:
+    """The port's stderr with its -stats report's "spans" and "counters"
+    (the program's own recorder, which the JAX CLI has not) taken out."""
+    lines = err.split("\n")
+    for k, line in enumerate(lines):
+        if line.startswith('{"pairs"'):
+            rep = json.loads(line)
+            for key in ("spans", "counters"):
+                rep.pop(key)
+            lines[k] = json.dumps(rep)
+    return "\n".join(lines)
+
+
 def test_stats_and_band(files, capsys, frozen_clock):
     """-stats alone, and -band with and without -stats: stdout and the
     stderr report byte-identical to the JAX CLI's."""
@@ -109,7 +123,8 @@ def test_stats_and_band(files, capsys, frozen_clock):
         ours = capsys.readouterr()
         jcli.main(argv)
         theirs = capsys.readouterr()
-        assert (ours.out, ours.err) == (theirs.out, theirs.err)
+        assert (ours.out, _without_spans(ours.err)) == (theirs.out,
+                                                        theirs.err)
         assert ours.out.count("#score:") == 6
         assert ('"pairs": 6' in ours.err) == ("-stats" in argv)
 

@@ -14,6 +14,7 @@ from smithwaterman_tpu_torch import GLOBAL, GLOCAL, LOCAL, BatchAligner
 from smithwaterman_tpu_torch.matrices import SubstitutionMatrix
 from smithwaterman_tpu_torch.ops import (batch, device_walk, diag_dp,
                                          fill_dp, longseq)
+from smithwaterman_tpu_torch.utils import metrics
 
 pytestmark = pytest.mark.gpu
 MODES = [LOCAL, GLOCAL, GLOBAL]
@@ -24,6 +25,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _launches(*kernels):
+    """The registry's launch counts of ``kernels`` (``launch.K1`` ...)."""
+    return tuple(metrics.counter("launch." + k) for k in kernels)
 
 
 def _chunks(seed):
@@ -169,13 +175,52 @@ def test_batch_cuda_matches_cpu(cuda, mode):
     pairs = [("".join(rng.choice(letters, int(rng.integers(1, 300)))),
               "".join(rng.choice(letters, int(rng.integers(1, 300)))))
              for _ in range(40)] + [("", "ACD")]
-    before = (fill_dp.LAUNCHES, device_walk.LAUNCHES)
+    before = _launches("K1", "K2")
     got = BatchAligner(mode=mode, device="cuda").align_pairs(pairs)
-    assert fill_dp.LAUNCHES > before[0] and device_walk.LAUNCHES > before[1]
+    after = _launches("K1", "K2")
+    assert after[0] > before[0] and after[1] > before[1]
     want = BatchAligner(mode=mode, device="cpu").align_pairs(pairs)
     assert [(r.aligned1, r.aligned2, r.score, r.start1, r.end2)
             for r in got] == [(r.aligned1, r.aligned2, r.score, r.start1,
                                r.end2) for r in want]
+
+
+def test_fill_launches_lie_in_the_programs_fill_span(cuda):
+    """In a profiled call, the host side of every K1 launch (the runtime
+    call whose correlation id the kernel carries) lies inside the
+    program's ``fill`` span of its flush, on the profiler's own clock,
+    and the registry counts each launch once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(7)
+    letters = np.array(list("ARNDCQEGHILKMFPSTWYV"))
+    pairs = [("".join(rng.choice(letters, int(rng.integers(20, 900)))),
+              "".join(rng.choice(letters, int(rng.integers(20, 900)))))
+             for _ in range(48)]
+    eng = BatchAligner(mode=GLOCAL, device="cuda")
+    eng.align_pairs(pairs)  # builds the kernels outside the profile
+    metrics.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.align_pairs(pairs)
+        torch.cuda.synchronize()
+    (call,) = metrics.calls()
+    fills = [(s.start, s.end) for s in call.spans if s.name == "fill"]
+    events = list(prof.profiler.kineto_results.events())
+    k1 = {e.correlation_id() for e in events
+          if e.device_type() == DeviceType.CUDA
+          and "fill_kernel" in e.name()}
+    hosts = [e for e in events if e.device_type() == DeviceType.CPU
+             and e.name() in ("cudaLaunchKernel", "cuLaunchKernel",
+                              "cudaLaunchKernelExC")
+             and e.correlation_id() in k1]
+    assert len(k1) == len(hosts) == call.counts["launch.K1"] > 0
+    assert len(fills) == call.attrs["flushes"]
+    for e in hosts:
+        assert any(lo <= e.start_ns() and
+                   e.start_ns() + e.duration_ns() <= hi
+                   for lo, hi in fills), e.start_ns()
 
 
 GUARD = 4096   # canary bytes on each side of a fenced output
@@ -323,9 +368,9 @@ def test_run_fill_and_token_walk_match_plain(cuda, mode, which,
     tab = torch.from_numpy(SubstitutionMatrix.blosum62().table).to(cuda)
     for og, eg in ((-10.0, -0.5), (0.0, 0.0)):
         args = dict(mode=mode, og=og, eg=eg)
-        before = fill_dp.LAUNCHES_RUNS
+        before = metrics.counter("launch.K10")
         got = fill_dp.fill_many(tab, chunks, runs=True, **args)
-        assert fill_dp.LAUNCHES_RUNS == before + len(
+        assert metrics.counter("launch.K10") == before + len(
             fill_dp.launch_plan(chunks, pools=2))
         ref = fill_dp.fill_many_ref(tab, chunks, runs=True, **args)
         k1 = fill_dp.fill_many(tab, chunks, **args)
@@ -387,9 +432,9 @@ def test_diag_kernel_matches_plain(cuda, og, eg, R, monkeypatch):
     for table, chs in ((blosum, chunks + [_strip_chunk(np.uint8)]),
                        (wide, [_strip_chunk(np.int16)])):
         tab = torch.from_numpy(table).to(cuda)
-        before = diag_dp.LAUNCHES
+        before = metrics.counter("launch.K9")
         got = diag_dp.fill_diag(tab, chs, og=og, eg=eg)
-        assert diag_dp.LAUNCHES == before + 1
+        assert metrics.counter("launch.K9") == before + 1
         if R is not None:
             assert diag_dp.SHAPE["R"] == R
         ref = torch.cat([diag_dp.fill_diag_ref(
@@ -415,18 +460,18 @@ def test_opt_in_routes_cuda_match_cpu(cuda, mode, monkeypatch):
     pairs.append(("", "ACD"))
     want = BatchAligner(mode=mode, device="cpu").align_pairs(pairs)
     monkeypatch.setenv("SWTPU_TOKEN_WALK", "1")
-    before = (fill_dp.LAUNCHES_RUNS, device_walk.LAUNCHES_TOKENS,
-              fill_dp.LAUNCHES, device_walk.LAUNCHES)
+    before = _launches("K10", "K11", "K1", "K2")
     got = BatchAligner(mode=mode, device="cuda").align_pairs(pairs)
-    assert fill_dp.LAUNCHES_RUNS > before[0]
-    assert device_walk.LAUNCHES_TOKENS > before[1]
-    assert (fill_dp.LAUNCHES, device_walk.LAUNCHES) == before[2:]
+    after = _launches("K10", "K11", "K1", "K2")
+    assert after[0] > before[0]
+    assert after[1] > before[1]
+    assert after[2:] == before[2:]
     assert [vars(r) for r in got] == [vars(r) for r in want]
     if mode != LOCAL:
         return
-    before = diag_dp.LAUNCHES
+    before = metrics.counter("launch.K9")
     scores = BatchAligner(device="cuda", diag_scores=True).score_pairs(pairs)
-    assert diag_dp.LAUNCHES > before
+    assert metrics.counter("launch.K9") > before
     np.testing.assert_array_equal(
         scores, BatchAligner(device="cpu").score_pairs(pairs))
 
@@ -683,9 +728,9 @@ def test_longseq_kernels_match_plain(cuda, mode, C):
             torch.cuda.synchronize()
             _assert_bands_equal(bands[:g], rbands[:g], ch, C, sk0)
             kw = dict(sk0=sk0, C=C, MP=MP, L=L, local=mode == LOCAL)
-            before = longseq.LAUNCHES["K5"]
+            before = metrics.counter("launch.K5")
             longseq.walk_segments(bands[:g], walk, cnt, moves, **kw)
-            assert longseq.LAUNCHES["K5"] == before + 1
+            assert metrics.counter("launch.K5") == before + 1
             longseq.walk_segments_ref(bands[:g], rwalk, rcnt, rmoves, **kw)
             torch.cuda.synchronize()
             assert torch.equal(walk, rwalk) and torch.equal(cnt, rcnt), (
@@ -695,9 +740,9 @@ def test_longseq_kernels_match_plain(cuda, mode, C):
     if nck > 1:
         bands = torch.zeros((nck - 1, B, bb), dtype=torch.uint8, device=cuda)
         rbands = bands.clone()
-        before = longseq.LAUNCHES["K4"]
+        before = metrics.counter("launch.K4")
         longseq.fill_bands(tab, c1, c2, n, m, ck, bands, sk0=1, **args)
-        assert longseq.LAUNCHES["K4"] == before + 1
+        assert metrics.counter("launch.K4") == before + 1
         longseq.fill_bands_ref(tab, c1, c2, n, m, ck, rbands, sk0=1, **args)
         torch.cuda.synchronize()
         _assert_bands_equal(bands, rbands, ch, C, 1)
@@ -716,10 +761,10 @@ def test_long_route_matches_ordinary(cuda, mode):
         if k % 3 == 0 and len(a) > 120:
             b = b[:30] + a[20:120] + b[30:]
         pairs.append((a, b))
-    longseq.LAUNCHES.update(K3=0, K4=0, K5=0)
+    before = _launches("K3", "K4", "K5")
     got = BatchAligner(mode=mode, device="cuda",
                        longseq_cells=1).align_pairs(pairs)
-    assert min(longseq.LAUNCHES.values()) > 0
+    assert all(a > b for a, b in zip(_launches("K3", "K4", "K5"), before))
     want = BatchAligner(mode=mode, device="cuda").align_pairs(pairs)
     for g, w in zip(got, want):
         assert (g.aligned1, g.aligned2, g.score, g.start1, g.end1, g.start2,
@@ -882,10 +927,10 @@ def test_banded_cuda_matches_cpu(cuda, mode):
 
     table = SubstitutionMatrix.blosum62().table
     pairs = _banded_pairs(80 + mode)
-    before = dict(banded.LAUNCHES)
+    before = _launches("K6", "K7", "K8")
     got = banded.align_banded_batch(pairs, table, mode=mode, og=-10.0,
                                     eg=-0.5, band=128, device="cuda")
-    assert all(banded.LAUNCHES[k] > before[k] for k in before)
+    assert all(a > b for a, b in zip(_launches("K6", "K7", "K8"), before))
     assert got == banded.align_banded_batch(pairs, table, mode=mode, og=-10.0,
                                             eg=-0.5, band=128, device="cpu")
     s1 = "".join("ACDEFGHIKLMNPQRSTVWY"[c] for c in pairs[0][0])
@@ -1062,7 +1107,7 @@ def test_striped_kernels_match_plain(cuda, mode, plan, monkeypatch):
 
     if plan:
         monkeypatch.setattr(kernels, "striped_plan", lambda *a: plan)
-    before = dict(seq_tiled.LAUNCHES)
+    before = _launches("K12", "K13")
     with _Lockstep() as ls:
         for D, MP in ((1, 512), (2, 1024), (4, 2048), (1, 300), (2, 600),
                       (4, 1200), (4, 132)):
@@ -1098,7 +1143,7 @@ def test_striped_kernels_match_plain(cuda, mode, plan, monkeypatch):
                 assert shape["blocks"] < shape["tiles"], (k, shape)
     torch.cuda.synchronize()
     assert ls.err == 0.0 and ls.launches > 0
-    assert all(seq_tiled.LAUNCHES[k] > before[k] for k in before)
+    assert all(a > b for a, b in zip(_launches("K12", "K13"), before))
 
 
 @pytest.mark.parametrize("mode", MODES)
