@@ -11,7 +11,9 @@ every user surface goes through (CLI, clustering, the single-pair
 3. flushes: buckets cut into chunks whose pointer bytes fit the budget
    (``ops/batch.plan_flushes``); a bucket whose single pair's pointers
    exceed it (or, with ``longseq_cells``, whose padded cells reach that
-   count) takes the long-sequence route instead;
+   count) takes the long-sequence route instead, and so does a bucket of
+   long pairs in an ordinary flush too small in pairs to occupy the card
+   (``ops/batch.occupancy_long``, counted in ``route.long.occupancy``);
 4. per flush, the fill (kernel K1, ``ops/fill_dp.fill_many``) and the walk
    (kernel K2, ``ops/device_walk.walk_packed``), one launch each over all
    of the flush's pairs, leaving only the stats, move counts and packed
@@ -56,13 +58,14 @@ raises where there is none.
 Each call is one ``utils.metrics.call`` with a span around every stage
 (the layer map of ``PERF.md`` section 3): ``bucket`` (``encode``,
 ``table``, ``pack``, ``plan``), then a ``flush`` a flush (attributes:
-route, pairs, padded cells, pointer bytes) holding ``dispatch``
-(``fill``, ``walk``, or ``long`` with ``ckpt`` and a ``group`` a band
-group), ``gather`` (``wait`` for the card's stream, ``copy`` of the
-results) and ``reconstruct``.  :attr:`BatchAligner.phase` is the last
-call's seconds by span name.  The call is traced (its spans and counts
-logged, ``utils.metrics.calls()``) while a ``torch.profiler`` records or
-a :class:`~.utils.metrics.StatsCollector` is attached.
+route, why a long flush is long, pairs, padded cells, pointer bytes)
+holding ``dispatch`` (``fill``, ``walk``, or ``long`` with ``ckpt`` and
+a ``group`` a band group), ``gather`` (``wait`` for the card's stream,
+``copy`` of the results) and ``reconstruct``.
+:attr:`BatchAligner.phase` is the last call's seconds by span name.  The
+call is traced (its spans and counts logged, ``utils.metrics.calls()``)
+while a ``torch.profiler`` records or a
+:class:`~.utils.metrics.StatsCollector` is attached.
 """
 
 from __future__ import annotations
@@ -257,10 +260,15 @@ class BatchAligner:
                 ctype = batch_ops.code_dtype(np.shape(sm.table)[0])
                 chunks = [bk.chunk(ctype) for bk in order]
             with metrics.span("plan"):
+                # the card's SMs for the occupancy rule, on the ordinary
+                # route alone (not the token walk, not sharded)
+                ordinary = not (score_only or self.token_walk
+                                or self.device_axis is not None)
                 flushes = batch_ops.plan_flushes(
                     chunks, batch_ops.tb_budget(), score_only,
                     long_cells=self.longseq_cells,
-                    runs=self.token_walk and not score_only)
+                    runs=self.token_walk and not score_only,
+                    sms=batch_ops.card_sms(self.device) if ordinary else 0)
             # caller positions of each pair, in flush order
             positions = [i for bk in order for i in bk.indices]
         call.attrs["flushes"] = len(flushes)
@@ -301,8 +309,11 @@ class BatchAligner:
             ptr *= 2 if route == "tokens" else 1
         metrics.count("cells.true", sum(int(np.dot(ch.n.astype(np.int64),
                                                    ch.m)) for ch in chunks))
-        with metrics.span("flush", route=route, pairs=len(pos),
-                          padded_cells=padded, pointer_bytes=ptr):
+        if flush.why == "occupancy":
+            metrics.count("route.long.occupancy", len(pos))
+        with metrics.span("flush", route=route, why=flush.why,
+                          pairs=len(pos), padded_cells=padded,
+                          pointer_bytes=ptr):
             stats_d, cnt_d, mv_d = self._dispatch(route, chunks, table)
             with metrics.span("gather"):
                 # the sharded route's outputs are on the host already

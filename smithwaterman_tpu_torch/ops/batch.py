@@ -85,16 +85,60 @@ class Chunk(NamedTuple):
 
 
 class Flush(NamedTuple):
-    """Chunks filled and walked together; ``long``: one chunk that takes the
-    long-sequence route (``ops/longseq.align_long_packed``)."""
+    """Chunks filled and walked together; ``why`` is None on the ordinary
+    route, else why the flush takes the long-sequence route
+    (``ops/longseq.align_long_packed``, one chunk): ``"budget"`` (a pair's
+    pointers pass the budget), ``"long_cells"`` (the caller's
+    ``longseq_cells``) or ``"occupancy"`` (K1 would leave most of the card
+    idle, :func:`occupancy_long`)."""
 
     chunks: List[Chunk]
-    long: bool = False
+    why: Optional[str] = None
+
+    @property
+    def long(self) -> bool:
+        return self.why is not None
+
+
+# The occupancy rule (:func:`occupancy_long`): K1 fills a pair in one block,
+# on one SM, while the long route runs a warp (K3) and a block (K4) a
+# 256-row band of every pair.  An ordinary traceback flush of at most
+# 1 / OCCUPANCY_SHARE of the card's SMs in pairs runs its buckets of at
+# least LONG_MIN_ROWS padded rows on the long route.  Set from one H100's
+# table of both routes (scripts/ab_route.py, PERF.md section 6): the long
+# route won every such shape from 4096 rows up, 1.1-13x; at 2048 rows K1
+# won LOCAL flushes of 16 to 128 pairs.
+OCCUPANCY_SHARE = 2
+LONG_MIN_ROWS = 4096
+
+
+def card_sms(device) -> int:
+    """The SM count of the card ``device`` as the occupancy rule reads it;
+    0 off a card.  K1's launch plan reads the card apart
+    (``fill_dp.device_plan``), so a test or a timing that sets this to 0
+    turns the rule off and leaves K1 as it runs."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def occupancy_long(pairs: int, NP: int, sms: int) -> bool:
+    """Whether a bucket of NP padded rows in an ordinary traceback flush of
+    ``pairs`` pairs takes the long route on a card of ``sms`` SMs (0: never):
+    K1 would run the flush on at most 1 / :data:`OCCUPANCY_SHARE` of the
+    card, and the bucket's rows give the long route's kernels
+    :data:`LONG_MIN_ROWS` // 256 bands or more a pair to spread."""
+    return 0 < pairs * OCCUPANCY_SHARE <= sms and NP >= LONG_MIN_ROWS
+
+
+# a piece of a chunk: (chunk index, first pair, end pair)
+_Piece = Tuple[int, int, int]
 
 
 def plan_flushes(chunks: Iterable[Chunk], budget: int, score_only: bool,
                  long_cells: Optional[int] = None,
-                 runs: bool = False) -> List[Flush]:
+                 runs: bool = False, sms: int = 0) -> List[Flush]:
     """Split bucket chunks so each piece's pointer array fits ``budget``,
     then group pieces into flushes whose pointers fit it together (input
     order kept).  Score-only fills keep no pointers: one flush.  With
@@ -106,39 +150,87 @@ def plan_flushes(chunks: Iterable[Chunk], budget: int, score_only: bool,
     the long-sequence route: pieces of as many pairs as fit the budget at
     ``longseq.pair_bytes(NP, MP)`` device bytes each (checkpoints and one
     band; the route refills as many bands at once as the rest of the
-    budget holds, ``longseq.group_bands``), one flush apiece.  The
-    JAX package counts a whole tile group of pairs against the budget, the
-    port one pair; both routes are exact, so the results do not depend on
-    which one runs."""
-    from . import longseq  # it builds on this module's Chunk
-
+    budget holds, ``longseq.group_bands``), one flush apiece.  With
+    ``sms``, the SM count of the card an ordinary traceback flush would
+    run on, the pieces of a grouped flush that :func:`occupancy_long`
+    picks take that route too: adjacent pieces of one chunk joined, then
+    cut the same way.  The JAX package counts a whole tile group of pairs
+    against the budget, the port one pair; both routes are exact, so the
+    results do not depend on which one runs."""
     chunks = list(chunks)
     if score_only:
         return [Flush(chunks)] if chunks else []
-    flushes: List[Flush] = []
-    cur: List[Chunk] = []
+    groups: List[Tuple[Optional[str], List[_Piece]]] = []
+    cur: List[_Piece] = []
     cur_bytes = 0
-    for ch in chunks:
+    for ci, ch in enumerate(chunks):
         B, NP, MP = ch.shape
         per_pair = NP * MP * (2 if runs else 1)
-        if per_pair > budget or (long_cells is not None
-                                 and NP * MP >= long_cells):
+        why = ("budget" if per_pair > budget else "long_cells"
+               if long_cells is not None and NP * MP >= long_cells else None)
+        if why:
             if cur:
-                flushes.append(Flush(cur))
+                groups.append((None, cur))
                 cur, cur_bytes = [], 0
-            step = max(1, budget // longseq.pair_bytes(NP, MP))
-            flushes += [Flush([Chunk(*(a[lo:lo + step] for a in ch))], True)
-                        for lo in range(0, B, step)]
+            groups.append((why, [(ci, 0, B)]))
             continue
         step = budget // per_pair
         for lo in range(0, B, step):
-            piece = Chunk(*(a[lo:lo + step] for a in ch))
-            nbytes = piece.shape[0] * per_pair
+            hi = min(B, lo + step)
+            nbytes = (hi - lo) * per_pair
             if cur and cur_bytes + nbytes > budget:
-                flushes.append(Flush(cur))
+                groups.append((None, cur))
                 cur, cur_bytes = [], 0
-            cur.append(piece)
+            cur.append((ci, lo, hi))
             cur_bytes += nbytes
     if cur:
-        flushes.append(Flush(cur))
-    return flushes
+        groups.append((None, cur))
+    if sms:
+        groups = _occupancy(groups, chunks, sms)
+    return [flush for why, pieces in groups
+            for flush in _flushes(why, pieces, chunks, budget)]
+
+
+def _occupancy(groups, chunks: List[Chunk], sms: int):
+    """``groups`` with the pieces of each ordinary group that
+    :func:`occupancy_long` picks moved to long groups, in order, adjacent
+    pieces of one chunk joined."""
+    out: List[Tuple[Optional[str], List[_Piece]]] = []
+    for why, pieces in groups:
+        if why is not None:
+            out.append((why, pieces))
+            continue
+        pairs = sum(hi - lo for _, lo, hi in pieces)
+        ordinary: List[_Piece] = []
+        for ci, lo, hi in pieces:
+            if not occupancy_long(pairs, chunks[ci].shape[1], sms):
+                ordinary.append((ci, lo, hi))
+                continue
+            if ordinary:
+                out.append((None, ordinary))
+                ordinary = []
+            if out and out[-1][0] == "occupancy" and \
+                    out[-1][1][0][0] == ci and out[-1][1][0][2] == lo:
+                lo = out.pop()[1][0][1]
+            out.append(("occupancy", [(ci, lo, hi)]))
+        if ordinary:
+            out.append((None, ordinary))
+    return out
+
+
+def _flushes(why: Optional[str], pieces: List[_Piece], chunks: List[Chunk],
+             budget: int) -> List[Flush]:
+    """The flushes of one group: its pieces together, or one long flush a
+    ``longseq.pair_bytes`` cut of its one piece."""
+    def part(ci, lo, hi):
+        return Chunk(*(a[lo:hi] for a in chunks[ci]))
+
+    if why is None:
+        return [Flush([part(*p) for p in pieces])]
+    from . import longseq  # it builds on this module's Chunk
+
+    (ci, lo, hi), = pieces
+    _, NP, MP = chunks[ci].shape
+    step = max(1, budget // longseq.pair_bytes(NP, MP))
+    return [Flush([part(ci, a, min(hi, a + step))], why)
+            for a in range(lo, hi, step)]

@@ -749,9 +749,9 @@ def test_longseq_kernels_match_plain(cuda, mode, C):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_long_route_matches_ordinary(cuda, mode):
-    """Every bucket through K3 -> K4 -> K5 against K1 -> K2: every field
-    of every result."""
+def test_long_route_matches_ordinary(cuda, mode, monkeypatch):
+    """Every bucket through K3 -> K4 -> K5 against K1 -> K2 (the occupancy
+    rule off: the planner sees no SMs): every field of every result."""
     rng = np.random.default_rng(50 + mode)
     letters = np.array(list("ARNDCQEGHILKMFPSTWYV"))
     pairs = []
@@ -765,11 +765,60 @@ def test_long_route_matches_ordinary(cuda, mode):
     got = BatchAligner(mode=mode, device="cuda",
                        longseq_cells=1).align_pairs(pairs)
     assert all(a > b for a, b in zip(_launches("K3", "K4", "K5"), before))
+    monkeypatch.setattr(batch, "card_sms", lambda device: 0)
+    before = _launches("K1", "K3")
     want = BatchAligner(mode=mode, device="cuda").align_pairs(pairs)
+    k1, k3 = (a - b for a, b in zip(_launches("K1", "K3"), before))
+    assert k1 > 0 and k3 == 0
     for g, w in zip(got, want):
         assert (g.aligned1, g.aligned2, g.score, g.start1, g.end1, g.start2,
                 g.end2) == (w.aligned1, w.aligned2, w.score, w.start1,
                             w.end1, w.start2, w.end2)
+
+
+@pytest.mark.parametrize("mode", [GLOCAL, LOCAL])
+def test_occupancy_rule_matches_ordinary(cuda, mode, monkeypatch):
+    """Two related DNA pairs of ~12 kbp, a flush the occupancy rule sends
+    down the long route (K3, K4, K5), against the ordinary route (K1, K2)
+    with the planner's SM count at 0: strings, scores and spans equal, and
+    ``route.long.occupancy`` counts both pairs."""
+    rng = np.random.default_rng(70 + mode)
+    pairs = []
+    for L in (12000, 11800):
+        a = rng.integers(0, 4, size=L)
+        b = a.copy()
+        sub = rng.random(L) < 0.02
+        b[sub] = rng.integers(0, 4, size=int(sub.sum()))
+        b = np.concatenate([b[:3000], b[3040:], rng.integers(0, 4, 25)])
+        pairs.append(("".join("ACGT"[c] for c in a),
+                      "".join("ACGT"[c] for c in b)))
+    dna = SubstitutionMatrix.match_mismatch(5.0, -4.0)
+    NP = max(len(a) for a, _ in pairs)
+    assert batch.occupancy_long(2, -(-NP // 256) * 256,
+                                batch.card_sms(cuda))
+
+    def run():
+        return BatchAligner(scoring_matrix=dna, gap_open=10.0,
+                            gap_extend=0.5, mode=mode,
+                            device="cuda").align_pairs(pairs)
+
+    before = _launches("K1", "K3", "K4", "K5")
+    moved = metrics.counter("route.long.occupancy")
+    got = run()
+    k1, k3, k4, k5 = (a - b for a, b in
+                      zip(_launches("K1", "K3", "K4", "K5"), before))
+    assert k1 == 0 and k3 == 1 and k4 >= 1 and k5 == k4
+    assert metrics.counter("route.long.occupancy") - moved == 2
+    monkeypatch.setattr(batch, "card_sms", lambda device: 0)
+    before = _launches("K1", "K3")
+    want = run()
+    k1, k3 = (a - b for a, b in zip(_launches("K1", "K3"), before))
+    assert k1 == 1 and k3 == 0
+    assert [(r.aligned1, r.aligned2, r.score, r.start1, r.end1, r.start2,
+             r.end2) for r in got] == [
+        (r.aligned1, r.aligned2, r.score, r.start1, r.end1, r.start2,
+         r.end2) for r in want]
+    assert all(len(r.aligned1) > 11000 for r in got)
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -573,6 +573,183 @@ def test_long_pieces_stay_inside_budget(budget):
         longseq.REFILL_BYTES // longseq.band_bytes(256, 70144)
 
 
+def _zeros(B, NP, MP, first=0):
+    """A chunk of B pairs whose n numbers them from ``first``."""
+    return batch.Chunk(np.zeros((B, NP), np.uint8),
+                       np.zeros((B, MP), np.uint8),
+                       np.arange(first, first + B, dtype=np.int32),
+                       np.full(B, MP, np.int32))
+
+
+def _plan_before(chunks, budget, long_cells=None, runs=False):
+    """The planner before the occupancy rule: (long, shapes) a flush."""
+    out, cur, cur_bytes = [], [], 0
+    for ch in chunks:
+        B, NP, MP = ch.shape
+        per_pair = NP * MP * (2 if runs else 1)
+        if per_pair > budget or (long_cells is not None
+                                 and NP * MP >= long_cells):
+            if cur:
+                out.append((False, cur))
+                cur, cur_bytes = [], 0
+            step = max(1, budget // longseq.pair_bytes(NP, MP))
+            out += [(True, [(min(step, B - lo), NP, MP)])
+                    for lo in range(0, B, step)]
+            continue
+        step = budget // per_pair
+        for lo in range(0, B, step):
+            shape = (min(step, B - lo), NP, MP)
+            if cur and cur_bytes + shape[0] * per_pair > budget:
+                out.append((False, cur))
+                cur, cur_bytes = [], 0
+            cur.append(shape)
+            cur_bytes += shape[0] * per_pair
+    if cur:
+        out.append((False, cur))
+    return out
+
+
+def _plan(flushes):
+    return [(f.long, [c.shape for c in f.chunks]) for f in flushes]
+
+
+def _order(chunks, flushes):
+    """Every pair once, in input order (each chunk's n numbers its pairs)."""
+    got = np.concatenate([c.n for f in flushes for c in f.chunks])
+    want = np.concatenate([c.n for c in chunks])
+    return np.array_equal(got, want)
+
+
+PLAN_CASES = {
+    "genome": [(4, 29952, 29952)],
+    "dna_70k": [(4, 70144, 70144)],
+    "protein_256": [(40, 1536, 1792), (60, 2048, 2048), (56, 2560, 3072),
+                    (50, 3584, 3584), (50, 4096, 4096)],
+    "mixed": [(3, 64, 64), (5, 512, 512), (2, 8192, 8192), (7, 16128, 16128),
+              (30, 29952, 30208), (1, 70144, 70144), (2, 64, 128)],
+    "many_30k": [(128, 29952, 29952)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+@pytest.mark.parametrize("budget", [4 << 30, 1 << 30, 512 * 512 - 1])
+@pytest.mark.parametrize("long_cells", [None, 1 << 26])
+def test_plan_without_sms_is_unchanged(case, budget, long_cells):
+    """With no SM count (off a card, score-only, the token walk, sharding)
+    every chunk plans as before the occupancy rule, in order."""
+    first = np.cumsum([0] + [B for B, _, _ in PLAN_CASES[case]])
+    chunks = [_zeros(B, NP, MP, f) for (B, NP, MP), f in
+              zip(PLAN_CASES[case], first)]
+    for runs in (False, True):
+        fl = batch.plan_flushes(chunks, budget, False, long_cells=long_cells,
+                                runs=runs)
+        assert _plan(fl) == _plan_before(chunks, budget, long_cells, runs)
+        assert _order(chunks, fl)
+        assert all(f.why in (None, "budget", "long_cells") for f in fl)
+
+
+def test_occupancy_moves_a_genome_flush():
+    """The genome cell's chunk, 4 pairs of 29,903 nt in a 29,952 bucket,
+    plans as one long flush of 4 on a 132-SM card, and as one K1 flush
+    without the SM count."""
+    ch = _zeros(4, 29952, 29952)
+    fl = batch.plan_flushes([ch], 4 << 30, False, sms=132)
+    assert [(f.why, [c.shape for c in f.chunks]) for f in fl] == [
+        ("occupancy", [(4, 29952, 29952)])]
+    assert _plan(batch.plan_flushes([ch], 4 << 30, False)) == [
+        (False, [(4, 29952, 29952)])]
+    # score-only fills keep no pointers: never moved
+    assert _plan(batch.plan_flushes([ch], 4 << 30, True, sms=132)) == [
+        (False, [(4, 29952, 29952)])]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_occupancy_keeps_full_flushes(sms):
+    """256 protein-sized pairs in one flush fill the card: it stays on K1.
+    So do short buckets in a flush of few pairs."""
+    first = np.cumsum([0] + [B for B, _, _ in PLAN_CASES["protein_256"]])
+    chunks = [_zeros(B, NP, MP, f) for (B, NP, MP), f in
+              zip(PLAN_CASES["protein_256"], first)]
+    fl = batch.plan_flushes(chunks, 4 << 30, False, sms=sms)
+    assert _plan(fl) == _plan_before(chunks, 4 << 30)
+    assert not any(f.long for f in fl)
+    short = [_zeros(2, 2048, 2048), _zeros(1, 3584, 4096, 2)]
+    assert _plan(batch.plan_flushes(short, 4 << 30, False, sms=sms)) == [
+        (False, [(2, 2048, 2048), (1, 3584, 4096)])]
+
+
+def test_occupancy_joins_a_chunk_and_keeps_order():
+    """Budget-cut K1 flushes of one chunk join into long pieces cut by
+    longseq.pair_bytes; over-budget chunks are cut as before; short buckets
+    of a moved flush stay on K1, in their place."""
+    budget = 4 << 30
+    shapes = [(3, 64, 64), (2, 8192, 8192), (128, 29952, 29952),
+              (3, 70144, 70144), (2, 64, 128)]
+    first = np.cumsum([0] + [B for B, _, _ in shapes])
+    chunks = [_zeros(B, NP, MP, f) for (B, NP, MP), f in zip(shapes, first)]
+    fl = batch.plan_flushes(chunks, budget, False, sms=132)
+    assert _order(chunks, fl)
+    step30 = budget // longseq.pair_bytes(29952, 29952)
+    step70 = budget // longseq.pair_bytes(70144, 70144)
+    assert step30 < 128 and step70 >= 3
+    # 3 + 2 + the first 4 of the 30k chunk fill the first K1 flush: 9 pairs
+    assert [(f.why, [c.shape for c in f.chunks]) for f in fl] == [
+        (None, [(3, 64, 64)]),
+        ("occupancy", [(2, 8192, 8192)]),
+        ("occupancy", [(step30, 29952, 29952)]),
+        ("occupancy", [(128 - step30, 29952, 29952)]),
+        ("budget", [(3, 70144, 70144)]),
+        (None, [(2, 64, 128)]),
+    ]
+    # the same chunks with a pointer budget two pairs of 30k hold
+    fl = batch.plan_flushes(chunks, 2 * 29952 * 29952, False, sms=132)
+    assert _order(chunks, fl)
+    assert all(f.why == "occupancy" for f in fl
+               if f.chunks[0].shape[1] in (8192, 29952))
+
+
+def _dna_pairs(seed, count, lo, hi):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        a = rng.integers(0, 4, size=int(rng.integers(lo, hi)))
+        b = a.copy()
+        sub = rng.random(len(a)) < 0.05
+        b[sub] = rng.integers(0, 4, size=int(sub.sum()))
+        b = np.concatenate([b[:40], b[47:], rng.integers(0, 4, 5)])
+        out.append(("".join("ACGT"[c] for c in a),
+                    "".join("ACGT"[c] for c in b)))
+    return out
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_occupancy_routes_small_flushes_long(mode, monkeypatch, spy):
+    """BatchAligner with the planner's SM count set (132) and the rule's
+    row floor lowered to these pairs' buckets: the few pairs take the long
+    route, the counter counts them, and every result equals the JAX
+    package's; a score-only call stays on K1."""
+    from smithwaterman_tpu_torch.utils import metrics
+
+    monkeypatch.setattr(batch, "card_sms", lambda device: 132)
+    monkeypatch.setattr(batch, "LONG_MIN_ROWS", 256)
+    pairs = _dna_pairs(11 + mode, 5, 200, 300) + [("ACGT", "ACGA")]
+    sm, jsm = (S.match_mismatch(5.0, -4.0) for S in (SubstitutionMatrix,
+                                                     JaxSM))
+    moved = metrics.counter("route.long.occupancy")
+    ours = BatchAligner(scoring_matrix=sm, mode=mode, device="cpu",
+                        gap_open=10.0, gap_extend=0.5).align_pairs(pairs)
+    theirs = jswt.BatchAligner(scoring_matrix=jsm, mode=mode,
+                               gap_open=10.0, gap_extend=0.5,
+                               backend="scan").align_pairs(pairs)
+    assert [_key(r) for r in ours] == [_key(r) for r in theirs]
+    assert metrics.counter("route.long.occupancy") - moved == 5
+    assert sum(s[0] for s in spy) == 5 and all(s[1] >= 256 for s in spy)
+    del spy[:]
+    BatchAligner(scoring_matrix=sm, mode=mode, device="cpu").score_pairs(
+        pairs)
+    assert not spy
+
+
 # ------------------------------------------------------------ calc_score
 def test_recalc_score_matches_jax():
     pairs = [("HEAG-AWGHE-E", "--PAWHE-AE--"), ("ACDEF", "ACDEF"),
